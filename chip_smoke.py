@@ -3,30 +3,54 @@
 
     python3 chip_smoke.py
 
-It drives the port's main path — the ``source_net`` serving path at full
-width (N=192, M=16), random weights from a seed — through the entry points
-a user calls, on a batch of 8 synthetic 512×768 images, and checks it.
+It drives the port's two serving paths at full width (N=192, M=16), random
+weights from a seed (UNTRAINED), through the entry points a user calls, on
+a batch of 8 synthetic 512×768 images, and checks them:
+
+* ``source_net`` — plain GDN transforms, the classic dual hyper, 4-slice
+  ChARM, the rANS roundtrip;
+* ``source_net_wam`` — the same with four ``WinNoShiftAttention`` gates
+  (window attention + 3×3/7×7 conv branches) in g_a and g_s.
+
 Each phase prints one line:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build: both kernels built from this checkout's sources (into
-   ``build/``), with the build seconds and the host rANS library loaded;
-3. B2 (Triton GDN) against its plain version at the 7 GDN/IGDN shapes of
-   one forward, fp32, atol/rtol 1e-5;
-4. B1 (CUDA rANS drain) against its plain version on host-encoded streams
-   with escapes, B=8, L=128, 4 slices threading state: bit-exact;
-5. the eval forward at full width (finite outputs), and the same model on
-   a small input against its CPU run (plain versions, no kernel);
-6. the roundtrip ``compress_batch`` → ``decompress_batch``: final-state
-   check, reconstruction within 1e-4 of the forward's; the kernels' launch
-   counts over the main path; then ``compress`` → ``decompress`` at B=1;
-7. times from CUDA events (UNTRAINED weights).
+2. build: the three CUDA sources (B1 drain, B3/B6 convs, B4/B5 attention)
+   built from this checkout into ``build/`` by one ``nvcc`` each, all
+   started together, with build seconds and ``ptxas`` register and spill
+   counts; the Triton GDN (B2) and the host rANS library
+   (``csrc/rans.cpp``);
+3. B2, B1, B4 and B5 against their plain versions at the paths' shapes,
+   fp32, atol/rtol 1e-5 (B1 bit-exact), a repeat call bit-identical, with
+   the kernel's, the plain version's and a library call's times (the
+   library call is a yardstick only; nothing on the path calls it);
+4. per path: the zero-init weights of the WAM gates (each attention's
+   output projection, each ``ResidualBlock``'s second conv) get small
+   seeded values, so that every check below sees those branches; the same
+   model on a small input against its CPU run (plain versions, no kernel),
+   stage by stage on the same inputs, so that no rounding flip can spread,
+   within 1e-4; the eval forward (finite); the roundtrip ``compress_batch``
+   → ``decompress_batch`` (final-state check, reconstruction within 1e-4 of
+   the forward's); the exact launch count of every kernel over forward +
+   roundtrip, counters zeroed just before and read just after, and every
+   B3/B6 call of that run with its shapes and flags, read by hooks on the
+   ``Conv2d`` modules; ``compress`` → ``decompress`` at B=1; the times.
+   ``source_net_wam`` then checks that every attention branch outputs
+   non-zero values and runs its forward once more with ``fuse_proj``
+   (kernel B5 in place of B4): its launches, and g_a's latent and the
+   synthesis of the same latent within 1e-4 of the B4 run's (the whole
+   forward would compare rounded symbols, where a 1e-6 difference can flip
+   one);
+5. B3 and B6 against their plain versions, as in 3, at every distinct
+   shape and flag set that the paths gave them in 4, with the time of the
+   per-call OIHW → HWIO weight copy, which the kernel times include.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
-it replaces, launches, max error and times, and, last, the device JSON.
-Any failure raises: the exit code is not 0 and no result line is printed.
-It needs no argument and one card, and exits non-zero without CUDA or
-outside a checkout of the repository.
+it replaces, launches on the main paths, max error, times and bound, the
+card's line, and, last, the device JSON.  Any failure raises: the exit
+code is not 0 and no result line is printed.  It needs no argument and one
+card, and exits non-zero without CUDA or outside a checkout of the
+repository.
 """
 
 from __future__ import annotations
@@ -36,14 +60,37 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 H, W, BATCH = 512, 768, 8
 SEED = 0
 LANES = 128
-GDN_TOL = 1e-5   # fp32 sums in another order than the plain matmul
-RECON_TOL = 1e-4
+# kernel vs plain: atol/rtol 1e-5.  B3-B6 are held to their plain versions
+# run in float64 on the same inputs, and their distance to the fp32 plain
+# version is printed beside: on an H100 the B3 kernel lands within 2e-6 of
+# float64 at down1 but 1.8e-5 from cuDNN's fp32 result, so cuDNN's own
+# rounding, not the kernel's, would decide a comparison in fp32
+TOL = 1e-5
+RECON_TOL = 1e-4  # model stages and the decoded reconstruction
+# H100 SXM peaks (NVIDIA data sheet):
+# fp32 on the CUDA cores, and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+# exact launches of each kernel over forward + compress_batch +
+# decompress_batch; each WinNoShiftAttention gate runs 4 window attentions
+# and 14 B6 convs (3 + 3 ResidualBlocks, the 3x3 and the 7x7); the B6 slot
+# also holds h_a.c0, both h_s.c2 and slice 0's two ChARM c0 convs
+EXPECTED = {
+    "source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14,
+                   "wba": 0, "wba_proj": 0},
+    "source_net_wam": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 126,
+                       "wba": 32, "wba_proj": 0},
+    "source_net_wam+fuse_proj": {"gdn": 7, "drain": 0, "conv5s2": 3, "convk_s1": 61,
+                                 "wba": 0, "wba_proj": 16},
+}
 
 
 def _say(phase: str, **kv) -> None:
@@ -66,6 +113,63 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+class Tally:
+    """Per-kernel sums over the shapes checked: max error, times, bound."""
+
+    def __init__(self):
+        self.err = 0.0
+        self.ms = self.plain_ms = 0.0
+        self.library_ms = None
+        self.bytes_ms = self.ops_ms = self.bound_ms = 0.0
+
+    def add(self, err, ms, plain_ms, library_ms, nbytes, flops):
+        self.err = max(self.err, err)
+        self.ms += ms
+        self.plain_ms += plain_ms
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + library_ms
+        b, o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+        self.bytes_ms += b
+        self.ops_ms += o
+        self.bound_ms += max(b, o)
+
+    def row(self, **kw):
+        return dict(kw, max_abs_err=self.err, ms=round(self.ms, 4),
+                    plain_ms=round(self.plain_ms, 4),
+                    bound_ms=round(self.bound_ms, 4),
+                    bound_by="operations" if self.ops_ms >= self.bytes_ms else "bytes",
+                    library_ms=None if self.library_ms is None else round(self.library_ms, 4))
+
+
+def _vs_plain(name, kernel, plain, args, library=None, reps=5, f64=True):
+    """Kernel vs plain at TOL — the plain version run in float64 on the same
+    inputs if ``f64`` — and a repeat call bit-identical.  → (max error,
+    kernel ms, plain ms, library ms, max difference from the fp32 plain
+    version)."""
+    import torch
+
+    up = lambda a: a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+    with torch.no_grad():
+        y = kernel(*args)
+        err32 = float((y - plain(*args)).abs().max())
+        ref = plain(*map(up, args)) if f64 else plain(*args)
+        torch.cuda.synchronize()
+        err = float((y.to(ref.dtype) - ref).abs().max())
+        torch.testing.assert_close(y.to(ref.dtype), ref, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"{name}: {m}")
+        if not torch.equal(kernel(*args), y):
+            raise AssertionError(f"{name}: a repeat call is not bit-identical")
+        del y, ref
+        ms = _cuda_ms(lambda: kernel(*args), reps)
+        pms = _cuda_ms(lambda: plain(*args), reps)
+        lms = None if library is None else _cuda_ms(library, reps)
+    return err, ms, pms, lms, err32
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lic_tpu_torch")):
         print(
@@ -76,6 +180,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -94,18 +199,27 @@ def main() -> int:
 
     from lic_tpu_torch import coding
     from lic_tpu_torch.coding import drain as drain_mod
-    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.layers import conv_direct, window_attn
     from lic_tpu_torch.layers import gdn as gdn_mod
-    from lic_tpu_torch.models import build_model
-    from lic_tpu_torch.models.compress import ChannelCoder, set_numerics_flags
+    from lic_tpu_torch.models.compress import set_numerics_flags
 
     set_numerics_flags()  # no TF32, deterministic cuDNN: stated in code
+    counters = {
+        "gdn": gdn_mod.gdn_fused, "drain": drain_mod.rans_drain,
+        "conv5s2": conv_direct.conv5s2, "convk_s1": conv_direct.convk_s1,
+        "wba": window_attn.window_attention, "wba_proj": window_attn.window_attention_proj,
+    }
 
-    # ---- 2. build both kernels from the checkout's sources
+    # ---- 2. build: one nvcc per CUDA source, all started together
+    cuda_libs = {"b1_drain": drain_mod.library, "b3_b6_conv": conv_direct.library,
+                 "b4_b5_attn": window_attn.library}
     t0 = time.perf_counter()
-    drain_mod.library()
-    t_b1 = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in drain_mod.BUILD_LOG.splitlines() if "registers" in ln]
+    with ThreadPoolExecutor(len(cuda_libs)) as pool:
+        list(pool.map(lambda lib: lib(), cuda_libs.values()))
+    t_cuda = time.perf_counter() - t0
+    for name, lib in cuda_libs.items():
+        _say("build", source=os.path.relpath(str(lib.src), ROOT), seconds=f"{lib.seconds:.1f}",
+             so=os.path.relpath(str(lib.so), ROOT), ptxas=repr(lib.ptxas() or "cached"))
     t0 = time.perf_counter()
     for c in (16, 192):
         for inv in (False, True):
@@ -114,84 +228,259 @@ def main() -> int:
     torch.cuda.synchronize()
     t_b2 = time.perf_counter() - t0
     host_lib = coding.load_host_rans()
-    _say("build", b1_cuda_s=f"{t_b1:.1f}", b2_triton_s=f"{t_b2:.1f}",
-         b1_so=os.path.relpath(str(drain_mod._SO), ROOT),
-         host_rans=os.path.relpath(host_lib, ROOT),
-         ptxas=repr(ptxas[0] if ptxas else "cached"))
+    _say("build", cuda_parallel_s=f"{t_cuda:.1f}", b2_triton_s=f"{t_b2:.1f}",
+         host_rans=os.path.relpath(host_lib, ROOT))
 
-    # ---- 3. B2 vs plain at the forward's GDN/IGDN shapes (fp32)
+    tally = {k: Tally() for k in counters}
     g = torch.Generator().manual_seed(SEED)
-    gdn_shapes = [  # (stage, rows, C, inverse) for B=8 at 512×768
-        ("g_a.gdn0", BATCH * 256 * 384, 192, False),
-        ("g_a.gdn1", BATCH * 128 * 192, 192, False),
-        ("g_a.gdn2", BATCH * 64 * 96, 192, False),
-        ("g_s.igdn0", BATCH * 64 * 96, 192, True),
-        ("g_s.igdn1", BATCH * 128 * 192, 192, True),
-        ("g_s.igdn2", BATCH * 256 * 384, 192, True),
-        ("g_s.igdn3", BATCH * 512 * 768, 16, True),
+
+    # ---- 3a. B2 vs plain at the forward's GDN/IGDN shapes (fp32)
+    px = lambda f: BATCH * (H // f) * (W // f)  # pixels at 1/f scale
+    gdn_shapes = [  # (stage, rows, C, inverse)
+        ("g_a.gdn0", px(2), 192, False),
+        ("g_a.gdn1", px(4), 192, False),
+        ("g_a.gdn2", px(8), 192, False),
+        ("g_s.igdn0", px(8), 192, True),
+        ("g_s.igdn1", px(4), 192, True),
+        ("g_s.igdn2", px(2), 192, True),
+        ("g_s.igdn3", px(1), 16, True),
     ]
-    gdn_err, gdn_ms, gdn_plain_ms = 0.0, 0.0, 0.0
     for stage, rows, c, inv in gdn_shapes:
         x = torch.randn(rows, c, generator=g).to(dev)
         gamma = (0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=g)).to(dev)
         beta = (1.0 + torch.rand(c, generator=g)).to(dev)
-        y = gdn_mod.gdn_fused(x, gamma, beta, inv)
-        ref = gdn_mod.gdn_plain(x, gamma, beta, inv)
-        torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
-        torch.testing.assert_close(y, ref, atol=GDN_TOL, rtol=GDN_TOL)
-        ms = _cuda_ms(lambda: gdn_mod.gdn_fused(x, gamma, beta, inv), 20)
-        pms = _cuda_ms(lambda: gdn_mod.gdn_plain(x, gamma, beta, inv), 20)
-        gdn_err, gdn_ms, gdn_plain_ms = max(gdn_err, err), gdn_ms + ms, gdn_plain_ms + pms
+        args = (x, gamma, beta, inv)
+        err, ms, pms, _, _ = _vs_plain(stage, gdn_mod.gdn_fused, gdn_mod.gdn_plain, args,
+                                      reps=20, f64=False)
+        tally["gdn"].add(err, ms, pms, None, 2 * _nbytes(x) + _nbytes(gamma, beta),
+                         2 * rows * c * c)
         _say("b2_gdn", stage=stage, rows=rows, C=c, max_abs_err=f"{err:.3g}",
              ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
-        del x, y, ref
+        del x, args
 
-    # ---- 4. B1 vs plain: 4 slice drains threading state, B=8, L=128
+    # ---- 3b. B1 vs plain: 4 slice drains threading state, B=8, L=128
     s_slice = (H // 16) * (W // 16) * 48  # 73 728 symbols per slice
-    steps = [s_slice] * 4
     gcoder = coding.GaussianCoder()
     cdfs, offsets = gcoder.codec.cdfs, gcoder.codec.offsets
     sym, idx, pay, ends = coding.random_streams(
-        cdfs, offsets, [(SEED + i, True) for i in range(BATCH)], steps, LANES
+        cdfs, offsets, [(SEED + i, True) for i in range(BATCH)], [s_slice] * 4, LANES
     )
     ddev = coding.DeviceRans16Interleaved(cdfs, offsets, LANES, device=dev)
     payt = torch.from_numpy(pay).to(dev)
     rows_all = torch.from_numpy(idx).to(dev)
     k_lanes = p_lanes = ddev.init_lanes(payt)
-    drain_ms = drain_plain_ms = 0.0
-    drain_err = 0
     for i in range(4):
         rows = rows_all[:, i * s_slice : (i + 1) * s_slice].contiguous()
         lanes_in = k_lanes
         k_lanes, k_dec = coding.rans_drain(ddev, lanes_in, payt, rows, s_slice)
         p_lanes, p_dec = coding.drain_plain(ddev, p_lanes, payt, rows, s_slice)
         torch.cuda.synchronize()
-        drain_err = max(drain_err, int((k_dec.long() - p_dec.long()).abs().max()))
+        err = int((k_dec.long() - p_dec.long()).abs().max())
         if not (torch.equal(k_dec, p_dec) and torch.equal(k_lanes.state, p_lanes.state)
                 and torch.equal(k_lanes.ptr, p_lanes.ptr)):
             raise AssertionError(f"B1 drain differs from its plain version (slice {i})")
-        np.testing.assert_array_equal(
-            k_dec.cpu().numpy(), sym[:, i * s_slice : (i + 1) * s_slice]
-        )
-        drain_ms += _cuda_ms(lambda: coding.rans_drain(ddev, lanes_in, payt, rows, s_slice), 5)
-        drain_plain_ms += _cuda_ms(
-            lambda: coding.drain_plain(ddev, lanes_in, payt, rows, s_slice), 1
-        )
+        np.testing.assert_array_equal(k_dec.cpu().numpy(), sym[:, i * s_slice : (i + 1) * s_slice])
+        ms = _cuda_ms(lambda: coding.rans_drain(ddev, lanes_in, payt, rows, s_slice), 5)
+        pms = _cuda_ms(lambda: coding.drain_plain(ddev, lanes_in, payt, rows, s_slice), 1)
+        # bytes: the slice's rows in, its symbols out, the payload, the
+        # tables; its integer work per symbol has no peak in the table
+        tally["drain"].add(err, ms, pms, None,
+                           _nbytes(rows, k_dec, payt, ddev.cdf_rows, ddev.offsets), 0)
     if not (bool((k_lanes.state == 1 << 16).all()) and k_lanes.ptr.tolist() == ends):
         raise AssertionError("B1 drain: final lane states or pointers wrong")
     _say("b1_drain", streams=BATCH, lanes=LANES, slices=4, symbols_per_slice=s_slice,
-         bitexact=True, ms_4_slices=f"{drain_ms:.3f}", plain_ms_4_slices=f"{drain_plain_ms:.3f}")
+         bitexact=True, ms_4_slices=f"{tally['drain'].ms:.3f}",
+         plain_ms_4_slices=f"{tally['drain'].plain_ms:.3f}")
     del payt, rows_all, p_dec, k_dec
 
-    # ---- 5. the model at full width; the same model on a small input
-    # against its CPU run (plain versions, no kernel), stage by stage on
-    # the same inputs so that no rounding flip can spread
-    model = build_model("source_net", device=dev, seed=SEED)
-    cpu_model = build_model("source_net", device="cpu", seed=SEED)
+    def cl(t):
+        return t.to(dev).contiguous(memory_format=torch.channels_last)
+
+    # ---- 3c. B4 and B5 vs plain at both gate sizes, with the shift mask;
+    # library: SDPA (B4), F.linear + SDPA + F.linear (B5) on the windows
+    c, nh = 192, 8
+    for hp, wp, ws, ss in ((H // 4, W // 4, 8, 4), (H // 16, W // 16, 4, 2)):
+        n, hd = ws * ws, c // nh
+        nwin = BATCH * (hp // ws) * (wp // ws)
+        rel = (0.5 * torch.randn(nh, n, n, generator=g)).to(dev)
+        mask = window_attn.shift_mask(hp, wp, ws, ss, 0, 0, dev)
+        qkv = torch.randn(BATCH, hp, wp, 3 * c, generator=g).to(dev)
+        x = torch.randn(BATCH, hp, wp, c, generator=g).to(dev)
+        wqkv = (torch.randn(3 * c, c, generator=g) * c ** -0.5).to(dev)
+        wproj = (torch.randn(c, c, generator=g) * c ** -0.5).to(dev)
+        bqkv, bproj = torch.randn(3 * c, generator=g).to(dev), torch.randn(c, generator=g).to(dev)
+        amask = (rel[None, None] + mask[None, :, None]).expand(BATCH, -1, -1, -1, -1)
+        amask = amask.reshape(nwin, nh, n, n)
+        heads = lambda t: t.reshape(nwin, n, nh, hd).transpose(1, 2)
+        qkv_w = window_attn.window_partition(qkv, ws)
+        q, kk, v = (heads(qkv_w[..., i * c : (i + 1) * c]) for i in range(3))
+        x_w = window_attn.window_partition(x, ws)
+
+        def sdpa_proj():
+            t = F.linear(x_w, wqkv, bqkv)
+            o = F.scaled_dot_product_attention(
+                heads(t[..., :c]), heads(t[..., c : 2 * c]), heads(t[..., 2 * c :]),
+                attn_mask=amask)
+            return F.linear(o.transpose(1, 2).reshape(nwin, n, c), wproj, bproj)
+
+        flops = nwin * nh * 4 * n * n * hd
+        err, ms, pms, lms, err32 = _vs_plain(
+            f"wba ws{ws}", window_attn.window_attention, window_attn.wba_plain,
+            (qkv, rel, mask, ws, nh),
+            library=lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=amask),
+        )
+        tally["wba"].add(err, ms, pms, lms, _nbytes(qkv, rel, mask) + qkv.numel() // 3 * 4, flops)
+        _say("b4_wba", ws=ws, shift=ss, shape=tuple(qkv.shape), max_abs_err=f"{err:.3g}",
+             vs_fp32_plain=f"{err32:.3g}",
+             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", sdpa_ms=f"{lms:.3f}")
+        err, ms, pms, lms, err32 = _vs_plain(
+            f"wba_proj ws{ws}", window_attn.window_attention_proj, window_attn.wba_proj_plain,
+            (x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh), library=sdpa_proj,
+        )
+        tally["wba_proj"].add(err, ms, pms, lms,
+                              2 * _nbytes(x) + _nbytes(rel, mask, wqkv, bqkv, wproj, bproj),
+                              flops + 2 * nwin * n * c * 4 * c)
+        _say("b5_wba_proj", ws=ws, shift=ss, shape=tuple(x.shape), max_abs_err=f"{err:.3g}",
+             vs_fp32_plain=f"{err32:.3g}",
+             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", linear_sdpa_linear_ms=f"{lms:.3f}")
+        del qkv, x, q, kk, v, qkv_w, x_w, amask
+    torch.cuda.empty_cache()
+
+    # ---- 4. the paths
+    launches, times, conv_calls = {}, {}, {}
+    for preset in ("source_net", "source_net_wam"):
+        runs, t = _drive(preset, dev, counters, conv_calls)
+        launches.update(runs)
+        times[preset] = t
+        torch.cuda.empty_cache()
+    for run, want in EXPECTED.items():
+        if launches[run] != want:
+            raise AssertionError(f"{run}: kernel launches {launches[run]}, expected {want}")
+    _say("launches", **{k.replace("+", "_"): v for k, v in launches.items()})
+
+    # ---- 5. B3 and B6 vs plain at every (shape, flags) the paths gave them;
+    # library: cuDNN conv + bias on the same (padded) input
+    for key, by_run in conv_calls.items():
+        slot, xs, wshape, has_bias, act, has_res = key
+        b, cin, hh, ww = xs
+        cout, _, k, _ = wshape
+        ho, wo = (hh // 2, ww // 2) if slot == "conv5s2" else (hh, ww)
+        x = cl(torch.randn(*xs, generator=g))
+        wt = cl(torch.randn(*wshape, generator=g) * (cin * k * k) ** -0.5)
+        bias = torch.randn(cout, generator=g).to(dev) if has_bias else None
+        res = cl(torch.randn(b, cout, ho, wo, generator=g)) if has_res else None
+        if slot == "conv5s2":
+            xp = F.pad(x, (1, 2, 1, 2))
+            args, library = (x, wt, bias), lambda: F.conv2d(xp, wt, bias, stride=2)
+        else:
+            args, library = (x, wt, bias, act, res), lambda: F.conv2d(x, wt, bias, padding=k // 2)
+        err, ms, pms, lms, err32 = _vs_plain(
+            f"{slot} {xs} -> {cout} k{k}", counters[slot], getattr(conv_direct, f"{slot}_plain"),
+            args, library=library,
+        )
+        relayout_ms = _cuda_ms(lambda: wt.permute(2, 3, 1, 0).contiguous(), 5)
+        tally[slot].add(err, ms, pms, lms, _nbytes(x, wt, bias, res) + b * cout * ho * wo * 4,
+                        2 * b * ho * wo * cout * cin * k * k)
+        _say(f"b{3 if slot == 'conv5s2' else 6}_{slot}", shape=xs, c_out=cout, k=k,
+             bias=has_bias, act=act, residual=has_res, path_launches=by_run,
+             max_abs_err=f"{err:.3g}", vs_fp32_plain=f"{err32:.3g}", ms=f"{ms:.3f}",
+             plain_ms=f"{pms:.3f}", cudnn_ms=f"{lms:.3f}", weight_relayout_ms=f"{relayout_ms:.4f}")
+    torch.cuda.empty_cache()
+
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lic_tpu"))
+    if bad:
+        raise AssertionError(f"the port imported the JAX package or jax: {bad[:5]}")
+    meta = {
+        "drain": ("rans_drain", "cuda", "lic_tpu_torch/csrc/rans_drain.cu",
+                  "lic_tpu/coding/pallas_rans.py:93"),
+        "gdn": ("gdn_fwd", "triton", "lic_tpu_torch/layers/gdn.py",
+                "lic_tpu/layers/pallas_gdn.py:31"),
+        "conv5s2": ("conv5s2", "cuda", "lic_tpu_torch/csrc/conv_direct.cu",
+                    "lic_tpu/layers/pallas_conv.py:47 (B3; B3' conv5s2_pallas_v2 "
+                    "lic_tpu/layers/pallas_conv.py:107 computes the same function)"),
+        "wba": ("window_attention", "cuda", "lic_tpu_torch/csrc/window_attn.cu",
+                "lic_tpu/layers/pallas_attn.py:112"),
+        "wba_proj": ("window_attention_proj", "cuda", "lic_tpu_torch/csrc/window_attn.cu",
+                     "lic_tpu/layers/pallas_attn.py:150"),
+        "convk_s1": ("convk_s1", "cuda", "lic_tpu_torch/csrc/conv_direct.cu",
+                     "lic_tpu/layers/pallas_conv_s1.py:66"),
+    }
+    rows = []
+    for key, (name, route, source, replaces) in meta.items():
+        by_path = {run: n[key] for run, n in launches.items()}
+        rows.append(tally[key].row(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+        ))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def _wake_zero_leaves(*models):
+    """Seeded values of gain ~0.5 for the all-zero weights under the WAM
+    gates (each attention's ``proj``, each ``ResidualBlock``'s ``conv2``),
+    the same on every model given: at their zero init those branches add
+    exactly 0 and no check could see them.  → leaves woken per model."""
+    import torch
+
+    for m in models:
+        g = torch.Generator().manual_seed(SEED + 1)
+        woken = 0
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if "wam" in name and name.endswith("weight") and not p.any():
+                    fan_in = p[0].numel()
+                    p.copy_(torch.randn(p.shape, generator=g) * 0.5 * fan_in ** -0.5)
+                    woken += 1
+    return woken
+
+
+def _record_conv_slots(model, calls, run):
+    """Forward pre-hooks on every ``Conv2d`` of ``model``: each call that
+    takes the B3 or B6 slot counts one in ``calls[key][run]``, keyed by
+    (slot, input shape, weight shape, bias, act, residual).  → handles."""
+    from lic_tpu_torch.layers.conv import Conv2d
+
+    def hook(m, args, kwargs):
+        x = args[0]
+        slot = m.kernel_slot(x)
+        if slot is not None:
+            res = args[1] if len(args) > 1 else kwargs.get("residual")
+            key = (slot, tuple(x.shape), tuple(m.weight.shape), m.bias is not None,
+                   m.fused_act, res is not None)
+            by_run = calls.setdefault(key, {})
+            by_run[run] = by_run.get(run, 0) + 1
+
+    return [m.register_forward_pre_hook(hook, with_kwargs=True)
+            for m in model.modules() if isinstance(m, Conv2d)]
+
+
+def _drive(preset, dev, counters, conv_calls):
+    """One path: the small-input check against the CPU, the main path with
+    its launch counts and its B3/B6 calls (into ``conv_calls``), the B=1
+    roundtrip, the times (and for the WAM preset the ``fuse_proj`` pass).
+    → ({run: launches}, times)."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.layers import WindowAttention
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import ChannelCoder
+
+    model = build_model(preset, device=dev, seed=SEED)
+    cpu_model = build_model(preset, device="cpu", seed=SEED)
+    woken = _wake_zero_leaves(model, cpu_model)
     x_np = smooth_images(np.random.default_rng(SEED), BATCH, H, W)
     x = torch.from_numpy(x_np).to(dev).contiguous(memory_format=torch.channels_last)
     small = torch.from_numpy(x_np[:1, :, :128, :128].copy())
+
+    def on_gpu(t):
+        return t.to(dev).contiguous(memory_format=torch.channels_last)
 
     def stages(m, xin, z_hat=None, y_hat=None, syn=None):
         z3 = m.analyze(xin)
@@ -206,95 +495,113 @@ def main() -> int:
         return dict(z3=z3, z_hat=z_hat, scales=scales, means=means, mu0=mu0,
                     sigma0=sigma0, y_hat=y_hat, syn=syn, rec=rec)
 
-    def on_gpu(t):
-        return t.to(dev).contiguous(memory_format=torch.channels_last)
-
     with torch.no_grad():
         sc = stages(cpu_model, small)
         sg = stages(model, on_gpu(small), on_gpu(sc["z_hat"]), on_gpu(sc["y_hat"]),
                     sc["syn"].to(dev))
-    ref_err = {
-        k: float((sg[k].cpu() - sc[k]).abs().max())
-        for k in ("z3", "scales", "means", "mu0", "sigma0", "rec")
-    }
+    ref_err = {k: float((sg[k].cpu() - sc[k]).abs().max())
+               for k in ("z3", "scales", "means", "mu0", "sigma0", "rec")}
     if max(ref_err.values()) > RECON_TOL:
-        raise AssertionError(f"GPU stages disagree with the CPU run: {ref_err}")
+        raise AssertionError(f"{preset}: GPU stages disagree with the CPU run: {ref_err}")
+    del cpu_model, sc, sg
 
-    # ---- 6. main path: forward + compress_batch → decompress_batch
-    coder = ChannelCoder(model, name="source_net")
-    torch.cuda.synchronize()
-    gdn_mod.gdn_fused.launches = 0
-    drain_mod.rans_drain.launches = 0
+    def zero():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # the main path: forward + compress_batch → decompress_batch
+    coder = ChannelCoder(model, name=preset)
+    hooks = _record_conv_slots(model, conv_calls, preset)
+    zero()
     with torch.no_grad():
         out = model(x)
     blobs = coder.compress_batch(x)
     rec = coder.decompress_batch(blobs)
-    torch.cuda.synchronize()
-    launches = {"gdn": gdn_mod.gdn_fused.launches, "drain": drain_mod.rans_drain.launches}
+    runs = {preset: read()}
+    for h in hooks:
+        h.remove()
+    for slot in ("conv5s2", "convk_s1"):
+        seen = sum(n.get(preset, 0) for key, n in conv_calls.items() if key[0] == slot)
+        if seen != runs[preset][slot]:
+            raise AssertionError(f"{preset}: {runs[preset][slot]} {slot} launches, "
+                                 f"{seen} seen by the Conv2d hooks")
     if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
-        raise AssertionError("non-finite forward output")
+        raise AssertionError(f"{preset}: non-finite forward output")
     if out.x_tilde.shape != (BATCH, 3, H, W) or rec.shape != out.x_tilde.shape:
-        raise AssertionError(f"shapes {tuple(out.x_tilde.shape)} / {tuple(rec.shape)}")
-    _say("forward", shape=tuple(out.x_tilde.shape), bpp_est=f"{float(out.bpp):.4f}",
-         mse=f"{float(out.mse):.5f}", finite=True, weights="UNTRAINED",
-         small_vs_cpu_max_err=f"{max(ref_err.values()):.3g}")
+        raise AssertionError(f"{preset}: shapes {tuple(out.x_tilde.shape)} / {tuple(rec.shape)}")
     rec_err = float((rec - out.x_tilde).abs().max())
     if rec_err > RECON_TOL:
-        raise AssertionError(f"decoded recon differs from the forward: {rec_err}")
-    # every kernel of the path ran in it: 7 GDN stages in the forward, 3 in
-    # the encoder's g_a, 4 in the decoder's g_s; one drain per decoded slice
-    # and none in the encoder
-    if launches != {"gdn": 14, "drain": 4}:
-        raise AssertionError(f"unexpected kernel launches on the main path: {launches}")
+        raise AssertionError(f"{preset}: decoded recon differs from the forward: {rec_err}")
+    _say("forward", preset=preset, shape=tuple(out.x_tilde.shape),
+         bpp_est=f"{float(out.bpp):.4f}", mse=f"{float(out.mse):.5f}", finite=True,
+         weights="UNTRAINED", small_vs_cpu_max_err=f"{max(ref_err.values()):.3g}")
     bpp = sum(len(b) for b in blobs) * 8 / (BATCH * H * W)
     x1 = x[:1]
-    blob1 = coder.compress(x1)
-    rec1 = coder.decompress(blob1)
+    rec1 = coder.decompress(coder.compress(x1))
     with torch.no_grad():
         ref1 = model(x1).x_tilde
     rec1_err = float((rec1 - ref1).abs().max())
     if rec1_err > RECON_TOL:
-        raise AssertionError(f"B=1 roundtrip recon differs from its forward: {rec1_err}")
-    _say("roundtrip", streams=BATCH, bpp=f"{bpp:.4f}", recon_max_err=f"{rec_err:.3g}",
-         final_state_ok=True, launches=launches, b1_recon_max_err=f"{rec1_err:.3g}",
-         b1_stream_equals_batch=blob1 == blobs[0], weights="UNTRAINED")
+        raise AssertionError(f"{preset}: B=1 roundtrip recon differs from its forward: {rec1_err}")
+    _say("roundtrip", preset=preset, streams=BATCH, bpp=f"{bpp:.4f}",
+         recon_max_err=f"{rec_err:.3g}", final_state_ok=True, launches=runs[preset],
+         b1_recon_max_err=f"{rec1_err:.3g}", b1_stream_equals_batch=coder.compress(x1) == blobs[0])
 
-    # ---- 7. times (UNTRAINED weights: the codec rows are not rate points)
+    # times (UNTRAINED weights: the codec rows are not rate points)
     mp = BATCH * H * W / 1e6
     with torch.no_grad():
-        fwd_ms = _cuda_ms(lambda: model(x), 5)
+        fwd_ms = _cuda_ms(lambda: model(x), 3)
     # the roundtrip includes host rANS: CUDA events around it on the
     # stream, synchronised, span the wall time of each call
     rt = sorted(
         _cuda_ms(lambda: coder.decompress_batch(coder.compress_batch(x)), 1) / 1e3
         for _ in range(3)
     )[1]
-    _say("times", card=repr(smi), forward_ms=f"{fwd_ms:.2f}",
+    times = dict(forward_ms=fwd_ms, roundtrip_s=rt, codec_bpp=bpp)
+    _say("times", preset=preset, forward_ms=f"{fwd_ms:.2f}",
          forward_mps=f"{mp / fwd_ms * 1e3:.2f}", roundtrip_s=f"{rt:.3f}",
          roundtrip_mps=f"{mp / rt:.3f}", codec_bpp=f"{bpp:.4f}", weights="UNTRAINED")
 
-    if any(m in sys.modules for m in ("jax", "flax")):
-        raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [
-        {
-            "name": "rans_drain", "route": "cuda",
-            "source": "lic_tpu_torch/csrc/rans_drain.cu",
-            "replaces": "lic_tpu/coding/pallas_rans.py:93",
-            "launches": launches["drain"], "max_abs_err": drain_err,
-            "ms": round(drain_ms, 4), "plain_ms": round(drain_plain_ms, 4),
-        },
-        {
-            "name": "gdn_fwd", "route": "triton",
-            "source": "lic_tpu_torch/layers/gdn.py",
-            "replaces": "lic_tpu/layers/pallas_gdn.py:31",
-            "launches": launches["gdn"], "max_abs_err": gdn_err,
-            "ms": round(gdn_ms, 4), "plain_ms": round(gdn_plain_ms, 4),
-        },
-    ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+    attn = [m for m in model.modules() if isinstance(m, WindowAttention)]
+    if attn:
+        # the forward with kernel B5 (both projections inside the kernel);
+        # first, proof that every attention branch adds non-zero values
+        attn_max = []
+        hooks = [m.register_forward_hook(lambda m, a, o: attn_max.append(float(o.abs().max())))
+                 for m in attn]
+        with torch.no_grad():
+            z3 = model.analyze(x)
+            for h in hooks:
+                h.remove()
+            if not woken or min(attn_max) == 0.0:
+                raise AssertionError(f"{preset}: an attention branch adds exactly 0 "
+                                     f"({woken} zero-init leaves woken)")
+            rec_b4 = model.synthesize(out.extras["y_hat"], model.syntax_from_latent(z3))
+            for m in attn:
+                m.fuse_proj = True
+            zero()
+            out5 = model(x)
+            runs[f"{preset}+fuse_proj"] = read()
+            z3_5 = model.analyze(x)
+            rec_b5 = model.synthesize(out.extras["y_hat"], model.syntax_from_latent(z3))
+            fwd5_ms = _cuda_ms(lambda: model(x), 3)
+            for m in attn:
+                m.fuse_proj = False
+        errs = {"z3": float((z3_5 - z3).abs().max()),
+                "synthesis": float((rec_b5 - rec_b4).abs().max())}
+        if not torch.isfinite(out5.x_tilde).all() or max(errs.values()) > RECON_TOL:
+            raise AssertionError(f"{preset}: the fuse_proj forward differs: {errs}")
+        times["forward_fuse_proj_ms"] = fwd5_ms
+        _say("fuse_proj", preset=preset, launches=runs[f"{preset}+fuse_proj"],
+             leaves_woken=woken, attn_out_min_max_abs=f"{min(attn_max):.3g}",
+             z3_max_err=f"{errs['z3']:.3g}", synthesis_max_err=f"{errs['synthesis']:.3g}",
+             forward_ms=f"{fwd5_ms:.2f}")
+    return runs, times
 
 
 if __name__ == "__main__":

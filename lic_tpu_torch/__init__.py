@@ -1,22 +1,29 @@
 """lic_tpu_torch — the PyTorch/CUDA port of ``lic_tpu``.
 
 A second package beside the JAX one, which stays the reference every
-module here is tested against.  It covers the ``source_net`` serving path:
-the eval-mode forward and the real bitstream roundtrip
-(``models.compress.ChannelCoder``).  Two kernels on that path are written
-by hand for Hopper and built from this package's sources at first use:
+module here is tested against.  It covers the serving paths of the
+``source_net`` and ``source_net_wam`` presets: the eval-mode forward and
+the real bitstream roundtrip (``models.compress.ChannelCoder``).  The
+kernels on those paths are written by hand for Hopper and built from this
+package's sources at first use:
 
-* the interleaved rANS drain, CUDA C++ (``csrc/rans_drain.cu``, wrapper
+* B1, the interleaved rANS drain, CUDA C++ (``csrc/rans_drain.cu``, wrapper
   ``coding.drain``);
-* the GDN/IGDN forward, Triton (``layers.gdn``).
+* B2, the GDN/IGDN forward, Triton (``layers.gdn``);
+* B3 and B6, the 5×5 stride-2 conv and the stride-1 k×k conv with its
+  bias/LeakyReLU/residual epilogue, CUDA C++ (``csrc/conv_direct.cu``,
+  wrappers ``layers.conv_direct``);
+* B4 and B5, window attention without and with the projections inside,
+  CUDA C++ (``csrc/window_attn.cu``, wrappers ``layers.window_attn``).
 
 Each kernel has a plain PyTorch version beside it; a wrapper takes the
 plain version only for tensors on the CPU and launches the kernel (or
-raises) for CUDA tensors.
+raises) for CUDA tensors.  The host rANS coder is the port's own copy of
+the C++ coder (``csrc/rans.cpp``), built with ``g++``.
 
 Layout: modules take NCHW tensors in ``channels_last`` memory, the same
 bytes as the JAX package's NHWC.  This package imports ``torch`` and never
-``jax``; the host rANS code it reuses from ``lic_tpu`` imports no jax.
+``jax`` nor any module of ``lic_tpu``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

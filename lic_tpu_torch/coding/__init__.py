@@ -1,8 +1,8 @@
 """Entropy coding of the port (counterpart of ``lic_tpu.coding``).
 
-The host rANS of ``lic_tpu`` is reused as it is (``host_rans``); this
-package adds the interleaved decoder in plain PyTorch (``device_rans``)
-and kernel B1, its CUDA drain (``drain.rans_drain``).
+The host coders run on the port's copy of the C++ rANS (``csrc/rans.cpp``
+via ``rans`` and ``host_rans``); the interleaved decoder is plain PyTorch
+(``device_rans``) and kernel B1, its CUDA drain (``drain.rans_drain``).
 """
 
 from .device_rans import (

@@ -11,13 +11,11 @@ device raises.  A failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
-import shutil
-import threading
 from typing import Tuple
 
 import torch
 
-from ..utils.build import BUILD_DIR, PACKAGE_DIR, build_if_stale
+from ..utils.build import CudaLibrary, check_launch
 from .device_rans import (
     _MASK32,
     DeviceIState,
@@ -25,38 +23,15 @@ from .device_rans import (
     drain_plain,
 )
 
-_SRC = PACKAGE_DIR / "csrc" / "rans_drain.cu"
-_SO = BUILD_DIR / "rans_drain.so"
-_LOCK = threading.Lock()
-_LIB = None
-BUILD_LOG = ""  # the compiler's output of this process's build, if any
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.rans_drain_launch.restype = ctypes.c_int
+    lib.rans_drain_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not shutil.which(nvcc):
-        raise RuntimeError("nvcc not found: the rANS drain kernel cannot build")
-    return nvcc
-
-
-def library() -> ctypes.CDLL:
-    """Build (if stale) and load the kernel's shared library."""
-    global _LIB, BUILD_LOG
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        BUILD_LOG = build_if_stale(_SRC, _SO, [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-            "-Xcompiler", "-fPIC", "-o", "{out}", str(_SRC),
-        ])
-        lib = ctypes.CDLL(str(_SO))
-        lib.rans_drain_launch.restype = ctypes.c_int
-        lib.rans_drain_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
-        _LIB = lib
-        return lib
+library = CudaLibrary("rans_drain.cu", _bind)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -97,8 +72,7 @@ def _drain_cuda(dev, lanes, payload, rows_flat, s_tot):
         out.data_ptr(), dev.cdf_rows.data_ptr(), dev.offsets.data_ptr(),
         b, s, int(s_tot), w_len, L, dev.rows, dev.row_len, stream,
     )
-    if err != 0:
-        raise RuntimeError(f"rans_drain kernel launch failed: cudaError {err}")
+    check_launch(err, "rans_drain")
     rans_drain.launches += 1
     return DeviceIState(state.long() & _MASK32, ptr.long()), out
 

@@ -1,29 +1,27 @@
-"""The host C++ rANS of ``lic_tpu``, reused as it is.
+"""Host entropy coders on the port's C++ rANS (``csrc/rans.cpp``).
 
-The port's one entry to the JAX package's host coding code, none of which
-imports jax: ``FactorizedCoder`` and ``GaussianCoder``
-(``lic_tpu/coding/codec.py``) and ``Rans16InterleavedCodec``
-(``lic_tpu/coding/device_rans.py``; jax is imported only inside the
-methods of that module's device classes, which the port does not use).
-
-``lic_tpu/coding/rans.py`` loads ``lic_tpu/coding/_rans.so``, a binary
-committed from another host, unless it is older than ``rans.cpp``.
-``load_host_rans`` points the loader at ``build/_rans.so`` before its
-first use, so the library that loads is compiled on this host from
-``lic_tpu/coding/rans.cpp``.  If the process has already loaded the
-library, that one stays.
+The port's copies of what its codec uses from the JAX package's host
+coding code: ``GaussianCoder`` and ``FactorizedCoder``
+(``lic_tpu/coding/codec.py:25-118,181-217``) and ``Rans16InterleavedCodec``
+(``lic_tpu/coding/device_rans.py:288-346``).  Tests hold their tables and
+streams byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
 
-from lic_tpu.coding import rans
-from lic_tpu.coding.codec import FactorizedCoder, GaussianCoder
-from lic_tpu.coding.device_rans import Rans16InterleavedCodec
+import math
+from typing import Tuple
 
 import numpy as np
 
-from ..utils.build import BUILD_DIR
+from . import rans
 from .device_rans import stack_payloads
+from .rans import RansCodec, pmf_to_quantized_cdf
+
+try:
+    from scipy.special import erf as _erf
+except ImportError:  # scipy-less host: vectorize math.erf (exact, slower)
+    _erf = np.vectorize(math.erf, otypes=[np.float64])
 
 __all__ = [
     "FactorizedCoder",
@@ -33,14 +31,115 @@ __all__ = [
     "random_streams",
 ]
 
+# the log-spaced scale grid (CompressAI-standard) and the residual radius
+SCALES_MIN = 0.11
+SCALES_MAX = 256.0
+SCALES_LEVELS = 64
+RADIUS = 64
+
+
+def _gaussian_pmf(scale: float, radius: int) -> np.ndarray:
+    xs = np.arange(-radius, radius + 1, dtype=np.float64)
+    upper = 0.5 * (1 + _erf((xs + 0.5) / (scale * math.sqrt(2))))
+    lower = 0.5 * (1 + _erf((xs - 0.5) / (scale * math.sqrt(2))))
+    return np.maximum(upper - lower, 0.0)
+
+
+class GaussianCoder:
+    """CDF rows of the conditional Gaussian over the scale-table grid, for
+    (y − μ) residuals; one row per table scale."""
+
+    def __init__(self):
+        self.scale_table = np.exp(
+            np.linspace(math.log(SCALES_MIN), math.log(SCALES_MAX), SCALES_LEVELS)
+        )
+        # honest tail mass: the escape slot takes 1 − Σpmf; the 0.9999
+        # factor only keeps it nonzero for tiny σ
+        rows = [
+            pmf_to_quantized_cdf(np.clip(_gaussian_pmf(float(s), RADIUS), 0.0, 1.0) * 0.9999)
+            for s in self.scale_table
+        ]
+        self.codec = RansCodec(np.stack(rows), np.full(len(rows), -RADIUS, np.int32))
+
+
+class FactorizedCoder:
+    """rANS coder for the factorized prior: one CDF row per channel."""
+
+    def __init__(self, pmf_table: np.ndarray, medians: np.ndarray, offset: int):
+        """pmf_table: (C, S) from ``EntropyBottleneck.pmf_table(min_sym,
+        max_sym)``; offset = min_sym; medians: (C,)."""
+        rows = [pmf_to_quantized_cdf(np.clip(p, 0, 1) * 0.9999) for p in pmf_table]
+        self.codec = RansCodec(np.stack(rows), np.full(len(rows), offset, np.int32))
+        self.medians = np.asarray(medians, np.float32)
+
+    def encode_symbols(self, symbols: np.ndarray) -> bytes:
+        """symbols: (..., C) int, channel last."""
+        c = symbols.shape[-1]
+        indexes = np.broadcast_to(np.arange(c, dtype=np.int32), symbols.shape)
+        return self.codec.encode(symbols.astype(np.int32), np.ascontiguousarray(indexes))
+
+    def decode_symbols(self, data: bytes, shape: Tuple[int, ...]) -> np.ndarray:
+        """Decode to raw int32 symbols (medians not re-added)."""
+        c = shape[-1]
+        indexes = np.broadcast_to(np.arange(c, dtype=np.int32), shape)
+        return self.codec.decode(data, np.ascontiguousarray(indexes)).reshape(shape)
+
+
+class Rans16InterleavedCodec:
+    """Host encode (and mirror decode) of the interleaved lane format.
+
+    Container: [uint16 L][uint16 payload ...].  ``symbols``/``indexes`` are
+    flat in decode order (step-major); the wire format is defined entirely
+    by (step_counts, L).
+    """
+
+    def __init__(self, cdfs: np.ndarray, offsets: np.ndarray):
+        self.cdfs = np.ascontiguousarray(cdfs, np.uint32)
+        self.row_len = self.cdfs.shape[1]
+        self.offsets = np.ascontiguousarray(offsets, np.int32)
+
+    def encode(self, symbols, indexes, step_counts, n_lanes: int) -> bytes:
+        symbols = np.ascontiguousarray(np.asarray(symbols).reshape(-1), np.int32)
+        indexes = np.ascontiguousarray(np.asarray(indexes).reshape(-1), np.int32)
+        step_counts = np.ascontiguousarray(step_counts, np.int64)
+        assert symbols.shape == indexes.shape
+        assert int(step_counts.sum()) == symbols.size
+        cap = symbols.size * 24 + 2 * n_lanes + 64
+        out = np.empty(cap, np.uint16)
+        n = rans.lib().rans16i_encode(
+            symbols, indexes, step_counts, step_counts.size, n_lanes,
+            self.cdfs, self.row_len, self.offsets, out, cap,
+        )
+        if n < 0:
+            raise RuntimeError("rans16i encode overflow")
+        return np.asarray([n_lanes], np.uint16).tobytes() + out[:n].tobytes()
+
+    @staticmethod
+    def parse(blob: bytes) -> Tuple[int, np.ndarray]:
+        """→ (n_lanes, payload uint16)."""
+        n_lanes = int(np.frombuffer(blob, np.uint16, 1)[0])
+        return n_lanes, np.frombuffer(blob, np.uint16, -1, 2)
+
+    def decode_host(self, blob: bytes, indexes, step_counts) -> np.ndarray:
+        """C++ mirror of the device decoder."""
+        n_lanes, payload = self.parse(blob)
+        indexes = np.ascontiguousarray(np.asarray(indexes).reshape(-1), np.int32)
+        step_counts = np.ascontiguousarray(step_counts, np.int64)
+        out = np.empty(indexes.size, np.int32)
+        rc = rans.lib().rans16i_decode(
+            np.ascontiguousarray(payload), payload.size, indexes,
+            step_counts, step_counts.size, n_lanes, self.cdfs,
+            self.row_len, self.offsets, out,
+        )
+        if rc != 0:
+            raise ValueError("corrupt or truncated rans16i stream")
+        return out
+
 
 def load_host_rans() -> str:
-    """Load the host rANS library; return the path of the one loaded."""
-    if rans._LIB is None:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        rans._SO = str(BUILD_DIR / "_rans.so")
-    rans._lib()
-    return rans._SO
+    """Build (if stale) and load the host rANS library; return its path."""
+    rans.lib()
+    return str(rans.SO)
 
 
 def random_streams(cdfs, offsets, cases, steps, n_lanes: int):
@@ -52,7 +151,6 @@ def random_streams(cdfs, offsets, cases, steps, n_lanes: int):
 
     Returns (symbols (B, n) int32, rows (B, n) int32, payload (B, W) int32
     with >= ``n_lanes`` trailing zero words, each stream's word count)."""
-    load_host_rans()
     codec = Rans16InterleavedCodec(cdfs, offsets)
     n = int(sum(steps))
     syms, rows, pays = [], [], []

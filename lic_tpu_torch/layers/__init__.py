@@ -1,7 +1,17 @@
-"""Layers (counterpart of ``lic_tpu.layers``): convs, GDN with kernel B2."""
+"""Layers (counterpart of ``lic_tpu.layers``): convs with kernels B3/B6,
+GDN with kernel B2, residual blocks, window attention with kernels B4/B5."""
 
+from .blocks import ResidualBlock
 from .conv import Conv2d, ConvTranspose2d, Linear, gelu, variance_scaling_
+from .conv_direct import conv5s2, conv5s2_plain, convk_s1, convk_s1_plain
 from .gdn import GDN, IGDN, gdn_fused, gdn_plain
+from .win_attention import WinBasedAttention, WindowAttention, WinNoShiftAttention
+from .window_attn import (
+    wba_plain,
+    wba_proj_plain,
+    window_attention,
+    window_attention_proj,
+)
 
 __all__ = [
     "Conv2d",
@@ -9,8 +19,20 @@ __all__ = [
     "Linear",
     "gelu",
     "variance_scaling_",
+    "conv5s2",
+    "conv5s2_plain",
+    "convk_s1",
+    "convk_s1_plain",
     "GDN",
     "IGDN",
     "gdn_fused",
     "gdn_plain",
+    "ResidualBlock",
+    "WinBasedAttention",
+    "WindowAttention",
+    "WinNoShiftAttention",
+    "wba_plain",
+    "wba_proj_plain",
+    "window_attention",
+    "window_attention_proj",
 ]

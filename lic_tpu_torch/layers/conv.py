@@ -10,10 +10,19 @@ Counterpart of the plain semantics of ``lic_tpu/layers/conv.py``:
   ``W_t[in, out, a, b] = kernel[k-1-a, k-1-b, in, out]``
   (``lic_tpu/layers/conv.py:514-517``; see ``utils.params``).
 
-The TPU lowering switches of the JAX module (space-to-depth, polyphase and
-subpel deconvs, stencils, im2col, 1x1-as-matmul) have no counterpart: on
-the card every one of them is one cuDNN convolution.  The 5x5 stride-2
-slot stays a plain convolution until its hand kernel lands (ROADMAP B3).
+``Conv2d`` sends two slots to hand-written kernels (``conv_direct``),
+under exactly the JAX module's gates (``lic_tpu/layers/conv.py:434-458``):
+
+* B3, ``conv5s2``: k=5, stride 2, padding ``(1, 2, 1, 2)``, C_in >= 128,
+  even H and W;
+* B6, ``convk_s1``: stride 1, k in {3, 5, 7}, 128 < C_in <= 192, padding
+  k//2, with the bias, ``fused_act`` and an optional residual in its
+  epilogue.
+
+On a CPU tensor those wrappers run their plain versions.  Every other conv,
+and the JAX module's other TPU lowerings (space-to-depth, polyphase and
+subpel deconvs, stencils, im2col, 1x1-as-matmul), is ``F.conv2d`` /
+``F.conv_transpose2d``: the JAX package runs them through XLA, not Pallas.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .conv_direct import LEAKY_SLOPE, conv5s2, convk_s1
 
 Pad = Union[int, Tuple[int, int, int, int]]
 
@@ -49,7 +60,11 @@ def variance_scaling_(
 
 class Conv2d(nn.Module):
     """Conv with torch-style explicit padding and the JAX package's
-    fan-in LeCun truncated-normal init (``conv.py:40-43``), zero bias."""
+    fan-in LeCun truncated-normal init (``conv.py:40-43``), zero bias.
+
+    ``fused_act`` (None | ``'leaky_relu'``) is applied after the bias, in
+    the B6 kernel's epilogue where that slot runs; ``forward``'s
+    ``residual`` is added after it (``ResidualBlock``'s skip)."""
 
     def __init__(
         self,
@@ -60,20 +75,48 @@ class Conv2d(nn.Module):
         padding: Pad = 0,
         bias: bool = True,
         *,
+        fused_act: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if fused_act not in (None, "leaky_relu"):
+            raise ValueError(f"unknown fused_act {fused_act!r}")
         k = kernel_size
         self.stride = stride
         self.padding = padding
+        self.fused_act = fused_act
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
         variance_scaling_(self.weight, 1.0, in_channels * k * k, generator)
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.padding, int):
-            return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
-        return F.conv2d(F.pad(x, self.padding), self.weight, self.bias, self.stride)
+    def kernel_slot(self, x: torch.Tensor) -> Optional[str]:
+        """``'conv5s2'`` (B3) or ``'convk_s1'`` (B6) where a call on ``x``
+        takes that kernel's slot under the JAX gates, else None."""
+        k = self.weight.shape[-1]
+        cin, h, w = x.shape[1:]
+        if (k == 5 and self.stride == 2 and self.padding == (1, 2, 1, 2)
+                and cin >= 128 and h % 2 == 0 and w % 2 == 0):
+            return "conv5s2"
+        if (self.stride == 1 and k in (3, 5, 7) and 128 < cin <= 192
+                and self.padding == k // 2):
+            return "convk_s1"
+        return None
+
+    def forward(
+        self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        slot = self.kernel_slot(x)
+        if slot == "convk_s1":
+            return convk_s1(x, self.weight, self.bias, self.fused_act, residual)
+        if slot == "conv5s2":
+            y = conv5s2(x, self.weight, self.bias)
+        elif isinstance(self.padding, int):
+            y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        else:
+            y = F.conv2d(F.pad(x, self.padding), self.weight, self.bias, self.stride)
+        if self.fused_act == "leaky_relu":
+            y = F.leaky_relu(y, LEAKY_SLOPE)
+        return y if residual is None else y + residual
 
 
 class ConvTranspose2d(nn.Module):

@@ -1,0 +1,206 @@
+"""Kernels B4 and B5 (``csrc/window_attn.cu``): window helpers, wrappers and
+plain versions.
+
+* B4 ``window_attention`` — qkv (B, Hp, Wp, 3C) → (B, Hp, Wp, C): per ws×ws
+  window and head, softmax(q·kᵀ·hd^-½ + rel-pos bias + mask)·v; replaces
+  ``lic_tpu/layers/pallas_attn.py::window_attention_fused``.  Plain version
+  ``wba_plain`` (the counterpart of ``_wba_reference``).
+* B5 ``window_attention_proj`` — x (B, Hp, Wp, C) → (B, Hp, Wp, C), B4 with
+  the qkv and output projections inside; replaces
+  ``window_attention_fused_proj``.  Plain version ``wba_proj_plain``
+  (``_wba_proj_reference``).
+
+Maps are NHWC (contiguous), padded to the window grid and rolled: the pad
+and the roll stay outside the kernels, the windowing happens inside.
+``rel`` is the gathered bias (nh, n, n), ``mask`` the additive (nW, n, n)
+mask of one image's nW windows, or None.  Projection weights are in
+torch's ``Linear`` layout (out, in).  CPU tensors take the plain versions;
+CUDA tensors launch the kernels (fp32, ws ∈ {4, 8}), built at first use;
+anything else raises.  The kernels are forward only.
+
+Also here, as in ``lic_tpu/layers/win_attention.py:55-119``:
+``window_partition``, ``window_reverse``, ``relative_position_index`` and
+``swin_shift_mask``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.build import CudaLibrary, check_cuda_inputs, check_launch
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) → (B·nW, ws·ws, C)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, c)
+
+
+def window_reverse(windows: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
+    """(B·nW, ws·ws, C) → (B, H, W, C)."""
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((h // ws) * (w // ws))
+    x = windows.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+def relative_position_index(ws: int) -> np.ndarray:
+    """Pairwise relative-position index into a (2ws-1)² bias table."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += ws - 1
+    rel[:, :, 1] += ws - 1
+    rel[:, :, 0] *= 2 * ws - 1
+    return rel.sum(-1)  # (ws², ws²)
+
+
+def swin_shift_mask(
+    h: int, w: int, ws: int, shift: int, pad_b: int = 0, pad_r: int = 0
+) -> np.ndarray:
+    """SW-MSA additive mask (nW, ws², ws²), 0 / -100.  The pad tokens of a
+    canvas extended to (h + pad_b, w + pad_r) get a region of their own, so
+    real tokens never attend to padding."""
+    hp, wp = h + pad_b, w + pad_r
+    img_mask = np.zeros((1, hp, wp, 1), np.float32)
+    if shift > 0:
+        slices = (slice(0, -ws), slice(-ws, -shift), slice(-shift, None))
+        cnt = 0
+        for hs in slices:
+            for wsl in slices:
+                img_mask[:, hs, wsl, :] = cnt
+                cnt += 1
+    if pad_b or pad_r:
+        # the pad flag lives on the unrolled canvas; the region ids above
+        # are in rolled coordinates, so roll the flag to match
+        pad = np.zeros((1, hp, wp, 1), np.float32)
+        pad[:, h:, :, :] = 1.0
+        pad[:, :, w:, :] = 1.0
+        if shift > 0:
+            pad = np.roll(pad, (-shift, -shift), axis=(1, 2))
+        img_mask = img_mask + 100.0 * pad
+    m = img_mask.reshape(1, hp // ws, ws, wp // ws, ws, 1)
+    m = m.transpose(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws)
+    diff = m[:, None, :] - m[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def shift_mask(h, w, ws, shift, pad_b, pad_r, device) -> Optional[torch.Tensor]:
+    """``swin_shift_mask`` as a tensor on ``device``, built once per shape;
+    None where no window needs a mask."""
+    if not (shift > 0 or pad_b or pad_r):
+        return None
+    return torch.from_numpy(swin_shift_mask(h, w, ws, shift, pad_b, pad_r)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def rel_index(ws: int, device) -> torch.Tensor:
+    return torch.from_numpy(relative_position_index(ws).reshape(-1)).to(device)
+
+
+def wba_plain(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
+    """Plain W-MSA core: qkv (B, Hp, Wp, 3C) → (B, Hp, Wp, C)."""
+    b, hp, wp, c3 = qkv.shape
+    c, n = c3 // 3, ws * ws
+    hd = c // nh
+    win = window_partition(qkv, ws)
+    heads = lambda t: t.reshape(-1, n, nh, hd).transpose(1, 2)  # (bw, nh, n, hd)
+    q = heads(win[..., :c] * hd ** -0.5)
+    k, v = heads(win[..., c : 2 * c]), heads(win[..., 2 * c :])
+    logits = q @ k.transpose(-1, -2) + rel[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        logits = (logits.reshape(b, nw, nh, n, n) + mask[None, :, None]).reshape(-1, nh, n, n)
+    o = (torch.softmax(logits, dim=-1) @ v).transpose(1, 2).reshape(-1, n, c)
+    return window_reverse(o, ws, hp, wp)
+
+
+def wba_proj_plain(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: int):
+    """Plain fully-fused W-MSA: x (B, Hp, Wp, C) → (B, Hp, Wp, C)."""
+    return F.linear(wba_plain(F.linear(x, wqkv, bqkv), rel, mask, ws, nh), wproj, bproj)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wba_launch.restype = i
+    lib.wba_launch.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_float, p]
+    lib.wba_proj_launch.restype = i
+    lib.wba_proj_launch.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+
+
+library = CudaLibrary("window_attn.cu", _bind)
+
+
+def _check(name, x, c, rel, mask, ws, nh, *params):
+    check_cuda_inputs(name, x, rel, mask, *params)
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous NHWC map, got strides {x.stride()}")
+    b, hp, wp, _ = x.shape
+    n = ws * ws
+    if ws not in (4, 8) or hp % ws or wp % ws or c % nh:
+        raise ValueError(f"{name}: ws={ws}, nh={nh} on {hp}x{wp}x{c} not supported")
+    if tuple(rel.shape) != (nh, n, n):
+        raise ValueError(f"{name}: rel {tuple(rel.shape)} != {(nh, n, n)}")
+    if mask is not None and tuple(mask.shape) != ((hp // ws) * (wp // ws), n, n):
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} vs the window grid")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
+    """B4: qkv (B, Hp, Wp, 3C) NHWC → (B, Hp, Wp, C)."""
+    if qkv.device.type == "cpu":
+        return wba_plain(qkv, rel, mask, ws, nh)
+    b, hp, wp, c3 = qkv.shape
+    _check("window_attention", qkv, c3 // 3, rel, mask, ws, nh)
+    rel, mask = rel.contiguous(), None if mask is None else mask.contiguous()
+    out = qkv.new_empty((b, hp, wp, c3 // 3))
+    err = library().wba_launch(
+        qkv.data_ptr(), rel.data_ptr(), _ptr(mask), out.data_ptr(),
+        b, hp, wp, c3 // 3, nh, ws, (c3 // 3 // nh) ** -0.5,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    check_launch(err, "window_attention")
+    window_attention.launches += 1
+    return out
+
+
+window_attention.launches = 0
+
+
+def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: int):
+    """B5: x (B, Hp, Wp, C) NHWC → (B, Hp, Wp, C), both projections inside."""
+    if x.device.type == "cpu":
+        return wba_proj_plain(x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh)
+    b, hp, wp, c = x.shape
+    _check("window_attention_proj", x, c, rel, mask, ws, nh, wqkv, bqkv, wproj, bproj)
+    if tuple(wqkv.shape) != (3 * c, c) or tuple(wproj.shape) != (c, c):
+        raise ValueError(f"window_attention_proj: weights {tuple(wqkv.shape)}, "
+                         f"{tuple(wproj.shape)} vs C={c}")
+    rel, mask = rel.contiguous(), None if mask is None else mask.contiguous()
+    w_in = wqkv.t().contiguous()    # (C, 3C): the kernel reads (in, out)
+    w_out = wproj.t().contiguous()  # (C, C)
+    bqkv, bproj = bqkv.contiguous(), bproj.contiguous()
+    out = x.new_empty((b, hp, wp, c))
+    err = library().wba_proj_launch(
+        x.data_ptr(), rel.data_ptr(), _ptr(mask), w_in.data_ptr(), bqkv.data_ptr(),
+        w_out.data_ptr(), bproj.data_ptr(), out.data_ptr(),
+        b, hp, wp, c, nh, ws, (c // nh) ** -0.5,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(err, "window_attention_proj")
+    window_attention_proj.launches += 1
+    return out
+
+
+window_attention_proj.launches = 0

@@ -1,4 +1,5 @@
-"""The codec core, charm family with the classic dual hyper (``source_net``).
+"""The codec core, charm family with the classic dual hyper (``source_net``,
+``source_net_wam``).
 
 Counterpart of ``lic_tpu/models/codec.py``: ``_CharmSliceStack``
 (``:73-85``), the eval-mode ``_forward_charm`` (``:481-575``) and the
@@ -19,8 +20,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from lic_tpu.config import CodecConfig
-
+from ..config import CodecConfig
 from ..entropy import EntropyBottleneck, GaussianConditional
 from ..layers import Conv2d, gelu
 from ..ops import bypass_round, quantize_ste_offset, ste_round
@@ -48,7 +48,8 @@ def check_supported(cfg: CodecConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not carry yet."""
     gaps = [
         (cfg.family != "charm", f"family {cfg.family!r} (ROADMAP A15)"),
-        (cfg.transform != "plain", f"transform {cfg.transform!r} (ROADMAP A10)"),
+        (cfg.transform not in ("plain", "plain_wam"),
+         f"transform {cfg.transform!r} (ROADMAP A10)"),
         (cfg.hyper != "classic_dual", f"hyper {cfg.hyper!r} (ROADMAP A10-A11)"),
         (cfg.context != "charm", f"context {cfg.context!r} (ROADMAP A14)"),
         (cfg.swatten, "SWAtten slice stacks (ROADMAP A10)"),
@@ -85,8 +86,9 @@ class CodecModel(nn.Module):
         self.cfg = cfg
         N, M = cfg.N, cfg.M
         g = generator
-        self.g_a = AnalysisTransform(N, generator=g)
-        self.g_s = SynthesisTransform(N, M, generator=g)
+        wam = cfg.transform == "plain_wam"
+        self.g_a = AnalysisTransform(N, wam, generator=g)
+        self.g_s = SynthesisTransform(N, M, wam, generator=g)
         self.syntax_model = SyntaxModel(M, M, generator=g)
         self.conv_weights_gen = ConvGenerator(M, M, generator=g)
         self.h_a = ClassicHyperAnalysis(N, generator=g)

@@ -1,8 +1,8 @@
-"""Preset table of the port: the ``source_net`` row, built from
-``lic_tpu.config.CodecConfig`` (plain dataclasses, no jax).
+"""Preset table of the port: the ``source_net`` and ``source_net_wam`` rows,
+built from the port's ``config.CodecConfig``.
 
-The row must equal ``lic_tpu.models.presets.PRESETS["source_net"]``; a
-test holds it to that.  Every other preset of the JAX package raises
+Each row must equal ``lic_tpu.models.presets.PRESETS[name]``; a test holds
+it to that.  Every other preset of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -12,8 +12,7 @@ from typing import Dict
 
 import torch
 
-from lic_tpu.config import CodecConfig
-
+from ..config import CodecConfig
 from .codec import CodecModel
 
 PRESETS: Dict[str, CodecConfig] = {
@@ -26,12 +25,20 @@ PRESETS: Dict[str, CodecConfig] = {
         swatten=False,
         syntax="basic",
     ),
+    # model/source_net_WAM.py — source_net plus WinNoShiftAttention gates
+    # in g_a and g_s
+    "source_net_wam": CodecConfig(
+        family="charm",
+        transform="plain_wam",
+        hyper="classic_dual",
+        swatten=False,
+        syntax="basic",
+    ),
 }
 
 # the JAX package's other presets → the ROADMAP item that ports each
 NOT_YET_PORTED: Dict[str, str] = {
     "neural_syntax": "A15",
-    "source_net_wam": "A9-A10",
     "net_ga": "A10-A11",
     "net_ha": "A16",
     "net_unet_ha_hs": "A16",

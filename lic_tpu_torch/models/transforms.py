@@ -1,9 +1,15 @@
-"""Analysis / synthesis transforms (g_a / g_s), plain variant, NCHW.
+"""Analysis / synthesis transforms (g_a / g_s), ``plain`` and ``plain_wam``
+variants, NCHW.
 
-Counterpart of ``lic_tpu/models/transforms.py:42-67,107-122,161-167``:
+Counterpart of ``lic_tpu/models/transforms.py:42-67,107-122,161-182``:
 4× (ZeroPad2d(1,2,1,2) + conv5 s2) with GDN after the first three, and
 4× (ZeroPad2d(1,0,1,0) + deconv5 s2 p3 op1) each followed by IGDN.
-g_a maps (H, W) → (H/16, W/16) and g_s inverts it exactly.
+``plain_wam`` adds the ``WinNoShiftAttention`` gates of
+``model/source_net_WAM.py``: in g_a after the 2nd GDN (ws 8, shift 4, at
+/4) and at the output (ws 4, shift 2, at /16); in g_s at the input (ws 4,
+shift 2) and after the 2nd IGDN (ws 8, shift 4).  The layers are children
+in the order they run.  g_a maps (H, W) → (H/16, W/16) and g_s inverts it
+exactly.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import GDN, IGDN, Conv2d, ConvTranspose2d
+from ..layers import GDN, IGDN, Conv2d, ConvTranspose2d, WinNoShiftAttention
 
 # torch ZeroPad2d((1, 2, 1, 2)) + Conv2d(5, 2, 0): (left, right, top, bottom)
 _DOWN_PAD = (1, 2, 1, 2)
@@ -37,41 +43,53 @@ class _Up5(nn.Module):
 
 
 class AnalysisTransform(nn.Module):
-    """g_a: 3 → N channels, /16 spatial (plain variant)."""
-
-    def __init__(self, N: int, *, generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.down0 = _down5(3, N, generator)
-        self.gdn0 = GDN(N)
-        self.down1 = _down5(N, N, generator)
-        self.gdn1 = GDN(N)
-        self.down2 = _down5(N, N, generator)
-        self.gdn2 = GDN(N)
-        self.down3 = _down5(N, N, generator)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.gdn0(self.down0(x))
-        x = self.gdn1(self.down1(x))
-        x = self.gdn2(self.down2(x))
-        return self.down3(x)
-
-
-class SynthesisTransform(nn.Module):
-    """g_s: N → ``out_channels``, ×16 spatial (plain variant)."""
+    """g_a: 3 → N channels, /16 spatial."""
 
     def __init__(
-        self, N: int, out_channels: int, *,
+        self, N: int, wam: bool = False, *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        g = generator
+        self.down0 = _down5(3, N, g)
+        self.gdn0 = GDN(N)
+        self.down1 = _down5(N, N, g)
+        self.gdn1 = GDN(N)
+        if wam:
+            self.wam0 = WinNoShiftAttention(N, 8, 8, 4, generator=g)
+        self.down2 = _down5(N, N, g)
+        self.gdn2 = GDN(N)
+        self.down3 = _down5(N, N, g)
+        if wam:
+            self.wam1 = WinNoShiftAttention(N, 8, 4, 2, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.children():
+            x = layer(x)
+        return x
+
+
+class SynthesisTransform(nn.Module):
+    """g_s: N → ``out_channels``, ×16 spatial."""
+
+    def __init__(
+        self, N: int, out_channels: int, wam: bool = False, *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        g = generator
+        if wam:
+            self.wam0 = WinNoShiftAttention(N, 8, 4, 2, generator=g)
         filters = [N, N, N, out_channels]
         cin = N
         for i, f in enumerate(filters):
-            self.add_module(f"up{i}", _Up5(cin, f, generator))
+            self.add_module(f"up{i}", _Up5(cin, f, g))
             self.add_module(f"igdn{i}", IGDN(f))
+            if wam and i == 1:
+                self.wam1 = WinNoShiftAttention(f, 8, 8, 4, generator=g)
             cin = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(4):
-            x = getattr(self, f"igdn{i}")(getattr(self, f"up{i}")(x))
+        for layer in self.children():
+            x = layer(x)
         return x

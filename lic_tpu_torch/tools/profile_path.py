@@ -1,14 +1,16 @@
 """Where the time of the port's main path goes, on one GPU.
 
-    python -m lic_tpu_torch.tools.profile_path [--out build/profile]
+    python -m lic_tpu_torch.tools.profile_path [--preset source_net_wam] [--out build/profile]
 
-``source_net`` at full width, random weights from ``--seed``, a batch of
+``--preset`` (``source_net`` or ``source_net_wam``) at full width, random
+weights from ``--seed``, a batch of
 ``--batch`` smooth synthetic images of ``--height`` × ``--width``, fp32
 with the coder's numerics flags.  It prints:
 
 * the card: name, power limit and maximum SM clock from ``nvidia-smi``;
 * ``STAGE`` / ``LAYER`` lines: CUDA-event milliseconds of each stage of the
-  eval forward and of each layer of g_a and g_s;
+  eval forward and of each layer of g_a and g_s (a ``WinNoShiftAttention``
+  gate is one layer);
 * for the eval forward and for the roundtrip ``compress_batch`` →
   ``decompress_batch``, each under ``torch.profiler``: the kernels with the
   most device time, and the device busy share — the union of the intervals
@@ -116,6 +118,7 @@ def _profiled(label: str, fn, iters: int, out_dir: str, top: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="source_net", choices=("source_net", "source_net_wam"))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--width", type=int, default=768)
@@ -130,18 +133,18 @@ def main() -> None:
     from ..models.compress import ChannelCoder, set_numerics_flags
 
     os.makedirs(args.out, exist_ok=True)
-    print(subprocess.run(
+    print(args.preset, subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip())
     set_numerics_flags()
     dev = torch.device("cuda")
-    model = build_model("source_net", device=dev, seed=args.seed)
+    model = build_model(args.preset, device=dev, seed=args.seed)
     x = torch.from_numpy(smooth_images(
         np.random.default_rng(args.seed), args.batch, args.height, args.width,
     )).to(dev).contiguous(memory_format=torch.channels_last)
-    coder = ChannelCoder(model, name="source_net")
+    coder = ChannelCoder(model, name=args.preset)
 
     with torch.no_grad():
         for _ in range(2):

@@ -8,10 +8,14 @@ for the host rANS library.
 
 from __future__ import annotations
 
+import ctypes
 import os
+import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
-from typing import List
+from typing import Callable, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parent / "build"
@@ -36,3 +40,78 @@ def build_if_stale(src: Path, out: Path, cmd: List[str]) -> str:
         ) from e
     os.replace(tmp, out)
     return res.stdout + res.stderr
+
+
+class CudaLibrary:
+    """A kernel source under ``csrc/``, compiled with ``nvcc`` for
+    ``sm_90a`` into ``build/<stem>.so`` (a plain C interface) at first call
+    and loaded with ``ctypes``; ``bind`` sets the entry points' argtypes.
+    A failed build raises.  ``log`` keeps this process's compiler output
+    (``ptxas -v``: registers, shared memory, spills) and ``seconds`` its
+    build time."""
+
+    def __init__(self, src_name: str, bind: Callable[[ctypes.CDLL], None]):
+        self.src = PACKAGE_DIR / "csrc" / src_name
+        self.so = BUILD_DIR / f"{self.src.stem}.so"
+        self.log = ""
+        self.seconds = 0.0
+        self._bind = bind
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def __call__(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+                if not shutil.which(nvcc):
+                    raise RuntimeError(f"nvcc not found: {self.src.name} cannot build")
+                t0 = time.perf_counter()
+                self.log = build_if_stale(self.src, self.so, [
+                    nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", "{out}", str(self.src),
+                ])
+                self.seconds = time.perf_counter() - t0
+                lib = ctypes.CDLL(str(self.so))
+                self._bind(lib)
+                self._lib = lib
+            return self._lib
+
+    def ptxas(self) -> List[str]:
+        """Per kernel of this process's build, its ``ptxas`` register count
+        and spill line: ``"<kernel>: Used N registers, ... | N bytes stack
+        frame, N bytes spill stores, N bytes spill loads"``."""
+        out, kernel, spills = [], "?", ""
+        for ln in self.log.splitlines():
+            if "Compiling entry function" in ln:
+                kernel, spills = ln.split("'")[1], ""
+            elif "spill stores" in ln:
+                spills = ln.strip()
+            elif "Used" in ln and "registers" in ln:
+                out.append(f"{kernel}: {ln.split(':', 1)[1].strip()} | {spills}")
+        return out
+
+
+def check_cuda_inputs(name: str, x, *others) -> None:
+    """What a forward-only fp32 kernel takes: ``x`` on a CUDA device, every
+    other tensor (None skipped) fp32 on the same device, and no tensor that
+    autograd would have to differentiate through the kernel."""
+    import torch
+
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    ts = [x, *[t for t in others if t is not None]]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is forward only (its backward lands with "
+            "training, ROADMAP A12); run it under torch.no_grad()"
+        )
+    for t in ts:
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise TypeError(f"{name}: fp32 tensors on {x.device} only, got {t.dtype} on {t.device}")
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

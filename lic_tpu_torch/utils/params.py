@@ -8,8 +8,14 @@ applies the inverse of the layout rules of ``tools/import_torch.py``:
 * conv kernels HWIO → OIHW;
 * transposed-conv kernels: ``W_t[in, out, a, b] = kernel[k-1-a, k-1-b,
   in, out]`` (``lic_tpu/layers/conv.py:514-517``);
-* ``nn.Dense`` kernels transposed to torch's ``(out, in)``;
-* every other leaf (GDN β/Γ, entropy-bottleneck tensors, biases) as is.
+* ``nn.Dense`` kernels transposed to torch's ``(out, in)`` (the window
+  attention's ``qkv`` and ``proj`` too);
+* every other leaf (GDN β/Γ, entropy-bottleneck tensors, biases, the
+  ``relative_position_bias_table``, which keeps the reference's
+  ((2ws-1)², nh) layout) as is.
+
+Module names follow the flax tree, except ``ResidualBlock``'s convs: flax
+names them ``Conv2d_0`` / ``Conv2d_1``, the port ``conv1`` / ``conv2``.
 
 Which rule a leaf takes is read off the port's own module types, on a
 skeleton built on the meta device.  Every state-dict key must be filled
@@ -24,14 +30,15 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from lic_tpu.config import CodecConfig
-
-from ..layers import Conv2d, ConvTranspose2d, Linear
+from ..config import CodecConfig
+from ..layers import Conv2d, ConvTranspose2d, Linear, ResidualBlock
 from ..models.codec import CodecModel
 from ..models.presets import PRESETS
 
 SKIPPED_PREFIX = "prediction_model_syntax/"
+_RESBLOCK_NAMES = {"conv1": "Conv2d_0", "conv2": "Conv2d_1"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -60,16 +67,28 @@ def params_from_flax(
     tree: Mapping, cfg: Optional[CodecConfig] = None
 ) -> Dict[str, torch.Tensor]:
     """flax params of a ``source_net``-family model → the port's state dict.
-    ``cfg`` only selects the module types (widths do not matter)."""
-    flat = _flatten(tree)
+    ``cfg`` (default ``source_net``) only selects the module types (widths
+    do not matter)."""
     with torch.device("meta"):
         skeleton = CodecModel(cfg or PRESETS["source_net"])
+    return state_from_flax(tree, skeleton)
+
+
+def state_from_flax(tree: Mapping, skeleton: nn.Module) -> Dict[str, torch.Tensor]:
+    """flax params → the state dict of ``skeleton``, a port module whose
+    submodules mirror the tree (any device, ``meta`` included)."""
+    flat = _flatten(tree)
+    modules = dict(skeleton.named_modules())
     used, state = set(), {}
-    for mname, module in skeleton.named_modules():
+    for mname, module in modules.items():
         own = dict(module.named_parameters(recurse=False))
         if not own:
             continue
-        base = _flax_path(mname) + "/" if mname else ""
+        parent, _, leaf = mname.rpartition(".")
+        path = _flax_path(mname)
+        if isinstance(modules.get(parent), ResidualBlock):
+            path = f"{_flax_path(parent)}/{_RESBLOCK_NAMES[leaf]}"
+        base = path + "/" if mname else ""
         for pname in own:
             if isinstance(module, (Conv2d, ConvTranspose2d, Linear)):
                 key = base + ("kernel" if pname == "weight" else pname)

@@ -22,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+from lic_tpu.coding import codec as jcodec
 from lic_tpu.coding.device_rans import Rans16InterleavedCodec
+from lic_tpu_torch import coding as tcoding
 from lic_tpu.models.codec import CodecModel as JCodecModel
 from lic_tpu.models.compress import ChannelCoder as JChannelCoder
 from lic_tpu.models.presets import get_config as jget_config
@@ -229,3 +231,35 @@ def test_jax_reads_port_stream(pair, coder):
         coder.y_coder.codec.cdfs, coder.y_coder.codec.offsets
     ).decode_host(_split(coder, blob), rows[0].numpy().astype(np.int32), counts)
     np.testing.assert_array_equal(dec, sym[0].numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_coders_write_the_jax_bytes(seed):
+    """The port's copies of the host coders (``coding.host_rans`` on its own
+    ``csrc/rans.cpp``) write byte-identical streams to the JAX package's for
+    the same symbols, escapes included, and decode them back."""
+    rng = np.random.default_rng(seed)
+    tg, jg = tcoding.GaussianCoder(), jcodec.GaussianCoder()
+    np.testing.assert_array_equal(tg.codec.cdfs, jg.codec.cdfs)
+    np.testing.assert_array_equal(tg.scale_table, jg.scale_table)
+    n = 3000
+    rows = rng.integers(0, 64, n).astype(np.int32)
+    sym = rng.integers(-20, 21, n).astype(np.int32)
+    pos = rng.choice(n, 40, replace=False)
+    sym[pos] = rng.integers(-5000, 5000, 40)  # escapes
+    sym[pos[0]] = (1 << 30) + 7
+    assert tg.codec.encode(sym, rows) == jg.codec.encode(sym, rows)
+    steps = [1000, 1000, 1000]
+    t_lane = tcoding.Rans16InterleavedCodec(tg.codec.cdfs, tg.codec.offsets)
+    j_lane = Rans16InterleavedCodec(jg.codec.cdfs, jg.codec.offsets)
+    blob = t_lane.encode(sym, rows, steps, 128)
+    assert blob == j_lane.encode(sym, rows, steps, 128)
+    np.testing.assert_array_equal(t_lane.decode_host(blob, rows, steps), sym)
+
+    pmf = rng.dirichlet(np.ones(64), size=8) * 0.98
+    med = rng.standard_normal(8).astype(np.float32)
+    tf, jf = tcoding.FactorizedCoder(pmf, med, -32), jcodec.FactorizedCoder(pmf, med, -32)
+    z = rng.integers(-40, 40, (1, 3, 5, 8)).astype(np.int32)
+    zb = tf.encode_symbols(z)
+    assert zb == jf.encode_symbols(z)
+    np.testing.assert_array_equal(tf.decode_symbols(zb, z.shape), z)

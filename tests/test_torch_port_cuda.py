@@ -1,5 +1,8 @@
-"""The port's two hand-written kernels against their plain versions, on
-the card.  Every test here is marked ``cuda`` and skips without CUDA.
+"""The port's hand-written kernels against their plain versions, on the
+card: B1 (rANS drain), B2 (GDN), B3 (5×5 stride-2 conv), B4/B5 (window
+attention) and B6 (stride-1 conv).  Every test here is marked ``cuda`` and
+skips without CUDA.  fp32 tolerance: atol/rtol 1e-5 (sums in another order
+than cuDNN's / cuBLAS's); a repeat call of B3-B6 is bit-identical.
 
 The file imports no jax, so it also runs on a GPU host without the JAX
 package (``tests/conftest.py`` imports jax; pass ``--noconftest``):
@@ -11,14 +14,27 @@ import numpy as np
 import pytest
 import torch
 
-from lic_tpu.coding.codec import GaussianCoder
 from lic_tpu_torch.coding import (
     DeviceRans16Interleaved,
+    GaussianCoder,
     drain_plain,
     random_streams,
     rans_drain,
 )
-from lic_tpu_torch.layers import gdn_fused, gdn_plain
+from lic_tpu_torch.layers import (
+    conv5s2,
+    conv5s2_plain,
+    convk_s1,
+    convk_s1_plain,
+    gdn_fused,
+    gdn_plain,
+    wba_plain,
+    wba_proj_plain,
+    window_attention,
+    window_attention_proj,
+)
+from lic_tpu_torch.layers.window_attn import swin_shift_mask
+from lic_tpu_torch.models.compress import set_numerics_flags
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +45,7 @@ L = 128
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the port's CUDA/Triton kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_numerics_flags()  # no TF32 in the plain versions' cuDNN/cuBLAS calls
     return torch.device("cuda")
 
 
@@ -99,3 +115,116 @@ def test_drain_kernel_rejects_payload_without_trailing_zeros(cuda_device):
     with pytest.raises(ValueError, match="trailing zero"):
         rans_drain(dev, dev.init_lanes(bad), bad,
                    torch.from_numpy(idx).to(cuda_device), 200)
+
+
+TOL = 1e-5
+
+
+def _randn(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen) * scale
+
+
+def _cl(t, dev):
+    return t.to(dev).contiguous(memory_format=torch.channels_last)
+
+
+def _check_kernel(fn, plain, args, kwargs=None):
+    """kernel vs plain at TOL, one launch counted, repeat bit-identical."""
+    kwargs = kwargs or {}
+    with torch.no_grad():
+        before = fn.launches
+        y = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        torch.testing.assert_close(y, plain(*args, **kwargs), atol=TOL, rtol=TOL)
+        assert torch.equal(fn(*args, **kwargs), y)
+    return y
+
+
+@pytest.mark.parametrize("cin,h,w", [(192, 16, 24), (128, 10, 6)])
+def test_conv5s2_kernel_matches_plain(cuda_device, cin, h, w):
+    g = torch.Generator().manual_seed(cin + h)
+    x = _cl(_randn(g, 2, cin, h, w), cuda_device)
+    wt = _randn(g, 192, cin, 5, 5, scale=(cin * 25) ** -0.5).to(cuda_device)
+    b = _randn(g, 192).to(cuda_device)
+    y = _check_kernel(conv5s2, conv5s2_plain, (x, wt, b))
+    assert y.shape == (2, 192, h // 2, w // 2)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("act,residual", [(None, False), ("leaky_relu", False), ("leaky_relu", True)])
+def test_convk_s1_kernel_matches_plain(cuda_device, k, act, residual):
+    g = torch.Generator().manual_seed(k)
+    x = _cl(_randn(g, 2, 192, 12, 20), cuda_device)
+    wt = _randn(g, 192, 192, k, k, scale=(192 * k * k) ** -0.5).to(cuda_device)
+    b = _randn(g, 192).to(cuda_device)
+    res = _cl(_randn(g, 2, 192, 12, 20), cuda_device) if residual else None
+    _check_kernel(convk_s1, convk_s1_plain, (x, wt, b), dict(act=act, residual=res))
+
+
+def test_convk_s1_kernel_other_widths(cuda_device):
+    """C_in 160 (not a multiple of the 16-channel stage), C_out 224 (the
+    slice-0 ChARM conv), no bias."""
+    g = torch.Generator().manual_seed(5)
+    x = _cl(_randn(g, 1, 160, 9, 7), cuda_device)
+    wt = _randn(g, 224, 160, 3, 3, scale=(160 * 9) ** -0.5).to(cuda_device)
+    _check_kernel(convk_s1, convk_s1_plain, (x, wt, None))
+
+
+def test_conv_kernels_batch_independent_and_reject_layout(cuda_device):
+    """An image's output does not depend on the batch it rides in (the
+    encoder and decoder of one stream may run at other batch sizes), and a
+    tensor that is not channels_last raises instead of being copied."""
+    g = torch.Generator().manual_seed(9)
+    x = _cl(_randn(g, 3, 192, 8, 12), cuda_device)
+    wt = _randn(g, 192, 192, 3, 3, scale=(192 * 9) ** -0.5).to(cuda_device)
+    w5 = _randn(g, 192, 192, 5, 5, scale=(192 * 25) ** -0.5).to(cuda_device)
+    with torch.no_grad():
+        assert torch.equal(convk_s1(x, wt)[1:2], convk_s1(x[1:2], wt))
+        assert torch.equal(conv5s2(x, w5)[2:], conv5s2(x[2:], w5))
+        with pytest.raises(ValueError, match="channels_last"):
+            convk_s1(x.contiguous(), wt)
+
+
+def _attn_case(gen, dev, hp, wp, nh, ws, shift, pad):
+    n = ws * ws
+    rel = _randn(gen, nh, n, n, scale=0.5).to(dev)
+    mask = None
+    if shift or pad:
+        mask = torch.from_numpy(
+            swin_shift_mask(hp - pad, wp - pad, ws, shift, pad, pad)
+        ).to(dev)
+    return rel, mask
+
+
+@pytest.mark.parametrize("ws,hp,wp", [(8, 16, 24), (4, 8, 12)])
+@pytest.mark.parametrize("shift,pad", [(0, 0), (2, 0), (2, 3)])
+def test_window_attention_kernels_match_plain(cuda_device, ws, hp, wp, shift, pad):
+    c, nh, b = 192, 8, 2
+    g = torch.Generator().manual_seed(ws + shift + pad)
+    rel, mask = _attn_case(g, cuda_device, hp, wp, nh, ws, shift, pad)
+    qkv = _randn(g, b, hp, wp, 3 * c).to(cuda_device)
+    _check_kernel(window_attention, wba_plain, (qkv, rel, mask, ws, nh))
+    x = _randn(g, b, hp, wp, c).to(cuda_device)
+    wqkv = _randn(g, 3 * c, c, scale=c ** -0.5).to(cuda_device)
+    wproj = _randn(g, c, c, scale=c ** -0.5).to(cuda_device)
+    bqkv, bproj = _randn(g, 3 * c).to(cuda_device), _randn(g, c).to(cuda_device)
+    _check_kernel(window_attention_proj, wba_proj_plain,
+                  (x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh))
+
+
+def test_window_attention_per_head_softmax_no_underflow(cuda_device):
+    """One head's logits ~90 below another's must not underflow to 0/0:
+    the softmax takes each head's own row max
+    (``tests/test_pallas.py::test_per_head_softmax_shift_no_underflow``)."""
+    ws, nh, c, n = 4, 2, 16, 16
+    g = torch.Generator().manual_seed(0)
+    qkv = _randn(g, 1, 4, 4, 3 * c, scale=0.1).to(cuda_device)
+    rel = torch.zeros(nh, n, n)
+    rel[1] -= 90.0
+    rel = rel.to(cuda_device)
+    with torch.no_grad():
+        y = window_attention(qkv, rel, None, ws, nh)
+        assert torch.isfinite(y).all()
+        torch.testing.assert_close(y, wba_plain(qkv, rel, None, ws, nh), atol=TOL, rtol=TOL)

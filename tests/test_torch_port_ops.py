@@ -5,6 +5,7 @@ The same numpy inputs (fixed seeds) go through the JAX package and
 (``tests/conftest.py``).  Tolerances are stated per test.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -48,7 +49,8 @@ def _nhwc(t):
 
 
 def test_source_net_row_equals_jax_preset():
-    assert PRESETS["source_net"] == JPRESETS["source_net"]
+    """Field by field: the port's ``CodecConfig`` is its own copy."""
+    assert dataclasses.asdict(PRESETS["source_net"]) == dataclasses.asdict(JPRESETS["source_net"])
 
 
 def test_other_presets_raise_naming_roadmap_item():
@@ -59,12 +61,18 @@ def test_other_presets_raise_naming_roadmap_item():
 
 
 def test_import_leaves_jax_unloaded():
+    """Importing every module of ``lic_tpu_torch`` in a fresh interpreter
+    loads no ``jax``/``flax`` and no module of ``lic_tpu`` (the JAX
+    package), not even one that imports no jax."""
     code = (
-        "import sys; import lic_tpu_torch, lic_tpu_torch.models.compress, "
-        "lic_tpu_torch.utils.params, lic_tpu_torch.tools.profile_path, "
-        "lic_tpu_torch.tools.deconv_probe; "
-        "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
-        "sys.exit(f'imported {bad}' if bad else 0)"
+        "import importlib, pkgutil, sys\n"
+        "import lic_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(lic_tpu_torch.__path__, 'lic_tpu_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'lic_tpu'))\n"
+        "print(len(mods))\n"
+        "sys.exit(f'imported {bad}' if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
@@ -72,6 +80,7 @@ def test_import_leaves_jax_unloaded():
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr + r.stdout
+    assert int(r.stdout.split()[0]) >= 30  # every module, not a stub
 
 
 # -------------------------------------------------------------------- ops

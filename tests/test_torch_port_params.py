@@ -1,11 +1,15 @@
-"""The flax → torch parameter bridge (``lic_tpu_torch.utils.params``).
+"""The flax → torch parameter bridge (``lic_tpu_torch.utils.params``) and
+the port's copy of the preset table.
 
 Every key of the port's state dict is filled from the JAX package's
-``source_net`` tree, every flax leaf is used except the
-``PredictionModelSyntax`` subtree (skipped by an explicit prefix), and the
-layout rules (HWIO → OIHW, the transposed-conv flip, Dense transposes) put
-each value where the port reads it.
+``source_net`` and ``source_net_wam`` trees, every flax leaf is used except
+the ``PredictionModelSyntax`` subtree (skipped by an explicit prefix), and
+the layout rules (HWIO → OIHW, the transposed-conv flip, Dense transposes)
+put each value where the port reads it.  The port's ``source_net_wam``
+row equals the JAX package's field by field.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +18,10 @@ import pytest
 import torch
 
 from lic_tpu.models.codec import CodecModel as JCodecModel
+from lic_tpu.models.presets import PRESETS as JPRESETS
 from lic_tpu.models.presets import get_config as jget_config
 from lic_tpu_torch.models import build_model
+from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.utils.params import SKIPPED_PREFIX, _flatten, params_from_flax
 
 torch.set_num_threads(2)
@@ -86,3 +92,43 @@ def test_layout_rules(tree):
         tree["entropy_bottleneck"]["quantiles"],
     )
     np.testing.assert_array_equal(sd["g_s.igdn3.gamma"].numpy(), tree["g_s"]["igdn3"]["gamma"])
+
+
+def test_source_net_wam_row_equals_jax_preset():
+    """Field by field, as ``test_torch_port_ops.py`` holds ``source_net``."""
+    name = "source_net_wam"
+    assert dataclasses.asdict(PRESETS[name]) == dataclasses.asdict(JPRESETS[name])
+
+
+def test_every_key_filled_and_every_leaf_used_wam():
+    """``source_net_wam``: the WAM subtrees map too — Dense kernels
+    transposed, the rel-pos table as it is, ``ResidualBlock``'s
+    ``Conv2d_0``/``Conv2d_1`` to ``conv1``/``conv2``."""
+    jm = JCodecModel(jget_config("source_net_wam", n_override=32))
+    shapes = jax.eval_shape(
+        lambda k: jm.init({"params": k, "noise": jax.random.PRNGKey(1)},
+                          jnp.zeros((1, 64, 64, 3)), training=True),
+        jax.random.PRNGKey(0),
+    )["params"]
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    sd = params_from_flax(tree, PRESETS["source_net_wam"])
+    model = build_model("source_net_wam", n_override=32)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    assert len(sd) == len(_flatten(tree))
+    wba = tree["g_s"]["wam1"]["wba2"]["attn"]
+    np.testing.assert_array_equal(sd["g_s.wam1.wba2.attn.qkv.weight"].numpy(), wba["qkv"]["kernel"].T)
+    np.testing.assert_array_equal(sd["g_s.wam1.wba2.attn.proj.weight"].numpy(), wba["proj"]["kernel"].T)
+    np.testing.assert_array_equal(
+        sd["g_s.wam1.wba2.attn.relative_position_bias_table"].numpy(),
+        wba["relative_position_bias_table"],
+    )
+    np.testing.assert_array_equal(
+        sd["g_a.wam0.conv_a.1.conv2.weight"].numpy(),
+        tree["g_a"]["wam0"]["conv_a_1"]["Conv2d_1"]["kernel"].transpose(3, 2, 0, 1),
+    )
+    np.testing.assert_array_equal(
+        sd["g_a.wam1.rb3.conv1.bias"].numpy(), tree["g_a"]["wam1"]["rb3"]["Conv2d_0"]["bias"]
+    )
+

@@ -1,7 +1,8 @@
 """The port's measurement scripts, on the CPU: the sub-pixel lowering of
 the deconv probe equals ``F.conv_transpose2d`` (atol 1e-5: another
-summation order), and the profile's device busy time is the union of the
-device intervals in a trace."""
+summation order), the profile's device busy time is the union of the
+device intervals in a trace, and the build's ``ptxas`` summary keeps each
+kernel's register and spill counts."""
 
 import pytest
 import torch
@@ -9,6 +10,7 @@ import torch.nn.functional as F
 
 from lic_tpu_torch.tools.deconv_probe import subpel_conv_transpose2d, subpel_weights
 from lic_tpu_torch.tools.profile_path import device_activity, union_length
+from lic_tpu_torch.utils.build import CudaLibrary
 
 torch.set_num_threads(2)
 
@@ -48,3 +50,23 @@ def test_device_activity_reads_device_events_only():
     assert act["kernels"] == [("k1", [8.0, 2])]
     with pytest.raises(RuntimeError, match="no device activity"):
         device_activity(events[3:])
+
+
+def test_ptxas_summary_keeps_registers_and_spills():
+    lib = CudaLibrary("conv_direct.cu", lambda so: None)
+    lib.log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 233 registers, used 1 barriers, 26624 bytes smem
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers
+"""
+    assert lib.ptxas() == [
+        "_Z6kernelPf: Used 233 registers, used 1 barriers, 26624 bytes smem"
+        " | 8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "_Z5otherv: Used 40 registers | 0 bytes stack frame, 0 bytes spill stores,"
+        " 0 bytes spill loads",
+    ]
