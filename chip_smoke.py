@@ -23,7 +23,11 @@ Each phase prints one line:
 3. B2, B1, B4 and B5 against their plain versions at the paths' shapes,
    fp32, atol/rtol 1e-5 (B1 bit-exact), a repeat call bit-identical, with
    the kernel's, the plain version's and a library call's times (the
-   library call is a yardstick only; nothing on the path calls it);
+   library call is a yardstick only; nothing on the path calls it); for
+   each B4/B5 shape also the bound in ms and the side that sets it, the
+   kernel's share of the bound, its time over the yardstick's, shared
+   memory per CTA and CTAs per SM, then both kernels' ``ptxas`` register
+   and spill lines;
 4. per path: the zero-init weights of the WAM gates (each attention's
    output projection, each ``ResidualBlock``'s second conv) get small
    seeded values, so that every check below sees those branches; the same
@@ -166,6 +170,16 @@ def _vs_plain(name, kernel, plain, args, library=None, reps=5, f64=True):
     return err, ms, pms, lms, err32
 
 
+def _roofline(ms, library_ms, nbytes, flops) -> dict:
+    """The bound of one call (bytes over the HBM rate or FLOPs over the fp32
+    peak, the larger), which side sets it, the kernel's share of it and its
+    time against the library yardstick."""
+    b, o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    bound = max(b, o)
+    return dict(bound_ms=f"{bound:.4f}", bound_by="operations" if o >= b else "bytes",
+                share_of_bound=f"{bound / ms:.3f}", vs_library=f"{ms / library_ms:.3f}")
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -299,6 +313,7 @@ def main() -> int:
     # ---- 3c. B4 and B5 vs plain at both gate sizes, with the shift mask;
     # library: SDPA (B4), F.linear + SDPA + F.linear (B5) on the windows
     c, nh = 192, 8
+    occ = ("smem_per_cta", "ctas_per_sm")
     for hp, wp, ws, ss in ((H // 4, W // 4, 8, 4), (H // 16, W // 16, 4, 2)):
         n, hd = ws * ws, c // nh
         nwin = BATCH * (hp // ws) * (wp // ws)
@@ -329,21 +344,27 @@ def main() -> int:
             (qkv, rel, mask, ws, nh),
             library=lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=amask),
         )
-        tally["wba"].add(err, ms, pms, lms, _nbytes(qkv, rel, mask) + qkv.numel() // 3 * 4, flops)
+        nbytes = _nbytes(qkv, rel, mask) + qkv.numel() // 3 * 4
+        tally["wba"].add(err, ms, pms, lms, nbytes, flops)
         _say("b4_wba", ws=ws, shift=ss, shape=tuple(qkv.shape), max_abs_err=f"{err:.3g}",
              vs_fp32_plain=f"{err32:.3g}",
-             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", sdpa_ms=f"{lms:.3f}")
+             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", sdpa_ms=f"{lms:.3f}",
+             **_roofline(ms, lms, nbytes, flops), **dict(zip(occ, window_attn.occupancy(False, ws, hd, c))))
+        flops5 = flops + 2 * nwin * n * c * 4 * c
         err, ms, pms, lms, err32 = _vs_plain(
             f"wba_proj ws{ws}", window_attn.window_attention_proj, window_attn.wba_proj_plain,
             (x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh), library=sdpa_proj,
         )
-        tally["wba_proj"].add(err, ms, pms, lms,
-                              2 * _nbytes(x) + _nbytes(rel, mask, wqkv, bqkv, wproj, bproj),
-                              flops + 2 * nwin * n * c * 4 * c)
+        nbytes = 2 * _nbytes(x) + _nbytes(rel, mask, wqkv, bqkv, wproj, bproj)
+        tally["wba_proj"].add(err, ms, pms, lms, nbytes, flops5)
         _say("b5_wba_proj", ws=ws, shift=ss, shape=tuple(x.shape), max_abs_err=f"{err:.3g}",
              vs_fp32_plain=f"{err32:.3g}",
-             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", linear_sdpa_linear_ms=f"{lms:.3f}")
+             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", linear_sdpa_linear_ms=f"{lms:.3f}",
+             **_roofline(ms, lms, nbytes, flops5), **dict(zip(occ, window_attn.occupancy(True, ws, hd, c))))
         del qkv, x, q, kk, v, qkv_w, x_w, amask
+    for line in window_attn.library.ptxas():
+        if "wba" in line:
+            _say("b4_b5_ptxas", kernel=repr(line))
     torch.cuda.empty_cache()
 
     # ---- 4. the paths

@@ -45,7 +45,7 @@ class DeviceRans16Interleaved:
     B independent streams, each followed by at least L zero words."""
 
     def __init__(self, cdfs: np.ndarray, offsets: np.ndarray, n_lanes: int,
-                 device="cpu"):
+                 device):
         cdfs = np.asarray(cdfs, np.int64)
         self.rows, self.row_len = cdfs.shape
         self.nsyms = self.row_len - 2  # value slots; slot nsyms = escape

@@ -9,260 +9,619 @@
 //       computed inside the kernel: x (B, Hp, Wp, C) -> (B, Hp, Wp, C).
 // The windowing happens inside: a window's tokens are read straight from the
 // padded, rolled map.  The TPU tricks (block-diagonal head masks, 0/1
-// segment-sum matmuls, the head-broadcast mask) are not ported: a CTA
-// computes one head's n x n logits directly, with a per-row max.
+// segment-sum matmuls, the head-broadcast mask) are not ported: a team of
+// threads computes one head's n x n logits directly, with a per-row max.
 //
-// What bounds them on an H100: at ws 8 (n = 64, hd = 24) B4 reads 3C and
+// What bounds them on an H100.  At ws 8 (n = 64, hd = 24) B4 reads 3C and
 // writes C floats per token and does 4 n hd FLOP per token and head: ~1.5
-// FLOP per byte, so bytes bound it (its logits never leave shared memory).
-// B5 adds 2 C (3C + C) FLOP per token for the two projections: ~400 FLOP per
-// byte, so operations bound it.
+// FLOP per byte, so HBM bytes bound it.  B5 adds 2 C (3C + C) FLOP per token
+// for the two projections: ~400 FLOP per byte, so the fp32 CUDA cores bound
+// it.  The first port of both (one CTA per window and head, every FMA fed by
+// two shared-memory loads) ran at the pace of shared memory instead: two
+// wavefronts per 32 FMAs.
 //
-// Design (simple first): B4 runs one CTA of 128 threads per (window, head)
-// with q, k, v of that head (n x hd) and the n x n logits in shared memory.
-// B5 runs one CTA of 256 threads per window: x (n x C) and the whole qkv
-// (n x 3C) sit in shared memory (213 KB at n = 64, C = 192, hence dynamic
-// shared memory), the heads run one after another, their outputs overwrite
-// x, and the output projection streams W_proj from L2.  W_qkv (C x 3C,
-// 442 KB) does not fit shared memory; it streams from L2 one 64-column block
-// at a time, each thread reading one column and accumulating n/4 rows.
+// Design.  Both products of the attention core (attend) are register tiled.
+// A thread owns RPT logit rows x n/8 key columns; the eight threads of a
+// row sit on eight neighbouring lanes, lane cg holding the consecutive keys
+// cg n/8 .. cg n/8 + n/8 - 1, so its bias and mask columns are one 16-byte
+// (or 8-byte) vector load.  q stays token-major in shared memory and k, v
+// are stored with key cg n/8 + jj in row 8 jj + cg, all with a row stride
+// of hd + 4 floats: eight neighbouring lanes read eight neighbouring rows,
+// on distinct banks, and every operand load is one 16-byte vector.  QK^T
+// does 4 RPT n/8 FMAs per RPT + n/8 vector loads (RPT = 4: 128 per 12), PV
+// 4 RPT n/8 per n/8.  The logits never leave registers: the row max and
+// row sum take three xor shuffles, PV sums each lane's own keys for four
+// output columns at a time, and a reduce-scatter over the row's eight
+// lanes (two halving steps and a pair sum) leaves output column cg / 2 on
+// the even lane.  hd and n are template constants.
+//
+// B4: a CTA of 256 threads takes 64 tokens (one ws-8 window or four ws-4
+// windows) and walks their (window, head) items in rounds, one item per
+// team of 8n/4 threads.  A token table in shared memory holds each token's
+// pixel.  Each round's q, k, v tiles arrive by 16-byte cp.async,
+// neighbouring threads on neighbouring addresses, while the round before
+// computes (two stages); the outputs go through shared memory, so that
+// each token's head slice leaves as whole 16-byte vectors.  About 98 KB of
+// shared memory: two CTAs per SM.
+//
+// B5: a CTA of 256 threads takes 64 tokens and runs the heads one after
+// another.  Per head, K-chunks of 32 input channels of x and of the head's
+// 3 hd rows of W_qkv (torch's Linear layout, (out, in), read as it is)
+// stream through two cp.async stages into a register-tiled product (4 rows
+// x 3hd/8 columns a thread; two groups of 128 threads each take half of a
+// chunk's channels, and one group's sums are added to the other's at the
+// end of the head); the last chunk of a head prefetches the next head's
+// first.  The attention core runs on the head's q, k, v (one team
+// per window) and writes its output columns into o (64 x C) in shared
+// memory.  Then o W_proj^T + b is one register-tiled product (4 rows x C/16
+// columns a thread) over K-chunks of W_proj.  An output accumulator held in
+// registers across the heads does not fit: with the attention's live
+// values it needs more than the 128 registers a thread has at two CTAs per
+// SM, and ptxas spilled it.  About 109 KB of shared memory: two CTAs per SM.
 //
 // The shift/pad mask is additive (-100, not -inf, as the reference's) and
 // the softmax takes each head's own row max, so no head's row underflows.
-// Every sum runs in one fixed order (serial over the contraction, warp
-// shuffles in a fixed tree), independent of batch size and launch.
+// Every sum runs in one fixed order (serial over the contraction in
+// ascending order, then a fixed shuffle tree), with no split across CTAs
+// and no atomics: repeats are bit-identical and a window's output does not
+// depend on the batch it comes in.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NT = 256;  // threads per CTA, both kernels
+constexpr int M = 64;    // tokens per CTA, both kernels
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
 }
 
-// Offset (in pixels) of token t of window wi of image b.
-__device__ __forceinline__ size_t token_pixel(int b, int wi, int t, int Hp, int Wp, int ws) {
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc += a . b over four consecutive elements, in ascending order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// max / sum over the eight lanes of a row group (lanes differing in bits 0-2)
+__device__ __forceinline__ float group8_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 4));
+}
+
+__device__ __forceinline__ float group8_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  v += __shfl_xor_sync(FULL, v, 2);
+  return v + __shfl_xor_sync(FULL, v, 4);
+}
+
+// Pixel index of token t of window wi of image b.
+__device__ __forceinline__ int token_pixel(int b, int wi, int t, int Hp, int Wp, int ws) {
   const int nww = Wp / ws;
   const int y = (wi / nww) * ws + t / ws;
   const int x = (wi % nww) * ws + t % ws;
-  return ((size_t)b * Hp + y) * Wp + x;
+  return (b * Hp + y) * Wp + x;
 }
 
-// One head of one window, all operands in shared memory.  q (already
-// scaled), k, v: n x hd with row strides qs, ks, vs; P: n x (n + 1) scratch.
-// rel: this head's (n, n) bias; mask: this window's (n, n) mask or null.
-// Writes the n x hd output to o (row stride os), which may alias q.
-template <int N, int NT>
-__device__ void attend_head(const float* q, int qs, const float* k, int ks,
-                            const float* v, int vs, float* P,
-                            const float* __restrict__ rel,
-                            const float* __restrict__ mask, int hd, float* o,
-                            int os) {
-  constexpr int PLD = N + 1;
-  const int tid = threadIdx.x;
-  for (int e = tid; e < N * N; e += NT) {
-    const int i = e / N, j = e % N;
-    float s = 0.f;
-    for (int d = 0; d < hd; ++d) s = fmaf(q[i * qs + d], k[j * ks + d], s);
-    s += rel[e];
-    if (mask) s += mask[e];
-    P[i * PLD + j] = s;
+// The CTA's token table: tok[i] = pixel of token i of the CTA's 64 tokens
+// (window blockIdx.x * 64 / N + i / N), -1 past the last window.
+template <int N>
+__device__ __forceinline__ void token_table(int* tok, int nwin, int nW, int Hp, int Wp, int ws) {
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    const int g = blockIdx.x * (M / N) + i / N;
+    tok[i] = g < nwin ? token_pixel(g / nW, g % nW, i % N, Hp, Wp, ws) : -1;
   }
-  __syncthreads();
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int i = warp; i < N; i += NT / 32) {
-    float* row = P + i * PLD;
+}
+
+// Shared-memory row of key (and value) token t of a window: lane cg's key
+// columns jj = 0 .. N/8 - 1 are the consecutive tokens cg N/8 + jj, stored
+// in rows jj 8 + cg, so eight neighbouring lanes read eight neighbouring
+// rows and each lane's bias and mask columns are one contiguous run.
+template <int N>
+__device__ __forceinline__ int key_slot(int t) {
+  return (t % (N / 8)) * 8 + t / (N / 8);
+}
+
+// o[0 .. JJ) = p[0 .. JJ) from global memory, as 16- or 8-byte vectors
+template <int JJ>
+__device__ __forceinline__ void ldg_run(const float* __restrict__ p, float (&o)[JJ]) {
+  if constexpr (JJ % 4 == 0) {
+#pragma unroll
+    for (int u = 0; u < JJ / 4; ++u) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + u);
+      o[4 * u] = t.x, o[4 * u + 1] = t.y, o[4 * u + 2] = t.z, o[4 * u + 3] = t.w;
+    }
+  } else {
+    static_assert(JJ == 2, "key columns per lane");
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = t.x, o[1] = t.y;
+  }
+}
+
+// One head of one window.  q: N x HD in shared memory, token-major; k, v:
+// the same with token t in row key_slot(t); row stride HD + 4.  rel: this
+// head's (N, N) bias; mask: this window's (N, N) mask or null.  The team
+// has (N / RPT) * 8 threads, lt its thread index (a multiple of 32 threads,
+// starting on a warp boundary).  Calls store(i, d, o[i][d]) once for every
+// output element.
+template <int N, int HD, int RPT, typename Store>
+__device__ __forceinline__ void attend(const float* q, const float* k, const float* v,
+                                       const float* __restrict__ rel,
+                                       const float* __restrict__ mask, float scale, int lt,
+                                       Store store) {
+  constexpr int S = HD + 4, JJ = N / 8;
+  static_assert(HD % 8 == 0 && N % 8 == 0 && N % RPT == 0, "tile shape");
+  const int rg = lt >> 3, cg = lt & 7;
+
+  // logits: s[r][jj] = q[rg RPT + r] . k[cg JJ + jj], d ascending
+  float s[RPT][JJ];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) s[r][jj] = 0.f;
+#pragma unroll
+  for (int d = 0; d < HD; d += 4) {
+    float4 qv[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) qv[r] = ld4(q + (rg * RPT + r) * S + d);
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) {
+      const float4 kv = ld4(k + (jj * 8 + cg) * S + d);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) s[r][jj] = dot4(qv[r], kv, s[r][jj]);
+    }
+  }
+
+  // softmax numerators in place, reciprocal row sums in il
+  float il[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int i = rg * RPT + r;
+    float bias[JJ], mk[JJ];
+    ldg_run<JJ>(rel + i * N + cg * JJ, bias);
+    if (mask) ldg_run<JJ>(mask + i * N + cg * JJ, mk);
     float m = -INFINITY;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      s += e;
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) {
+      float t = s[r][jj] * scale + bias[jj];
+      if (mask) t += mk[jj];
+      s[r][jj] = t;
+      m = fmaxf(m, t);
     }
-    s = warp_sum(s);
-    for (int j = lane; j < N; j += 32) row[j] = row[j] / s;
+    m = group8_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) {
+      const float e = expf(s[r][jj] - m);
+      s[r][jj] = e;
+      sum += e;
+    }
+    il[r] = 1.f / group8_sum(sum);
   }
-  __syncthreads();
-  for (int e = tid; e < N * hd; e += NT) {
-    const int i = e / hd, d = e % hd;
-    float acc = 0.f;
-    for (int j = 0; j < N; ++j) acc = fmaf(P[i * PLD + j], v[j * vs + d], acc);
-    o[i * os + d] = acc;
+
+  // PV, four output columns at a time: each lane sums its own key columns;
+  // a reduce-scatter over lane bits 2 and 1, then a sum over bit 0, leaves
+  // column dc + cg / 2 on lanes cg and cg ^ 1, and the even lane stores it
+  const bool b2 = cg & 4, b1 = cg & 2;
+#pragma unroll
+  for (int dc = 0; dc < HD; dc += 4) {
+    float a[RPT][4];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[r][e] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) {
+      const float4 vv = ld4(v + (jj * 8 + cg) * S + dc);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        a[r][0] = fmaf(s[r][jj], vv.x, a[r][0]);
+        a[r][1] = fmaf(s[r][jj], vv.y, a[r][1]);
+        a[r][2] = fmaf(s[r][jj], vv.z, a[r][2]);
+        a[r][3] = fmaf(s[r][jj], vv.w, a[r][3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float send = b2 ? a[r][e] : a[r][e + 2];
+        const float keep = b2 ? a[r][e + 2] : a[r][e];
+        a[r][e] = keep + __shfl_xor_sync(FULL, send, 4);
+      }
+      const float send = b1 ? a[r][0] : a[r][1];
+      const float keep = b1 ? a[r][1] : a[r][0];
+      const float o = keep + __shfl_xor_sync(FULL, send, 2);
+      const float sum = o + __shfl_xor_sync(FULL, o, 1);  // the same bits on both lanes
+      if (!(cg & 1)) store(rg * RPT + r, dc + (cg >> 1), sum * il[r]);
+    }
   }
-  __syncthreads();
 }
 
-// B4: grid (B * nW, nh), 128 threads.
-template <int N>
-__global__ void __launch_bounds__(128) wba_kernel(
+// ---------------------------------------------------------------- B4
+// grid: ceil(B nW / (64 / N)); 256 threads; dynamic shared memory: 2 stages
+// of TEAMS tiles of 3 x N x (HD + 4) floats, TEAMS output tiles of
+// N x (HD + 4) and the token table.
+template <int N, int HD>
+struct Wba {
+  // 4 rows a thread; 2 at hd 8 (a test shape), where ptxas would hoist both
+  // d-chunks' key loads and spill
+  static constexpr int RPT = HD == 8 ? 2 : 4, T = N / RPT * 8, TEAMS = NT / T, WPC = M / N;
+  static constexpr int S = HD + 4, TILE = 3 * N * S, STAGE = TEAMS * TILE;
+  static constexpr size_t SMEM = (2 * STAGE + TEAMS * N * S) * sizeof(float) + M * sizeof(int);
+};
+
+template <int N, int HD>
+__global__ void __launch_bounds__(NT, 2) wba_kernel(
     const float* __restrict__ qkv, const float* __restrict__ rel,
-    const float* __restrict__ mask, float* __restrict__ out, int Hp, int Wp,
-    int C, int nh, int ws, float scale) {
-  constexpr int NT = 128;
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh;
-  const int nW = (Hp / ws) * (Wp / ws);
-  const int b = blockIdx.x / nW, wi = blockIdx.x % nW, h = blockIdx.y;
-  float* q = smem;                 // N x hd, later the output
-  float* k = q + N * hd;           // N x (hd + 1)
-  float* v = k + N * (hd + 1);     // N x hd
-  float* P = v + N * hd;           // N x (N + 1)
-  for (int e = threadIdx.x; e < N * hd; e += NT) {
-    const int t = e / hd, d = e % hd;
-    const float* src = qkv + token_pixel(b, wi, t, Hp, Wp, ws) * 3 * C + h * hd + d;
-    q[t * hd + d] = src[0] * scale;
-    k[t * (hd + 1) + d] = src[C];
-    v[t * hd + d] = src[2 * C];
-  }
-  __syncthreads();
-  attend_head<N, NT>(q, hd, k, hd + 1, v, hd, P, rel + (size_t)h * N * N,
-                     mask ? mask + (size_t)wi * N * N : nullptr, hd, q, hd);
-  for (int e = threadIdx.x; e < N * hd; e += NT) {
-    const int t = e / hd, d = e % hd;
-    out[token_pixel(b, wi, t, Hp, Wp, ws) * C + h * hd + d] = q[t * hd + d];
-  }
-}
+    const float* __restrict__ mask, float* __restrict__ out, int nwin, int nW, int Hp,
+    int Wp, int nh, int ws, float scale) {
+  using K = Wba<N, HD>;
+  constexpr int S = K::S, CH = HD / 4;  // 16-byte chunks per token row
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* os = smem + 2 * K::STAGE + (threadIdx.x / K::T) * N * S;  // this team's output
+  int* tok = reinterpret_cast<int*>(smem + 2 * K::STAGE + K::TEAMS * N * S);
+  const int C = nh * HD;
+  const int team = threadIdx.x / K::T, lt = threadIdx.x % K::T;
+  const int items = K::WPC * nh, rounds = (items + K::TEAMS - 1) / K::TEAMS;
 
-// dst[t][j] = sum_c src[t][c] * w[c][j] + bias[j] for the N tokens of a
-// window: src in shared memory (row stride C), w (C x ncol) in global memory.
-// 256 threads: each owns one column of a 64-column block and N / 4 rows;
-// the warp reads one shared row (a broadcast) and 32 neighbouring columns.
-template <int N>
-__device__ void window_dense(const float* src, int C, const float* __restrict__ w,
-                             const float* __restrict__ bias, int ncol,
-                             float* dst, int dld, float* gdst, int b, int wi,
-                             int Hp, int Wp, int ws) {
-  constexpr int R = N / 4;
-  const int jl = threadIdx.x % 64, g = threadIdx.x / 64;
-  for (int j0 = 0; j0 < ncol; j0 += 64) {
-    const int j = j0 + jl;
-    if (j < ncol) {
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float wv = __ldg(w + (size_t)c * ncol + j);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(src[(g * R + r) * C + c], wv, acc[r]);
-      }
-      const float bj = bias[j];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int t = g * R + r;
-        if (gdst)
-          gdst[token_pixel(b, wi, t, Hp, Wp, ws) * ncol + j] = acc[r] + bj;
-        else
-          dst[t * dld + j] = acc[r] + bj;
+  // this team's window (within the CTA) and head in round r: false where
+  // there is none
+  auto item = [&](int r, int& w, int& h) {
+    const int it = r * K::TEAMS + team;
+    w = it / nh;
+    h = it % nh;
+    return it < items && tok[w * N] >= 0;
+  };
+  // issue the copies of round r's q, k, v tiles into stage st
+  auto load = [&](int r, int st) {
+    int w, h;
+    if (!item(r, w, h)) return;
+    float* dst = smem + st * K::STAGE + team * K::TILE;
+#pragma unroll 1  // per-thread offsets are not worth registers held across rounds
+    for (int e = lt; e < 3 * N * CH; e += K::T) {
+      const int part = e / (N * CH), t = (e / CH) % N, c4 = e % CH;
+      const float* src = qkv + (size_t)tok[w * N + t] * 3 * C + part * C + h * HD;
+      const int row = part ? part * N + key_slot<N>(t) : t;
+      cp_async16(dst + row * S + c4 * 4, src + c4 * 4);
+    }
+  };
+
+  token_table<N>(tok, nwin, nW, Hp, Wp, ws);
+  __syncthreads();
+  load(0, 0);
+  cp_async_commit();
+  for (int r = 0; r < rounds; ++r) {
+    if (r + 1 < rounds) {
+      load(r + 1, (r + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int w, h;
+    const bool busy = item(r, w, h);
+    if (busy) {
+      const float* t = smem + (r & 1) * K::STAGE + team * K::TILE;
+      const int wi = (blockIdx.x * K::WPC + w) % nW;
+      attend<N, HD, K::RPT>(t, t + N * S, t + 2 * N * S, rel + (size_t)h * N * N,
+                            mask ? mask + (size_t)wi * N * N : nullptr, scale, lt,
+                            [&](int i, int d, float val) { os[i * S + d] = val; });
+    }
+    __syncthreads();  // stage r & 1 is refilled in round r + 1; os is complete
+    if (busy) {  // whole 16-byte vectors of each token's head slice
+      for (int e = lt; e < N * CH; e += K::T) {
+        const int i = e / CH, c4 = e % CH;
+        *reinterpret_cast<float4*>(out + (size_t)tok[w * N + i] * C + h * HD + c4 * 4) =
+            ld4(os + i * S + c4 * 4);
       }
     }
   }
 }
 
-// B5: grid (B * nW), 256 threads, dynamic shared memory.
-template <int N>
-__global__ void __launch_bounds__(256) wba_proj_kernel(
+// ---------------------------------------------------------------- B5
+// grid: ceil(B nW / (64 / N)); 256 threads; dynamic shared memory: the
+// heads' outputs o (64 x (C + 4)), one work area and the token table.  The
+// work area holds, per head, two stages of (x, W_qkv rows) K-chunks
+// (64 + 3 HD rows x (KC + 4)) and the head's q, k, v (3 x 64 x (HD + 4));
+// at the end, two stages of W_proj K-chunks (C x (KC + 4)).
+template <int N, int HD, int C>
+struct WbaProj {
+  static constexpr int WPC = M / N, T = NT / WPC, RPT = N * 8 / T;
+  static constexpr int S = HD + 4, OS = C + 4, Q3 = 3 * HD, QC = Q3 / 8, CPT = C / 16;
+  static constexpr int KC = C < 32 ? C : 32, KS = KC + 4, NKC = C / KC;
+  static constexpr int STAGE = (M + Q3) * KS, PSTAGE = C * KS;
+  static constexpr int AREA = 2 * STAGE + 3 * M * S > 2 * PSTAGE ? 2 * STAGE + 3 * M * S
+                                                                : 2 * PSTAGE;
+  static constexpr size_t SMEM = sizeof(float) * ((size_t)M * OS + AREA) + M * sizeof(int);
+  static_assert(C % KC == 0 && KC % 8 == 0 && C % 16 == 0 && Q3 % 8 == 0 && N * 8 % T == 0 &&
+                    128 * 4 * QC <= STAGE,
+                "tile shape");
+};
+
+template <int N, int HD, int C>
+__global__ void __launch_bounds__(NT, 2) wba_proj_kernel(
     const float* __restrict__ x, const float* __restrict__ rel,
     const float* __restrict__ mask, const float* __restrict__ wqkv,
     const float* __restrict__ bqkv, const float* __restrict__ wproj,
-    const float* __restrict__ bproj, float* __restrict__ out, int Hp, int Wp,
-    int C, int nh, int ws, float scale) {
-  constexpr int NT = 256;
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh;
-  const int LD = 3 * C + 1;  // odd row stride: k rows fall on distinct banks
-  const int nW = (Hp / ws) * (Wp / ws);
-  const int b = blockIdx.x / nW, wi = blockIdx.x % nW;
-  float* xs = smem;            // N x C: the window's x, then the heads' output
-  float* qkv = xs + N * C;     // N x LD
-  float* P = qkv + N * LD;     // N x (N + 1)
-  for (int e = threadIdx.x; e < N * C; e += NT) {
-    const int t = e / C, c = e % C;
-    xs[e] = x[token_pixel(b, wi, t, Hp, Wp, ws) * C + c];
+    const float* __restrict__ bproj, float* __restrict__ out, int nwin, int nW, int Hp,
+    int Wp, int ws, float scale) {
+  using K = WbaProj<N, HD, C>;
+  constexpr int S = K::S, OS = K::OS, KS = K::KS, KC = K::KC, NH = C / HD;
+  extern __shared__ float4 smem4[];
+  float* os = reinterpret_cast<float*>(smem4);  // M x OS: every head's output
+  float* area = os + M * OS;                     // the work area
+  float* qs = area + 2 * K::STAGE;               // q, k, v: 3 x M x S
+  int* tok = reinterpret_cast<int*>(area + K::AREA);
+  const int tid = threadIdx.x;
+
+  // K-chunk kc of x and of head h's q, k, v rows of W_qkv into stage st
+  auto load_qkv_chunk = [&](int h, int kc, int st) {
+    float* xd = area + st * K::STAGE;
+    float* wd = xd + M * KS;
+#pragma unroll 1  // per-thread offsets are not worth registers held across heads
+    for (int e = tid; e < M * (KC / 4); e += NT) {
+      const int i = e / (KC / 4), c4 = e % (KC / 4);
+      if (tok[i] >= 0) cp_async16(xd + i * KS + c4 * 4, x + (size_t)tok[i] * C + kc * KC + c4 * 4);
+    }
+#pragma unroll 1
+    for (int e = tid; e < K::Q3 * (KC / 4); e += NT) {
+      const int row = e / (KC / 4), c4 = e % (KC / 4);
+      const int grow = (row / HD) * C + h * HD + row % HD;
+      cp_async16(wd + row * KS + c4 * 4, wqkv + (size_t)grow * C + kc * KC + c4 * 4);
+    }
+  };
+  // K-chunk kc of W_proj (all C output rows) into stage st
+  auto load_proj_chunk = [&](int kc, int st) {
+#pragma unroll 1
+    for (int e = tid; e < C * (KC / 4); e += NT) {
+      const int col = e / (KC / 4), c4 = e % (KC / 4);
+      cp_async16(area + st * K::PSTAGE + col * KS + c4 * 4,
+                 wproj + (size_t)col * C + kc * KC + c4 * 4);
+    }
+  };
+
+  token_table<N>(tok, nwin, nW, Hp, Wp, ws);
+  __syncthreads();
+  load_qkv_chunk(0, 0, 0);
+  cp_async_commit();
+
+  // the qkv product: two K-groups of 128 threads each take half of every
+  // chunk's input channels; a thread owns rows prow .. prow + 3 and columns
+  // pcol + 8 m, and K-group 1's sums are added to K-group 0's at the end
+  const int kg = tid >> 7, prow = ((tid & 127) >> 3) * 4, pcol = tid & 7;
+  const int team = tid / K::T, lt = tid % K::T;
+  int step = 0;  // K-chunks so far: the stage of the next one is step & 1
+
+  for (int h = 0; h < NH; ++h) {
+    // q, k, v of head h: (M x C) . (W_qkv rows)^T; the last chunk
+    // prefetches the next head's first
+    float pa[4][K::QC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int m = 0; m < K::QC; ++m) pa[r][m] = 0.f;
+    for (int kc = 0; kc < K::NKC; ++kc, ++step) {
+      if (kc + 1 < K::NKC)
+        load_qkv_chunk(h, kc + 1, (step + 1) & 1);
+      else if (h + 1 < NH)
+        load_qkv_chunk(h + 1, 0, (step + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* xk = area + (step & 1) * K::STAGE + kg * (KC / 2);
+      const float* wk = area + (step & 1) * K::STAGE + M * KS + kg * (KC / 2);
+#pragma unroll
+      for (int c = 0; c < KC / 2; c += 4) {
+        float4 xv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) xv[r] = ld4(xk + (prow + r) * KS + c);
+#pragma unroll
+        for (int m = 0; m < K::QC; ++m) {
+          const float4 w = ld4(wk + (pcol + 8 * m) * KS + c);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pa[r][m] = dot4(xv[r], w, pa[r][m]);
+        }
+      }
+      __syncthreads();  // the stage is refilled next
+    }
+    // K-group 1 hands its sums to K-group 0 through the stage that is not
+    // being filled, and K-group 0 adds them, then the bias, and stores q | k | v
+    float* part1 = area + ((step + 1) & 1) * K::STAGE + (tid & 127);
+    if (kg) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int m = 0; m < K::QC; ++m) part1[(r * K::QC + m) * 128] = pa[r][m];
+    }
+    __syncthreads();
+    if (!kg) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = prow + r, kv_row = (i / N) * N + key_slot<N>(i % N);
+#pragma unroll
+        for (int m = 0; m < K::QC; ++m) {
+          // column pcol + 8 m of the head's q | k | v: part m / (HD / 8)
+          constexpr int QD = HD / 8;
+          const int part = m / QD, d = pcol + 8 * (m % QD);
+          const float sum = pa[r][m] + part1[(r * K::QC + m) * 128];
+          qs[(part * M + (part ? kv_row : i)) * S + d] = sum + __ldg(bqkv + part * C + h * HD + d);
+        }
+      }
+    }
+    __syncthreads();
+
+    // attention, one team per window, into columns h HD .. of o (q, k, v
+    // are rewritten only after the next head's chunk loop has synchronised)
+    if (tok[team * N] >= 0) {
+      const float* t = qs + team * N * S;
+      float* o = os + team * N * OS + h * HD;
+      const int wi = (blockIdx.x * K::WPC + team) % nW;
+      attend<N, HD, K::RPT>(t, t + M * S, t + 2 * M * S, rel + (size_t)h * N * N,
+                            mask ? mask + (size_t)wi * N * N : nullptr, scale, lt,
+                            [&](int i, int d, float v) { o[i * OS + d] = v; });
+    }
   }
-  __syncthreads();
-  window_dense<N>(xs, C, wqkv, bqkv, 3 * C, qkv, LD, nullptr, b, wi, Hp, Wp, ws);
-  __syncthreads();
-  for (int e = threadIdx.x; e < N * C; e += NT) qkv[(e / C) * LD + e % C] *= scale;
-  __syncthreads();
-  const float* mask_w = mask ? mask + (size_t)wi * N * N : nullptr;
-  for (int h = 0; h < nh; ++h)
-    attend_head<N, NT>(qkv + h * hd, LD, qkv + C + h * hd, LD, qkv + 2 * C + h * hd,
-                       LD, P, rel + (size_t)h * N * N, mask_w, hd, xs + h * hd, C);
-  window_dense<N>(xs, C, wproj, bproj, C, nullptr, 0, out, b, wi, Hp, Wp, ws);
+
+  // out = o . W_proj^T + b, input channels (head by head, d ascending)
+  // ascending; rows orow + r, columns ocol + 16 m
+  __syncthreads();  // o is complete and the work area is free
+  load_proj_chunk(0, 0);
+  cp_async_commit();
+  float acc[4][K::CPT];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int m = 0; m < K::CPT; ++m) acc[r][m] = 0.f;
+  const int orow = (tid >> 4) * 4, ocol = tid & 15;
+  for (int kc = 0; kc < K::NKC; ++kc) {
+    if (kc + 1 < K::NKC) load_proj_chunk(kc + 1, (kc + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* wk = area + (kc & 1) * K::PSTAGE;
+#pragma unroll
+    for (int c = 0; c < KC; c += 4) {
+      float4 ov[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ov[r] = ld4(os + (orow + r) * OS + kc * KC + c);
+#pragma unroll
+      for (int m = 0; m < K::CPT; ++m) {
+        const float4 w = ld4(wk + (ocol + 16 * m) * KS + c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][m] = dot4(ov[r], w, acc[r][m]);
+      }
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int p = tok[orow + r];
+    if (p < 0) continue;
+#pragma unroll
+    for (int m = 0; m < K::CPT; ++m) {
+      const int col = ocol + 16 * m;
+      out[(size_t)p * C + col] = acc[r][m] + __ldg(bproj + col);
+    }
+  }
 }
 
-size_t wba_smem(int n, int hd) {
-  return sizeof(float) * ((size_t)n * hd * 2 + (size_t)n * (hd + 1) + (size_t)n * (n + 1));
+bool bad_grid(int B, int Hp, int Wp, int ws) {
+  return B <= 0 || Hp <= 0 || Wp <= 0 || (ws != 4 && ws != 8) || Hp % ws || Wp % ws;
 }
 
-size_t wba_proj_smem(int n, int C) {
-  return sizeof(float) * ((size_t)n * C + (size_t)n * (3 * C + 1) + (size_t)n * (n + 1));
+template <int N, int HD>
+int wba_run(const float* qkv, const float* rel, const float* mask, float* out, int nwin,
+            int nW, int Hp, int Wp, int nh, int ws, float scale, cudaStream_t s) {
+  using K = Wba<N, HD>;
+  int err = (int)cudaFuncSetAttribute(wba_kernel<N, HD>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  if (err) return err;
+  wba_kernel<N, HD><<<(nwin + K::WPC - 1) / K::WPC, NT, K::SMEM, s>>>(
+      qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale);
+  return (int)cudaGetLastError();
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
-bool bad_shape(int B, int Hp, int Wp, int C, int nh, int ws) {
-  return B <= 0 || C <= 0 || nh <= 0 || C % nh || (ws != 4 && ws != 8) || Hp % ws ||
-         Wp % ws || Hp <= 0 || Wp <= 0;
+template <int N, int HD, int C>
+int wba_proj_run(const float* x, const float* rel, const float* mask, const float* wqkv,
+                 const float* bqkv, const float* wproj, const float* bproj, float* out,
+                 int nwin, int nW, int Hp, int Wp, int ws, float scale, cudaStream_t s) {
+  using K = WbaProj<N, HD, C>;
+  int err = (int)cudaFuncSetAttribute(wba_proj_kernel<N, HD, C>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  if (err) return err;
+  wba_proj_kernel<N, HD, C><<<(nwin + K::WPC - 1) / K::WPC, NT, K::SMEM, s>>>(
+      x, rel, mask, wqkv, bqkv, wproj, bproj, out, nwin, nW, Hp, Wp, ws, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// rel: (nh, n, n) fp32; mask: (nW, n, n) fp32 or null, nW windows per image.
+// B4.  qkv (B, Hp, Wp, 3C) NHWC, 16-byte aligned; rel: (nh, n, n); mask:
+// (nW, n, n) or null, nW windows per image.  hd = C / nh in {8, 24}.
 extern "C" int wba_launch(const float* qkv, const float* rel, const float* mask,
                           float* out, int B, int Hp, int Wp, int C, int nh, int ws,
                           float scale, void* stream) {
-  if (bad_shape(B, Hp, Wp, C, nh, ws)) return (int)cudaErrorInvalidValue;
-  const int n = ws * ws;
-  const size_t smem = wba_smem(n, C / nh);
-  dim3 grid(B * (Hp / ws) * (Wp / ws), nh);
+  if (bad_grid(B, Hp, Wp, ws) || nh <= 0 || C % nh) return (int)cudaErrorInvalidValue;
+  const int nW = (Hp / ws) * (Wp / ws), nwin = B * nW, hd = C / nh;
   cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  if (ws == 8) {
-    if ((err = set_smem(wba_kernel<64>, smem))) return err;
-    wba_kernel<64><<<grid, 128, smem, s>>>(qkv, rel, mask, out, Hp, Wp, C, nh, ws, scale);
-  } else {
-    if ((err = set_smem(wba_kernel<16>, smem))) return err;
-    wba_kernel<16><<<grid, 128, smem, s>>>(qkv, rel, mask, out, Hp, Wp, C, nh, ws, scale);
-  }
-  return (int)cudaGetLastError();
+  if (ws == 8 && hd == 24) return wba_run<64, 24>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
+  if (ws == 4 && hd == 24) return wba_run<16, 24>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
+  if (ws == 8 && hd == 8) return wba_run<64, 8>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
+  if (ws == 4 && hd == 8) return wba_run<16, 8>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// wqkv: (C, 3C), wproj: (C, C), (in, out) layout; biases (3C,), (C,).
+// B5.  x (B, Hp, Wp, C) NHWC; wqkv (3C, C) and wproj (C, C) in torch's
+// Linear layout (out, in); biases (3C,), (C,); all 16-byte aligned.
+// (C, nh) in {(192, 8), (16, 2)}: hd 24 and 8.
 extern "C" int wba_proj_launch(const float* x, const float* rel, const float* mask,
                                const float* wqkv, const float* bqkv,
                                const float* wproj, const float* bproj, float* out,
                                int B, int Hp, int Wp, int C, int nh, int ws,
                                float scale, void* stream) {
-  if (bad_shape(B, Hp, Wp, C, nh, ws)) return (int)cudaErrorInvalidValue;
-  const int n = ws * ws;
-  const size_t smem = wba_proj_smem(n, C);
-  dim3 grid(B * (Hp / ws) * (Wp / ws));
+  if (bad_grid(B, Hp, Wp, ws)) return (int)cudaErrorInvalidValue;
+  const int nW = (Hp / ws) * (Wp / ws), nwin = B * nW;
   cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  if (ws == 8) {
-    if ((err = set_smem(wba_proj_kernel<64>, smem))) return err;
-    wba_proj_kernel<64><<<grid, 256, smem, s>>>(x, rel, mask, wqkv, bqkv, wproj, bproj,
-                                                out, Hp, Wp, C, nh, ws, scale);
-  } else {
-    if ((err = set_smem(wba_proj_kernel<16>, smem))) return err;
-    wba_proj_kernel<16><<<grid, 256, smem, s>>>(x, rel, mask, wqkv, bqkv, wproj, bproj,
-                                                out, Hp, Wp, C, nh, ws, scale);
-  }
-  return (int)cudaGetLastError();
+#define WBA_PROJ(n, hd, c) \
+  wba_proj_run<n, hd, c>(x, rel, mask, wqkv, bqkv, wproj, bproj, out, nwin, nW, Hp, Wp, ws, scale, s)
+  if (C == 192 && nh == 8) return ws == 8 ? WBA_PROJ(64, 24, 192) : WBA_PROJ(16, 24, 192);
+  if (C == 16 && nh == 2) return ws == 8 ? WBA_PROJ(64, 8, 16) : WBA_PROJ(16, 8, 16);
+#undef WBA_PROJ
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory per CTA (bytes) and CTAs resident per SM of B4 (proj 0;
+// ws, hd = C / nh) or B5 (proj 1; ws, C), as the card's occupancy
+// calculator gives them.  Returns a CUDA error, or cudaErrorInvalidValue
+// for a shape the kernels do not take.
+template <typename Kern>
+int occupancy(Kern kernel, size_t smem, int* smem_bytes, int* ctas_per_sm) {
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
+  if (err) return err;
+  *smem_bytes = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, NT, smem);
+}
+
+template <int N, int HD>
+int occupancy_b4(int* smem_bytes, int* ctas_per_sm) {
+  return occupancy(wba_kernel<N, HD>, Wba<N, HD>::SMEM, smem_bytes, ctas_per_sm);
+}
+
+template <int N, int HD, int C>
+int occupancy_b5(int* smem_bytes, int* ctas_per_sm) {
+  return occupancy(wba_proj_kernel<N, HD, C>, WbaProj<N, HD, C>::SMEM, smem_bytes, ctas_per_sm);
+}
+
+extern "C" int wba_occupancy(int proj, int ws, int hd, int C, int* smem_bytes,
+                             int* ctas_per_sm) {
+  int *sb = smem_bytes, *cs = ctas_per_sm;
+  const bool w8 = ws == 8;
+  if (!proj && hd == 24) return w8 ? occupancy_b4<64, 24>(sb, cs) : occupancy_b4<16, 24>(sb, cs);
+  if (!proj && hd == 8) return w8 ? occupancy_b4<64, 8>(sb, cs) : occupancy_b4<16, 8>(sb, cs);
+  if (proj && C == 192 && hd == 24)
+    return w8 ? occupancy_b5<64, 24, 192>(sb, cs) : occupancy_b5<16, 24, 192>(sb, cs);
+  if (proj && C == 16 && hd == 8)
+    return w8 ? occupancy_b5<64, 8, 16>(sb, cs) : occupancy_b5<16, 8, 16>(sb, cs);
+  return (int)cudaErrorInvalidValue;
 }

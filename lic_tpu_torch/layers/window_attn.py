@@ -14,9 +14,10 @@ Maps are NHWC (contiguous), padded to the window grid and rolled: the pad
 and the roll stay outside the kernels, the windowing happens inside.
 ``rel`` is the gathered bias (nh, n, n), ``mask`` the additive (nW, n, n)
 mask of one image's nW windows, or None.  Projection weights are in
-torch's ``Linear`` layout (out, in).  CPU tensors take the plain versions;
-CUDA tensors launch the kernels (fp32, ws ∈ {4, 8}), built at first use;
-anything else raises.  The kernels are forward only.
+torch's ``Linear`` layout (out, in), which B5 reads as it is.  CPU tensors
+take the plain versions; CUDA tensors launch the kernels (fp32, ws ∈ {4, 8},
+head width hd ∈ {8, 24}, B5 at (C, hd) ∈ {(192, 24), (16, 8)}), built at
+first use; anything else raises.  The kernels are forward only.
 
 Also here, as in ``lic_tpu/layers/win_attention.py:55-119``:
 ``window_partition``, ``window_reverse``, ``relative_position_index`` and
@@ -134,9 +135,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.wba_launch.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_float, p]
     lib.wba_proj_launch.restype = i
     lib.wba_proj_launch.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+    lib.wba_occupancy.restype = i
+    lib.wba_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
 
 
 library = CudaLibrary("window_attn.cu", _bind)
+
+
+# head widths the kernels are built for (template constants), and B5's
+# (C, head width) pairs: its output accumulator is sized by C
+B4_HEAD_DIMS = (8, 24)
+B5_WIDTHS = ((192, 24), (16, 8))
 
 
 def _check(name, x, c, rel, mask, ws, nh, *params):
@@ -145,12 +154,18 @@ def _check(name, x, c, rel, mask, ws, nh, *params):
         raise ValueError(f"{name}: needs a contiguous NHWC map, got strides {x.stride()}")
     b, hp, wp, _ = x.shape
     n = ws * ws
-    if ws not in (4, 8) or hp % ws or wp % ws or c % nh:
+    if ws not in (4, 8) or hp % ws or wp % ws or c % nh or b * hp * wp >= 2**31:
         raise ValueError(f"{name}: ws={ws}, nh={nh} on {hp}x{wp}x{c} not supported")
     if tuple(rel.shape) != (nh, n, n):
         raise ValueError(f"{name}: rel {tuple(rel.shape)} != {(nh, n, n)}")
     if mask is not None and tuple(mask.shape) != ((hp // ws) * (wp // ws), n, n):
         raise ValueError(f"{name}: mask {tuple(mask.shape)} vs the window grid")
+
+
+def _aligned(name, *ts):
+    """The kernels read 16-byte vectors of every tensor (None skipped)."""
+    if any(t is not None and t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: a tensor is not 16-byte aligned")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -163,7 +178,11 @@ def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
         return wba_plain(qkv, rel, mask, ws, nh)
     b, hp, wp, c3 = qkv.shape
     _check("window_attention", qkv, c3 // 3, rel, mask, ws, nh)
+    if c3 // 3 // nh not in B4_HEAD_DIMS:
+        raise ValueError(f"window_attention: head width {c3 // 3 // nh} not supported "
+                         f"(kernel built for {B4_HEAD_DIMS})")
     rel, mask = rel.contiguous(), None if mask is None else mask.contiguous()
+    _aligned("window_attention", qkv, rel, mask)
     out = qkv.new_empty((b, hp, wp, c3 // 3))
     err = library().wba_launch(
         qkv.data_ptr(), rel.data_ptr(), _ptr(mask), out.data_ptr(),
@@ -184,17 +203,20 @@ def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: i
         return wba_proj_plain(x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh)
     b, hp, wp, c = x.shape
     _check("window_attention_proj", x, c, rel, mask, ws, nh, wqkv, bqkv, wproj, bproj)
+    if (c, c // nh) not in B5_WIDTHS:
+        raise ValueError(f"window_attention_proj: C={c} with head width {c // nh} not "
+                         f"supported (kernel built for (C, hd) in {B5_WIDTHS})")
     if tuple(wqkv.shape) != (3 * c, c) or tuple(wproj.shape) != (c, c):
         raise ValueError(f"window_attention_proj: weights {tuple(wqkv.shape)}, "
                          f"{tuple(wproj.shape)} vs C={c}")
+    if not all(t.is_contiguous() for t in (wqkv, bqkv, wproj, bproj)):
+        raise ValueError("window_attention_proj: weights and biases must be contiguous")
     rel, mask = rel.contiguous(), None if mask is None else mask.contiguous()
-    w_in = wqkv.t().contiguous()    # (C, 3C): the kernel reads (in, out)
-    w_out = wproj.t().contiguous()  # (C, C)
-    bqkv, bproj = bqkv.contiguous(), bproj.contiguous()
+    _aligned("window_attention_proj", x, rel, mask, wqkv, wproj)
     out = x.new_empty((b, hp, wp, c))
     err = library().wba_proj_launch(
-        x.data_ptr(), rel.data_ptr(), _ptr(mask), w_in.data_ptr(), bqkv.data_ptr(),
-        w_out.data_ptr(), bproj.data_ptr(), out.data_ptr(),
+        x.data_ptr(), rel.data_ptr(), _ptr(mask), wqkv.data_ptr(), bqkv.data_ptr(),
+        wproj.data_ptr(), bproj.data_ptr(), out.data_ptr(),
         b, hp, wp, c, nh, ws, (c // nh) ** -0.5,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -204,3 +226,13 @@ def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: i
 
 
 window_attention_proj.launches = 0
+
+
+def occupancy(proj: bool, ws: int, hd: int, c: int) -> tuple:
+    """(shared memory bytes per CTA, CTAs resident per SM) of B5 (``proj``)
+    or B4 at window size ``ws``, head width ``hd`` and width ``c``, from the
+    card's occupancy calculator (builds the library; needs CUDA)."""
+    smem, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    check_launch(library().wba_occupancy(int(proj), ws, hd, c, ctypes.byref(smem),
+                                         ctypes.byref(ctas)), "wba_occupancy")
+    return smem.value, ctas.value

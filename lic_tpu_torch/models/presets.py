@@ -65,14 +65,23 @@ def get_config(name: str, **overrides) -> CodecConfig:
 def build_model(
     name: str,
     *,
-    device="cpu",
+    device="cuda",
     seed: int = 0,
     **overrides,
 ) -> CodecModel:
     """Build preset ``name`` with parameters initialised from a
     ``torch.Generator`` seeded with ``seed`` (on the CPU, so a seed gives
     the same weights on every device), then moved to ``device`` in
-    ``channels_last`` memory."""
+    ``channels_last`` memory.  The default is the card; a CUDA device on a
+    host without CUDA raises instead of building on the CPU, which only
+    ``device="cpu"`` asks for."""
+    cfg = get_config(name, **overrides)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"build_model({name!r}): device {device} asked for, but CUDA is not "
+            "available; pass device='cpu' to build on the CPU"
+        )
     gen = torch.Generator().manual_seed(seed)
-    model = CodecModel(get_config(name, **overrides), generator=gen)
+    model = CodecModel(cfg, generator=gen)
     return model.to(device=device, memory_format=torch.channels_last).eval()

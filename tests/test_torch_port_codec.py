@@ -56,7 +56,7 @@ def pair():
         )
     )
     params = jax.tree.map(np.array, init(jax.random.PRNGKey(0))["params"])
-    tm = build_model("source_net", n_override=32)
+    tm = build_model("source_net", device="cpu", n_override=32)
     tm.load_state_dict(params_from_flax(params))
     rng = np.random.default_rng(3)
     x = rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)

@@ -34,6 +34,7 @@ from lic_tpu_torch.layers import (
     window_attention_proj,
 )
 from lic_tpu_torch.layers.window_attn import swin_shift_mask
+from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.compress import set_numerics_flags
 
 pytestmark = pytest.mark.cuda
@@ -198,29 +199,78 @@ def _attn_case(gen, dev, hp, wp, nh, ws, shift, pad):
     return rel, mask
 
 
-@pytest.mark.parametrize("ws,hp,wp", [(8, 16, 24), (4, 8, 12)])
+def _proj_weights(gen, dev, c):
+    wqkv = _randn(gen, 3 * c, c, scale=c ** -0.5).to(dev)
+    wproj = _randn(gen, c, c, scale=c ** -0.5).to(dev)
+    return wqkv, _randn(gen, 3 * c).to(dev), wproj, _randn(gen, c).to(dev)
+
+
+# several windows per image at both ws; (4, 12, 12) gives 9 windows per
+# image, so B4/B5's four-window CTAs at ws 4 end on a partial CTA
+@pytest.mark.parametrize("ws,hp,wp", [(8, 16, 24), (4, 8, 12), (4, 12, 12)])
 @pytest.mark.parametrize("shift,pad", [(0, 0), (2, 0), (2, 3)])
-def test_window_attention_kernels_match_plain(cuda_device, ws, hp, wp, shift, pad):
-    c, nh, b = 192, 8, 2
-    g = torch.Generator().manual_seed(ws + shift + pad)
+@pytest.mark.parametrize("c,nh", [(192, 8), (16, 2)])  # hd 24 and hd 8
+def test_window_attention_kernels_match_plain(cuda_device, ws, hp, wp, shift, pad, c, nh):
+    b = 2
+    g = torch.Generator().manual_seed(ws + shift + pad + c)
     rel, mask = _attn_case(g, cuda_device, hp, wp, nh, ws, shift, pad)
     qkv = _randn(g, b, hp, wp, 3 * c).to(cuda_device)
     _check_kernel(window_attention, wba_plain, (qkv, rel, mask, ws, nh))
     x = _randn(g, b, hp, wp, c).to(cuda_device)
-    wqkv = _randn(g, 3 * c, c, scale=c ** -0.5).to(cuda_device)
-    wproj = _randn(g, c, c, scale=c ** -0.5).to(cuda_device)
-    bqkv, bproj = _randn(g, 3 * c).to(cuda_device), _randn(g, c).to(cuda_device)
+    wqkv, bqkv, wproj, bproj = _proj_weights(g, cuda_device, c)
     _check_kernel(window_attention_proj, wba_proj_plain,
                   (x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh))
+
+
+@pytest.mark.parametrize("kernel", ["wba", "wba_proj"])
+@pytest.mark.parametrize("ws,hp,wp", [(8, 16, 24), (4, 8, 12)])
+def test_window_attention_kernels_batch_independent_and_repeatable(cuda_device, kernel, ws, hp, wp):
+    """A repeat call is bit-identical, and an image's output does not
+    depend on the batch it rides in (at ws 4 a CTA takes four windows,
+    which then span two images), as for the convs."""
+    c, nh = 192, 8
+    g = torch.Generator().manual_seed(ws)
+    rel, mask = _attn_case(g, cuda_device, hp, wp, nh, ws, 2, 0)
+    if kernel == "wba":
+        x = _randn(g, 3, hp, wp, 3 * c).to(cuda_device)
+        fn = lambda t: window_attention(t, rel, mask, ws, nh)
+    else:
+        x = _randn(g, 3, hp, wp, c).to(cuda_device)
+        w = _proj_weights(g, cuda_device, c)
+        fn = lambda t: window_attention_proj(t, rel, *w, mask, ws, nh)
+    with torch.no_grad():
+        y = fn(x)
+        assert torch.equal(fn(x), y)
+        assert torch.equal(fn(x[1:2].clone()), y[1:2])
+        assert torch.equal(fn(x[1:].clone()), y[1:])
+
+
+def test_window_attention_kernels_reject_unsupported_head_width(cuda_device):
+    """hd is a template constant of both kernels: hd 32 (C 192, 6 heads)
+    raises; B5 also needs one of its built (C, hd) pairs."""
+    g = torch.Generator().manual_seed(1)
+    rel = _randn(g, 6, 64, 64).to(cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="head width"):
+        window_attention(_randn(g, 1, 8, 8, 3 * 192).to(cuda_device), rel, None, 8, 6)
+    with torch.no_grad(), pytest.raises(ValueError, match="head width"):
+        window_attention_proj(_randn(g, 1, 8, 8, 192).to(cuda_device), rel,
+                              *_proj_weights(g, cuda_device, 192), None, 8, 6)
+    rel4 = _randn(g, 4, 64, 64).to(cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="head width"):
+        window_attention_proj(_randn(g, 1, 8, 8, 32).to(cuda_device), rel4,
+                              *_proj_weights(g, cuda_device, 32), None, 8, 4)
 
 
 def test_window_attention_per_head_softmax_no_underflow(cuda_device):
     """One head's logits ~90 below another's must not underflow to 0/0:
     the softmax takes each head's own row max
-    (``tests/test_pallas.py::test_per_head_softmax_shift_no_underflow``)."""
+    (``tests/test_pallas.py::test_per_head_softmax_shift_no_underflow``),
+    in B4 and in B5."""
     ws, nh, c, n = 4, 2, 16, 16
     g = torch.Generator().manual_seed(0)
     qkv = _randn(g, 1, 4, 4, 3 * c, scale=0.1).to(cuda_device)
+    x = _randn(g, 1, 4, 4, c, scale=0.1).to(cuda_device)
+    w = _proj_weights(g, cuda_device, c)
     rel = torch.zeros(nh, n, n)
     rel[1] -= 90.0
     rel = rel.to(cuda_device)
@@ -228,3 +278,13 @@ def test_window_attention_per_head_softmax_no_underflow(cuda_device):
         y = window_attention(qkv, rel, None, ws, nh)
         assert torch.isfinite(y).all()
         torch.testing.assert_close(y, wba_plain(qkv, rel, None, ws, nh), atol=TOL, rtol=TOL)
+        y = window_attention_proj(x, rel, *w, None, ws, nh)
+        assert torch.isfinite(y).all()
+        torch.testing.assert_close(y, wba_proj_plain(x, rel, *w, None, ws, nh),
+                                   atol=TOL, rtol=TOL)
+
+
+def test_default_build_lands_on_cuda(cuda_device):
+    """``build_model`` with no device builds on the card."""
+    model = build_model("source_net", n_override=32)
+    assert {p.device.type for p in model.parameters()} == {"cuda"}

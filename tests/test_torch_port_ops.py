@@ -57,7 +57,17 @@ def test_other_presets_raise_naming_roadmap_item():
     assert set(NOT_YET_PORTED) | set(PRESETS) == set(JPRESETS)
     for name, item in NOT_YET_PORTED.items():
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            build_model(name)
+            build_model(name, device="cpu")
+
+
+def test_default_build_without_cuda_raises(monkeypatch):
+    """The port's entry point builds on the card unless the caller asks
+    for the CPU: on a host without CUDA the default raises and never
+    returns a CPU model."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model("source_net", n_override=32)
+    assert next(build_model("source_net", device="cpu", n_override=32).parameters()).is_cpu
 
 
 def test_import_leaves_jax_unloaded():
@@ -190,7 +200,7 @@ def test_gelu_is_the_erf_form():
 def test_init_statistics_mirror_jax():
     """Random-init parity is statistical: the port's LeCun truncated-normal
     conv init has the JAX init's std and bounds (2 std) per layer."""
-    m = build_model("source_net", seed=0)
+    m = build_model("source_net", device="cpu", seed=0)
     w = m.g_a.down1.weight.detach()
     fan_in = w.shape[1] * w.shape[2] * w.shape[3]
     std = w.std().item()

@@ -41,7 +41,7 @@ def tree():
 
 def test_every_key_filled_and_every_leaf_used(tree):
     sd = params_from_flax(tree)
-    model = build_model("source_net", n_override=32)
+    model = build_model("source_net", device="cpu", n_override=32)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)
     # leaf counts agree: nothing in the tree was dropped
@@ -113,7 +113,7 @@ def test_every_key_filled_and_every_leaf_used_wam():
     rng = np.random.default_rng(0)
     tree = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
     sd = params_from_flax(tree, PRESETS["source_net_wam"])
-    model = build_model("source_net_wam", n_override=32)
+    model = build_model("source_net_wam", device="cpu", n_override=32)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)
     assert len(sd) == len(_flatten(tree))

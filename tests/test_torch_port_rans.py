@@ -77,7 +77,7 @@ def test_drain_bitexact_vs_jax_scan_and_pallas(tables, with_escapes):
     sym, idx, pay, ends = random_streams(
         cdfs, offsets, [(40 + with_escapes, with_escapes), (50, with_escapes)], [n], L
     )
-    dev = DeviceRans16Interleaved(cdfs, offsets, L)
+    dev = DeviceRans16Interleaved(cdfs, offsets, L, device="cpu")
     payt = torch.from_numpy(pay)
     t_lanes, t_dec = rans_drain(dev, dev.init_lanes(payt), payt, torch.from_numpy(idx), n)
     np.testing.assert_array_equal(t_dec.numpy(), sym)
@@ -102,7 +102,7 @@ def test_drain_threads_state_across_calls(tables):
     cdfs, offsets = tables
     steps = [300, 129, 271]
     sym, idx, pay, ends = random_streams(cdfs, offsets, [(60, False), (61, True)], steps, L)
-    dev = DeviceRans16Interleaved(cdfs, offsets, L)
+    dev = DeviceRans16Interleaved(cdfs, offsets, L, device="cpu")
     jdev = JDev(cdfs, offsets, L)
     payt, jpay = torch.from_numpy(pay), jnp.asarray(pay)
     t_lanes = dev.init_lanes(payt)
@@ -132,7 +132,7 @@ def test_drain_matches_host_decoder_and_flags_truncation(tables):
     codec = Rans16InterleavedCodec(cdfs, offsets)
     blob = codec.encode(sym[0], idx[0], steps, L)
     np.testing.assert_array_equal(codec.decode_host(blob, idx[0], steps), sym[0])
-    dev = DeviceRans16Interleaved(cdfs, offsets, L)
+    dev = DeviceRans16Interleaved(cdfs, offsets, L, device="cpu")
     # a truncated payload decodes to a state or pointer that fails the
     # final-state check
     cut = pay.copy()

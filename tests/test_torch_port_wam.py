@@ -155,7 +155,7 @@ def wam_pair():
         )
     )
     params = _wake_zero_leaves(init(jax.random.PRNGKey(0))["params"], 7)
-    tm = build_model("source_net_wam", n_override=32)
+    tm = build_model("source_net_wam", device="cpu", n_override=32)
     tm.load_state_dict(params_from_flax(params, PRESETS["source_net_wam"]))
     x = np.random.default_rng(5).uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
     return jm, params, tm, x
