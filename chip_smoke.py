@@ -46,8 +46,12 @@ Each phase prints one line:
    forward would compare rounded symbols, where a 1e-6 difference can flip
    one);
 5. B3 and B6 against their plain versions, as in 3, at every distinct
-   shape and flag set that the paths gave them in 4, with the time of the
-   per-call OIHW → HWIO weight copy, which the kernel times include.
+   shape and flag set that the paths gave them in 4, with TFLOP/s, the
+   bound at the 3xTF32 rate (495/3 TFLOP/s: the kernel runs three TF32
+   products on the tensor cores) beside the HBM bound, the share of it, the
+   time over cuDNN's, and the time of the weight's one-off TF32 prepack
+   (cached on the weight, so not inside the kernel times); then the conv
+   kernel's shared memory per CTA, CTAs per SM and ``ptxas`` line.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
 it replaces, launches on the main paths, max error, times and bound, the
@@ -78,9 +82,12 @@ LANES = 128
 # rounding, not the kernel's, would decide a comparison in fp32
 TOL = 1e-5
 RECON_TOL = 1e-4  # model stages and the decoded reconstruction
-# H100 SXM peaks (NVIDIA data sheet):
-# fp32 on the CUDA cores, and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, dense TF32
+# on the tensor cores, and HBM3 bandwidth.  B3/B6 run three TF32 products
+# per fp32 product (3xTF32), so their operations bound is FLOPs at a third
+# of the TF32 rate; the other kernels' is FLOPs at the fp32 rate.
 PEAK_FP32 = 67e12
+PEAK_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 # exact launches of each kernel over forward + compress_batch +
@@ -118,9 +125,11 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 class Tally:
-    """Per-kernel sums over the shapes checked: max error, times, bound."""
+    """Per-kernel sums over the shapes checked: max error, times, bound
+    (operations at ``peak`` FLOP/s)."""
 
-    def __init__(self):
+    def __init__(self, peak=PEAK_FP32):
+        self.peak = peak
         self.err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = None
@@ -132,7 +141,7 @@ class Tally:
         self.plain_ms += plain_ms
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
-        b, o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+        b, o = nbytes / PEAK_BYTES * 1e3, flops / self.peak * 1e3
         self.bytes_ms += b
         self.ops_ms += o
         self.bound_ms += max(b, o)
@@ -170,11 +179,11 @@ def _vs_plain(name, kernel, plain, args, library=None, reps=5, f64=True):
     return err, ms, pms, lms, err32
 
 
-def _roofline(ms, library_ms, nbytes, flops) -> dict:
-    """The bound of one call (bytes over the HBM rate or FLOPs over the fp32
-    peak, the larger), which side sets it, the kernel's share of it and its
-    time against the library yardstick."""
-    b, o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+def _roofline(ms, library_ms, nbytes, flops, peak=PEAK_FP32) -> dict:
+    """The bound of one call (bytes over the HBM rate or FLOPs over
+    ``peak``, the larger), which side sets it, the kernel's share of it and
+    its time against the library yardstick."""
+    b, o = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     bound = max(b, o)
     return dict(bound_ms=f"{bound:.4f}", bound_by="operations" if o >= b else "bytes",
                 share_of_bound=f"{bound / ms:.3f}", vs_library=f"{ms / library_ms:.3f}")
@@ -245,7 +254,8 @@ def main() -> int:
     _say("build", cuda_parallel_s=f"{t_cuda:.1f}", b2_triton_s=f"{t_b2:.1f}",
          host_rans=os.path.relpath(host_lib, ROOT))
 
-    tally = {k: Tally() for k in counters}
+    tally = {k: Tally(PEAK_TF32X3 if k in ("conv5s2", "convk_s1") else PEAK_FP32)
+             for k in counters}
     g = torch.Generator().manual_seed(SEED)
 
     # ---- 3a. B2 vs plain at the forward's GDN/IGDN shapes (fp32)
@@ -399,13 +409,19 @@ def main() -> int:
             f"{slot} {xs} -> {cout} k{k}", counters[slot], getattr(conv_direct, f"{slot}_plain"),
             args, library=library,
         )
-        relayout_ms = _cuda_ms(lambda: wt.permute(2, 3, 1, 0).contiguous(), 5)
-        tally[slot].add(err, ms, pms, lms, _nbytes(x, wt, bias, res) + b * cout * ho * wo * 4,
-                        2 * b * ho * wo * cout * cin * k * k)
+        prepack_ms = _cuda_ms(lambda: conv_direct.pack_weight(wt), 5)
+        nbytes = _nbytes(x, wt, bias, res) + b * cout * ho * wo * 4
+        flops = 2 * b * ho * wo * cout * cin * k * k
+        tally[slot].add(err, ms, pms, lms, nbytes, flops)
         _say(f"b{3 if slot == 'conv5s2' else 6}_{slot}", shape=xs, c_out=cout, k=k,
              bias=has_bias, act=act, residual=has_res, path_launches=by_run,
-             max_abs_err=f"{err:.3g}", vs_fp32_plain=f"{err32:.3g}", ms=f"{ms:.3f}",
-             plain_ms=f"{pms:.3f}", cudnn_ms=f"{lms:.3f}", weight_relayout_ms=f"{relayout_ms:.4f}")
+             max_abs_err=f"{err:.3g}", vs_fp32_plain=f"{err32:.3g}", ms=f"{ms:.4f}",
+             tflops=f"{flops / ms / 1e9:.1f}", plain_ms=f"{pms:.3f}", cudnn_ms=f"{lms:.3f}",
+             **_roofline(ms, lms, nbytes, flops, PEAK_TF32X3), peak="3xTF32 165 TFLOP/s",
+             weight_prepack_ms=f"{prepack_ms:.4f}")
+    _say("b3_b6_occupancy", **dict(zip(occ, conv_direct.occupancy())))
+    for line in conv_direct.library.ptxas():
+        _say("b3_b6_ptxas", kernel=repr(line))
     torch.cuda.empty_cache()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lic_tpu"))

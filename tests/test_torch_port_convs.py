@@ -14,6 +14,11 @@ C = 192 on small spatial sizes, weights scaled by 1/sqrt(fan-in) so the
 outputs are O(1); tolerance atol/rtol 1e-5 (fp32 sums in another order).
 The CUDA kernels are held to these plain versions by
 ``tests/test_torch_port_cuda.py``.
+
+The kernels run 3xTF32; what of that runs on the CPU is held here: the
+TF32 split (round to nearest even, reconstruction, special values), the
+weight prepack's OHWI layout and its cache, and a float64 emulation of the
+3xTF32 conv against the float64 conv (the error model the kernel rests on).
 """
 
 import jax
@@ -26,8 +31,11 @@ from jax import lax
 import lic_tpu.layers.conv as jconv
 from lic_tpu.layers.pallas_conv import conv5s2_pallas, conv5s2_pallas_v2
 from lic_tpu.layers.pallas_conv_s1 import convk_s1_pallas
+import torch.nn.functional as F
+
 from lic_tpu_torch.layers import Conv2d, conv5s2_plain, convk_s1_plain
 from lic_tpu_torch.layers import conv as tconv
+from lic_tpu_torch.layers.conv_direct import pack_weight, prepacked, tf32_round, tf32_split
 
 torch.set_num_threads(2)
 
@@ -177,3 +185,92 @@ def test_conv2d_fused_act_matches_jax_packed_path(k, pad):
         tm.bias.copy_(torch.from_numpy(np.array(params["params"]["bias"])))
         got = _nhwc(tm(_nchw(x)))
     np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
+
+
+def _tf32_rne_reference(a: np.ndarray) -> np.ndarray:
+    """Round fp32 to a 10-bit mantissa, ties to even, from the two TF32
+    neighbours of each value compared in float64 (finite inputs)."""
+    bits = a.view(np.uint32).astype(np.int64)
+    sign, mag = bits & 0x80000000, bits & 0x7FFFFFFF
+    down = mag & ~0x1FFF
+    up = down + 0x2000
+    as_f64 = lambda m: (m | sign).astype(np.uint32).view(np.float32).astype(np.float64)
+    d_dn = np.abs(a.astype(np.float64) - as_f64(down))
+    d_up = np.abs(as_f64(up) - a.astype(np.float64))
+    take_up = (d_up < d_dn) | ((d_up == d_dn) & ((down >> 13) & 1 == 1))
+    return (np.where(take_up, up, down) | sign).astype(np.uint32).view(np.float32)
+
+
+def test_tf32_split_rounds_to_nearest_even_and_reconstructs():
+    rng = np.random.default_rng(40)
+    a = (rng.standard_normal(20000) * 2.0 ** rng.integers(-60, 60, 20000)).astype(np.float32)
+    # exact ties: the 13 dropped bits are 0x1000, below an even and an odd kept bit
+    tie = np.array([0x3F801000, 0x3F803000, 0xBF801000, 0xBF803000], np.uint32).view(np.float32)
+    a = np.concatenate([a, tie])
+    hi, lo = tf32_split(torch.from_numpy(a))
+    assert not (hi.numpy().view(np.uint32) & 0x1FFF).any()
+    assert not (lo.numpy().view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32),
+                                  _tf32_rne_reference(a).view(np.uint32))
+    np.testing.assert_array_equal(hi[-4:].numpy(), np.float32([1.0, 1.0 + 2 ** -9,
+                                                               -1.0, -1.0 - 2 ** -9]))
+    err = np.abs(hi.double().numpy() + lo.double().numpy() - a.astype(np.float64))
+    assert (err <= 2.0 ** -22 * np.abs(a)).all(), err.max()
+    assert torch.equal(tf32_round(hi), hi)
+
+
+def test_tf32_split_special_values():
+    """Signed zeros keep their sign in hi (lo is +0); subnormals round on
+    TF32's grid and reconstruct within 2**-137; ±inf and NaN go to hi with
+    lo 0 (NaN as the canonical quiet NaN)."""
+    z = torch.tensor([0.0, -0.0])
+    hi, lo = tf32_split(z)
+    assert torch.signbit(hi).tolist() == [False, True]
+    assert lo.tolist() == [0.0, 0.0] and not torch.signbit(lo).any()
+    sub = torch.from_numpy(np.array([1, 0xFFF, 0x1000, 0x3000, 0x7FFFFF, 0x80001234],
+                                    np.uint32).view(np.float32))
+    hi, lo = tf32_split(sub)
+    assert not (hi.numpy().view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32),
+                                  _tf32_rne_reference(sub.numpy()).view(np.uint32))
+    err = (hi.double() + lo.double() - sub.double()).abs()
+    assert float(err.max()) <= 2.0 ** -137
+    bad = torch.from_numpy(np.array([0x7F800000, 0xFF800000, 0x7FC00000, 0x7F800001],
+                                    np.uint32).view(np.float32))
+    hi, lo = tf32_split(bad)
+    assert hi[:2].tolist() == [float("inf"), float("-inf")]
+    assert torch.isnan(hi[2:]).all() and (hi[2:].view(torch.int32) == 0x7FC00000).all()
+    assert lo.tolist() == [0.0] * 4
+
+
+def test_weight_prepack_is_ohwi_and_cached():
+    g = torch.Generator().manual_seed(41)
+    w = torch.randn(224, 160, 3, 3, generator=g) * (160 * 9) ** -0.5
+    hi, lo = pack_weight(w)
+    ohwi = w.permute(0, 2, 3, 1)
+    assert hi.shape == lo.shape == (224, 3, 3, 160) and hi.is_contiguous() and lo.is_contiguous()
+    assert torch.equal(hi, tf32_round(ohwi))
+    torch.testing.assert_close(hi.double() + lo.double(), ohwi.double(), atol=0,
+                               rtol=2.0 ** -22)
+    got = prepacked(w)
+    assert all(a is b for a, b in zip(prepacked(w), got))
+    with torch.no_grad():
+        w.mul_(-0.5)  # in place: the version counter moves
+    hi2, _ = prepacked(w)
+    assert hi2 is not got[0] and torch.equal(hi2, tf32_round(w.permute(0, 2, 3, 1)))
+
+
+def test_3xtf32_conv_emulation_within_1e6_of_float64():
+    """The 7×7 at C 192 (K = 9,408), B = 1, 8×8: three float64 convs on the
+    split operands (hi·lo + lo·hi + hi·hi, the kernel's products) land within
+    1e-6 of the float64 conv; one TF32 product alone does not come near."""
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy(rng.standard_normal((1, 192, 8, 8)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((192, 192, 7, 7)) * 9408 ** -0.5)
+                         .astype(np.float32))
+    conv = lambda a, b: F.conv2d(a.double(), b.double(), padding=3)
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
+    ref = conv(x, w)
+    emu = conv(xh, wl) + conv(xl, wh) + conv(xh, wh)
+    assert float((emu - ref).abs().max()) <= 1e-6
+    assert float((conv(xh, wh) - ref).abs().max()) > 1e-4

@@ -129,15 +129,24 @@ def _cl(t, dev):
     return t.to(dev).contiguous(memory_format=torch.channels_last)
 
 
-def _check_kernel(fn, plain, args, kwargs=None):
-    """kernel vs plain at TOL, one launch counted, repeat bit-identical."""
+def _f64(a):
+    return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+
+
+def _check_kernel(fn, plain, args, kwargs=None, f64=False):
+    """kernel vs plain at TOL — the plain version run in float64 on the same
+    inputs if ``f64`` — one launch counted, repeat bit-identical."""
     kwargs = kwargs or {}
     with torch.no_grad():
         before = fn.launches
         y = fn(*args, **kwargs)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
-        torch.testing.assert_close(y, plain(*args, **kwargs), atol=TOL, rtol=TOL)
+        if f64:
+            ref = plain(*map(_f64, args), **{k: _f64(v) for k, v in kwargs.items()})
+            torch.testing.assert_close(y.double(), ref, atol=TOL, rtol=TOL)
+        else:
+            torch.testing.assert_close(y, plain(*args, **kwargs), atol=TOL, rtol=TOL)
         assert torch.equal(fn(*args, **kwargs), y)
     return y
 
@@ -148,7 +157,7 @@ def test_conv5s2_kernel_matches_plain(cuda_device, cin, h, w):
     x = _cl(_randn(g, 2, cin, h, w), cuda_device)
     wt = _randn(g, 192, cin, 5, 5, scale=(cin * 25) ** -0.5).to(cuda_device)
     b = _randn(g, 192).to(cuda_device)
-    y = _check_kernel(conv5s2, conv5s2_plain, (x, wt, b))
+    y = _check_kernel(conv5s2, conv5s2_plain, (x, wt, b), f64=True)
     assert y.shape == (2, 192, h // 2, w // 2)
     assert y.is_contiguous(memory_format=torch.channels_last)
 
@@ -161,7 +170,7 @@ def test_convk_s1_kernel_matches_plain(cuda_device, k, act, residual):
     wt = _randn(g, 192, 192, k, k, scale=(192 * k * k) ** -0.5).to(cuda_device)
     b = _randn(g, 192).to(cuda_device)
     res = _cl(_randn(g, 2, 192, 12, 20), cuda_device) if residual else None
-    _check_kernel(convk_s1, convk_s1_plain, (x, wt, b), dict(act=act, residual=res))
+    _check_kernel(convk_s1, convk_s1_plain, (x, wt, b), dict(act=act, residual=res), f64=True)
 
 
 def test_convk_s1_kernel_other_widths(cuda_device):
@@ -170,7 +179,7 @@ def test_convk_s1_kernel_other_widths(cuda_device):
     g = torch.Generator().manual_seed(5)
     x = _cl(_randn(g, 1, 160, 9, 7), cuda_device)
     wt = _randn(g, 224, 160, 3, 3, scale=(160 * 9) ** -0.5).to(cuda_device)
-    _check_kernel(convk_s1, convk_s1_plain, (x, wt, None))
+    _check_kernel(convk_s1, convk_s1_plain, (x, wt, None), f64=True)
 
 
 def test_conv_kernels_batch_independent_and_reject_layout(cuda_device):
@@ -186,6 +195,45 @@ def test_conv_kernels_batch_independent_and_reject_layout(cuda_device):
         assert torch.equal(conv5s2(x, w5)[2:], conv5s2(x[2:], w5))
         with pytest.raises(ValueError, match="channels_last"):
             convk_s1(x.contiguous(), wt)
+
+
+@pytest.mark.parametrize("slot,shape,k", [
+    ("convk_s1", (1, 192, 32, 48), 7),    # the WAM 7x7 at /16: K = 9,408
+    ("conv5s2", (1, 192, 256, 384), 5),   # down1 at B=1
+])
+def test_conv_kernels_at_path_shapes_vs_float64(cuda_device, slot, shape, k):
+    """The paths' largest K and largest B3 input, against the plain version
+    run in float64 (3xTF32 with a per-tap fp32 sum keeps 1e-5 there)."""
+    g = torch.Generator().manual_seed(k)
+    x = _cl(_randn(g, *shape), cuda_device)
+    wt = _randn(g, 192, shape[1], k, k, scale=(shape[1] * k * k) ** -0.5).to(cuda_device)
+    b = _randn(g, 192).to(cuda_device)
+    fn, plain = (convk_s1, convk_s1_plain) if slot == "convk_s1" else (conv5s2, conv5s2_plain)
+    _check_kernel(fn, plain, (x, wt, b), f64=True)
+
+
+def test_conv_kernel_prepack_follows_in_place_weight_update(cuda_device):
+    """The TF32-split weights are cached on the weight: an in-place update
+    between two calls must rebuild them."""
+    g = torch.Generator().manual_seed(12)
+    x = _cl(_randn(g, 2, 192, 8, 12), cuda_device)
+    wt = _randn(g, 192, 192, 3, 3, scale=(192 * 9) ** -0.5).to(cuda_device)
+    with torch.no_grad():
+        y0 = convk_s1(x, wt)
+        wt.mul_(-0.5)
+        y1 = convk_s1(x, wt)
+        torch.testing.assert_close(y1.double(), convk_s1_plain(x.double(), wt.double()),
+                                   atol=TOL, rtol=TOL)
+        torch.testing.assert_close(y1, -0.5 * y0, atol=TOL, rtol=TOL)
+
+
+def test_conv_kernels_reject_cin_not_multiple_of_4(cuda_device):
+    g = torch.Generator().manual_seed(13)
+    x = _cl(_randn(g, 1, 130, 8, 12), cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="C_in 130"):
+        convk_s1(x, _randn(g, 192, 130, 3, 3).to(cuda_device))
+    with torch.no_grad(), pytest.raises(ValueError, match="C_in 130"):
+        conv5s2(x, _randn(g, 192, 130, 5, 5).to(cuda_device))
 
 
 def _attn_case(gen, dev, hp, wp, nh, ws, shift, pad):
