@@ -15,19 +15,20 @@ a batch of 8 synthetic 512×768 images, and checks them:
 Each phase prints one line:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build: the three CUDA sources (B1 drain, B3/B6 convs, B4/B5 attention)
-   built from this checkout into ``build/`` by one ``nvcc`` each, all
-   started together, with build seconds and ``ptxas`` register and spill
-   counts; the Triton GDN (B2) and the host rANS library
-   (``csrc/rans.cpp``);
+2. build: the four CUDA sources (B1 drain, B2 GDN, B3/B6 convs, B4/B5
+   attention) built from this checkout into ``build/`` by one ``nvcc``
+   each, all started together, with build seconds and ``ptxas`` register
+   and spill counts; the host rANS library (``csrc/rans.cpp``);
 3. B2, B1, B4 and B5 against their plain versions at the paths' shapes,
    fp32, atol/rtol 1e-5 (B1 bit-exact), a repeat call bit-identical, with
    the kernel's, the plain version's and a library call's times (the
    library call is a yardstick only; nothing on the path calls it); for
-   each B4/B5 shape also the bound in ms and the side that sets it, the
-   kernel's share of the bound, its time over the yardstick's, shared
-   memory per CTA and CTAs per SM, then both kernels' ``ptxas`` register
-   and spill lines;
+   each B2/B4/B5 shape also the bound in ms and the side that sets it, the
+   kernel's share of the bound (B2's bound at the 3xTF32 rate where it runs
+   on the tensor cores, C > 16), for B4/B5 its time over the yardstick's,
+   shared memory per CTA and CTAs per SM, then the kernels' ``ptxas``
+   register and spill lines; B1 on escape-heavy stress streams (about 1
+   symbol in 17 escapes), with each set's escape share;
 4. per path: the zero-init weights of the WAM gates (each attention's
    output projection, each ``ResidualBlock``'s second conv) get small
    seeded values, so that every check below sees those branches; the same
@@ -38,7 +39,10 @@ Each phase prints one line:
    the forward's); the exact launch count of every kernel over forward +
    roundtrip, counters zeroed just before and read just after, and every
    B3/B6 call of that run with its shapes and flags, read by hooks on the
-   ``Conv2d`` modules; ``compress`` → ``decompress`` at B=1; the times.
+   ``Conv2d`` modules; ``compress`` → ``decompress`` at B=1; the times; for
+   ``source_net`` also B1 against its plain version on the streams of that
+   B=8 decode (its payload, rows and threaded lane states, recorded from a
+   second ``decompress_batch``), bit-exact, with the time and escape share.
    ``source_net_wam`` then checks that every attention branch outputs
    non-zero values and runs its forward once more with ``fuse_proj``
    (kernel B5 in place of B4): its launches, and g_a's latent and the
@@ -129,19 +133,19 @@ class Tally:
     (operations at ``peak`` FLOP/s)."""
 
     def __init__(self, peak=PEAK_FP32):
-        self.peak = peak
+        self.peak = peak  # unless add() names the shape's own
         self.err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = None
         self.bytes_ms = self.ops_ms = self.bound_ms = 0.0
 
-    def add(self, err, ms, plain_ms, library_ms, nbytes, flops):
+    def add(self, err, ms, plain_ms, library_ms, nbytes, flops, peak=None):
         self.err = max(self.err, err)
         self.ms += ms
         self.plain_ms += plain_ms
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
-        b, o = nbytes / PEAK_BYTES * 1e3, flops / self.peak * 1e3
+        b, o = nbytes / PEAK_BYTES * 1e3, flops / (peak or self.peak) * 1e3
         self.bytes_ms += b
         self.ops_ms += o
         self.bound_ms += max(b, o)
@@ -189,6 +193,47 @@ def _roofline(ms, library_ms, nbytes, flops, peak=PEAK_FP32) -> dict:
                 share_of_bound=f"{bound / ms:.3f}", vs_library=f"{ms / library_ms:.3f}")
 
 
+def _escape_share(calls, offsets, nsyms):
+    """Over drain calls [(decoded (B, S), rows (B, S), s_tot)], the share of
+    symbols that escape their table row (a value outside [offset, offset +
+    nsyms)) and the share of (stream, chunk of LANES) with an escape, the
+    chunks that take the kernel's escape path."""
+    import numpy as np
+
+    n_sym = n_esc = n_chunk = n_chunk_esc = 0
+    for dec, rows, s_tot in calls:
+        rel = dec[:, :s_tot].astype(np.int64) - offsets[rows[:, :s_tot]]
+        esc = (rel < 0) | (rel >= nsyms)
+        pad = -s_tot % LANES
+        chunks = np.pad(esc, ((0, 0), (0, pad))).reshape(esc.shape[0], -1, LANES).any(-1)
+        n_sym, n_esc = n_sym + esc.size, n_esc + int(esc.sum())
+        n_chunk, n_chunk_esc = n_chunk + chunks.size, n_chunk_esc + int(chunks.sum())
+    return n_esc / n_sym, n_chunk_esc / n_chunk
+
+
+def _drain_vs_plain(calls, ddev, coding):
+    """B1 against its plain version on recorded drain calls [(lanes in,
+    payload, rows, s_tot)] that thread one decode's lane state: bit-exact
+    values, states and pointers.  → (kernel ms, plain ms, max error, lanes
+    out, [(decoded, rows, s_tot)] as numpy)."""
+    import torch
+
+    ms = pms = 0.0
+    err, decoded = 0, []
+    for lanes_in, payt, rows, s_tot in calls:
+        k_lanes, k_dec = coding.rans_drain(ddev, lanes_in, payt, rows, s_tot)
+        p_lanes, p_dec = coding.drain_plain(ddev, lanes_in, payt, rows, s_tot)
+        torch.cuda.synchronize()
+        err = max(err, int((k_dec.long() - p_dec.long()).abs().max()))
+        if not (torch.equal(k_dec, p_dec) and torch.equal(k_lanes.state, p_lanes.state)
+                and torch.equal(k_lanes.ptr, p_lanes.ptr)):
+            raise AssertionError("B1 drain differs from its plain version")
+        ms += _cuda_ms(lambda: coding.rans_drain(ddev, lanes_in, payt, rows, s_tot), 5)
+        pms += _cuda_ms(lambda: coding.drain_plain(ddev, lanes_in, payt, rows, s_tot), 1)
+        decoded.append((k_dec.cpu().numpy(), rows.cpu().numpy(), s_tot))
+    return ms, pms, err, k_lanes, decoded
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -210,15 +255,19 @@ def main() -> int:
         return 2
 
     # ---- 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
+    def query(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            check=True, capture_output=True, text=True, timeout=60,
+        ).stdout.strip()
+
+    smi = query("name,power.limit")
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     _say("device", kind=repr(kind), count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         sm_clock_max_and_now=repr(query("clocks.max.sm,clocks.sm")))
 
     from lic_tpu_torch import coding
     from lic_tpu_torch.coding import drain as drain_mod
@@ -234,8 +283,8 @@ def main() -> int:
     }
 
     # ---- 2. build: one nvcc per CUDA source, all started together
-    cuda_libs = {"b1_drain": drain_mod.library, "b3_b6_conv": conv_direct.library,
-                 "b4_b5_attn": window_attn.library}
+    cuda_libs = {"b1_drain": drain_mod.library, "b2_gdn": gdn_mod.library,
+                 "b3_b6_conv": conv_direct.library, "b4_b5_attn": window_attn.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(cuda_libs)) as pool:
         list(pool.map(lambda lib: lib(), cuda_libs.values()))
@@ -243,17 +292,11 @@ def main() -> int:
     for name, lib in cuda_libs.items():
         _say("build", source=os.path.relpath(str(lib.src), ROOT), seconds=f"{lib.seconds:.1f}",
              so=os.path.relpath(str(lib.so), ROOT), ptxas=repr(lib.ptxas() or "cached"))
-    t0 = time.perf_counter()
-    for c in (16, 192):
-        for inv in (False, True):
-            x = torch.randn(256, c, device=dev)
-            gdn_mod.gdn_fused(x, torch.eye(c, device=dev), torch.ones(c, device=dev), inv)
-    torch.cuda.synchronize()
-    t_b2 = time.perf_counter() - t0
     host_lib = coding.load_host_rans()
-    _say("build", cuda_parallel_s=f"{t_cuda:.1f}", b2_triton_s=f"{t_b2:.1f}",
-         host_rans=os.path.relpath(host_lib, ROOT))
+    _say("build", cuda_parallel_s=f"{t_cuda:.1f}", host_rans=os.path.relpath(host_lib, ROOT))
 
+    # B2 runs 3xTF32 on the tensor cores for C > 16, fp32 on the CUDA cores
+    # below; B3/B6 run 3xTF32
     tally = {k: Tally(PEAK_TF32X3 if k in ("conv5s2", "convk_s1") else PEAK_FP32)
              for k in counters}
     g = torch.Generator().manual_seed(SEED)
@@ -276,11 +319,25 @@ def main() -> int:
         args = (x, gamma, beta, inv)
         err, ms, pms, _, _ = _vs_plain(stage, gdn_mod.gdn_fused, gdn_mod.gdn_plain, args,
                                       reps=20, f64=False)
-        tally["gdn"].add(err, ms, pms, None, 2 * _nbytes(x) + _nbytes(gamma, beta),
-                         2 * rows * c * c)
-        _say("b2_gdn", stage=stage, rows=rows, C=c, max_abs_err=f"{err:.3g}",
-             ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+        # an image's rows do not depend on the rows around them
+        half = rows // 2 + 7
+        with torch.no_grad():
+            if not torch.equal(gdn_mod.gdn_fused(x[half:].clone(), gamma, beta, inv),
+                               gdn_mod.gdn_fused(x, gamma, beta, inv)[half:]):
+                raise AssertionError(f"{stage}: B2 rows depend on the rows around them")
+        nbytes, flops = 2 * _nbytes(x) + _nbytes(gamma, beta), 2 * rows * c * c
+        peak = PEAK_TF32X3 if c > 16 else PEAK_FP32
+        tally["gdn"].add(err, ms, pms, None, nbytes, flops, peak)
+        rl = _roofline(ms, ms, nbytes, flops, peak)
+        _say("b2_gdn", stage=stage, rows=rows, C=c, inverse=inv, max_abs_err=f"{err:.3g}",
+             ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", bound_ms=rl["bound_ms"],
+             bound_by=rl["bound_by"], share_of_bound=rl["share_of_bound"],
+             peak="3xTF32 165 TFLOP/s" if c > 16 else "fp32 67 TFLOP/s",
+             gbytes_per_s=f"{nbytes / ms / 1e6:.0f}")
         del x, args
+    _say("b2_occupancy", **dict(zip(("smem_per_cta", "ctas_per_sm"), gdn_mod.occupancy())))
+    for line in gdn_mod.library.ptxas():
+        _say("b2_ptxas", kernel=repr(line))
 
     # ---- 3b. B1 vs plain: 4 slice drains threading state, B=8, L=128
     s_slice = (H // 16) * (W // 16) * 48  # 73 728 symbols per slice
@@ -291,31 +348,28 @@ def main() -> int:
     )
     ddev = coding.DeviceRans16Interleaved(cdfs, offsets, LANES, device=dev)
     payt = torch.from_numpy(pay).to(dev)
-    rows_all = torch.from_numpy(idx).to(dev)
-    k_lanes = p_lanes = ddev.init_lanes(payt)
+    # the 4 slice calls of one decode, each slice's lanes those the plain
+    # version leaves after the previous slice
+    calls, lanes = [], ddev.init_lanes(payt)
     for i in range(4):
-        rows = rows_all[:, i * s_slice : (i + 1) * s_slice].contiguous()
-        lanes_in = k_lanes
-        k_lanes, k_dec = coding.rans_drain(ddev, lanes_in, payt, rows, s_slice)
-        p_lanes, p_dec = coding.drain_plain(ddev, p_lanes, payt, rows, s_slice)
-        torch.cuda.synchronize()
-        err = int((k_dec.long() - p_dec.long()).abs().max())
-        if not (torch.equal(k_dec, p_dec) and torch.equal(k_lanes.state, p_lanes.state)
-                and torch.equal(k_lanes.ptr, p_lanes.ptr)):
-            raise AssertionError(f"B1 drain differs from its plain version (slice {i})")
-        np.testing.assert_array_equal(k_dec.cpu().numpy(), sym[:, i * s_slice : (i + 1) * s_slice])
-        ms = _cuda_ms(lambda: coding.rans_drain(ddev, lanes_in, payt, rows, s_slice), 5)
-        pms = _cuda_ms(lambda: coding.drain_plain(ddev, lanes_in, payt, rows, s_slice), 1)
-        # bytes: the slice's rows in, its symbols out, the payload, the
-        # tables; its integer work per symbol has no peak in the table
-        tally["drain"].add(err, ms, pms, None,
-                           _nbytes(rows, k_dec, payt, ddev.cdf_rows, ddev.offsets), 0)
+        rows = torch.from_numpy(idx[:, i * s_slice : (i + 1) * s_slice].copy()).to(dev)
+        calls.append((lanes, payt, rows, s_slice))
+        lanes, _ = coding.drain_plain(ddev, lanes, payt, rows, s_slice)
+    ms, pms, err, k_lanes, decoded = _drain_vs_plain(calls, ddev, coding)
+    np.testing.assert_array_equal(np.concatenate([d for d, _, _ in decoded], 1), sym)
     if not (bool((k_lanes.state == 1 << 16).all()) and k_lanes.ptr.tolist() == ends):
         raise AssertionError("B1 drain: final lane states or pointers wrong")
-    _say("b1_drain", streams=BATCH, lanes=LANES, slices=4, symbols_per_slice=s_slice,
-         bitexact=True, ms_4_slices=f"{tally['drain'].ms:.3f}",
-         plain_ms_4_slices=f"{tally['drain'].plain_ms:.3f}")
-    del payt, rows_all, p_dec, k_dec
+    # bytes: the rows in, the symbols out, the payload and the tables (per
+    # slice call); its integer work per symbol has no peak in the table
+    for _, _, rows, _ in calls:
+        tally["drain"].add(err, ms / 4, pms / 4, None,
+                           _nbytes(rows, rows, payt, ddev.cdf_rows, ddev.offsets), 0)
+    sym_share, chunk_share = _escape_share(decoded, offsets, ddev.nsyms)
+    _say("b1_drain", streams="stress", batch=BATCH, lanes=LANES, slices=4,
+         symbols_per_slice=s_slice, bitexact=True, escape_share_symbols=f"{sym_share:.4f}",
+         escape_share_chunks=f"{chunk_share:.4f}", ms_4_slices=f"{ms:.3f}",
+         plain_ms_4_slices=f"{pms:.3f}")
+    del payt, calls, decoded
 
     def cl(t):
         return t.to(dev).contiguous(memory_format=torch.channels_last)
@@ -380,9 +434,23 @@ def main() -> int:
     # ---- 4. the paths
     launches, times, conv_calls = {}, {}, {}
     for preset in ("source_net", "source_net_wam"):
-        runs, t = _drive(preset, dev, counters, conv_calls)
+        runs, t, drains = _drive(preset, dev, counters, conv_calls)
         launches.update(runs)
         times[preset] = t
+        if preset == "source_net":
+            # B1 on the streams of the real B=8 decode
+            ddev_real = drains[0][0]
+            ms, pms, err, _, decoded = _drain_vs_plain(
+                [c[1:] for c in drains], ddev_real, coding)
+            sym_share, chunk_share = _escape_share(
+                decoded, ddev_real.offsets.cpu().numpy(), ddev_real.nsyms)
+            real_drain_ms = ms
+            _say("b1_drain", streams=f"{preset} B={BATCH} decode", calls=len(drains),
+                 symbols_per_call=[c[4] for c in drains], bitexact=True,
+                 escape_share_symbols=f"{sym_share:.4f}",
+                 escape_share_chunks=f"{chunk_share:.4f}", ms=f"{ms:.3f}",
+                 plain_ms=f"{pms:.3f}")
+            del drains, decoded
         torch.cuda.empty_cache()
     for run, want in EXPECTED.items():
         if launches[run] != want:
@@ -430,7 +498,7 @@ def main() -> int:
     meta = {
         "drain": ("rans_drain", "cuda", "lic_tpu_torch/csrc/rans_drain.cu",
                   "lic_tpu/coding/pallas_rans.py:93"),
-        "gdn": ("gdn_fwd", "triton", "lic_tpu_torch/layers/gdn.py",
+        "gdn": ("gdn_fwd", "cuda", "lic_tpu_torch/csrc/gdn.cu",
                 "lic_tpu/layers/pallas_gdn.py:31"),
         "conv5s2": ("conv5s2", "cuda", "lic_tpu_torch/csrc/conv_direct.cu",
                     "lic_tpu/layers/pallas_conv.py:47 (B3; B3' conv5s2_pallas_v2 "
@@ -449,6 +517,8 @@ def main() -> int:
             name=name, route=route, source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
         ))
+        if key == "drain":  # ms and bound are the stress streams'
+            rows[-1]["real_decode_ms"] = round(real_drain_ms, 4)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -500,7 +570,8 @@ def _drive(preset, dev, counters, conv_calls):
     """One path: the small-input check against the CPU, the main path with
     its launch counts and its B3/B6 calls (into ``conv_calls``), the B=1
     roundtrip, the times (and for the WAM preset the ``fuse_proj`` pass).
-    → ({run: launches}, times)."""
+    → ({run: launches}, times, the drain calls of a B=8 decode of
+    ``source_net``, else [])."""
     import numpy as np
     import torch
 
@@ -508,6 +579,7 @@ def _drive(preset, dev, counters, conv_calls):
     from lic_tpu_torch.layers import WindowAttention
     from lic_tpu_torch.models import build_model
     from lic_tpu_torch.models.compress import ChannelCoder
+    from lic_tpu_torch.tools.kernel_probe import record_drains
 
     model = build_model(preset, device=dev, seed=SEED)
     cpu_model = build_model(preset, device="cpu", seed=SEED)
@@ -585,6 +657,7 @@ def _drive(preset, dev, counters, conv_calls):
     rec1_err = float((rec1 - ref1).abs().max())
     if rec1_err > RECON_TOL:
         raise AssertionError(f"{preset}: B=1 roundtrip recon differs from its forward: {rec1_err}")
+    drains = record_drains(coder, blobs) if preset == "source_net" else []
     _say("roundtrip", preset=preset, streams=BATCH, bpp=f"{bpp:.4f}",
          recon_max_err=f"{rec_err:.3g}", final_state_ok=True, launches=runs[preset],
          b1_recon_max_err=f"{rec1_err:.3g}", b1_stream_equals_batch=coder.compress(x1) == blobs[0])
@@ -638,7 +711,7 @@ def _drive(preset, dev, counters, conv_calls):
              leaves_woken=woken, attn_out_min_max_abs=f"{min(attn_max):.3g}",
              z3_max_err=f"{errs['z3']:.3g}", synthesis_max_err=f"{errs['synthesis']:.3g}",
              forward_ms=f"{fwd5_ms:.2f}")
-    return runs, times
+    return runs, times, drains
 
 
 if __name__ == "__main__":

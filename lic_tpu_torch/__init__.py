@@ -9,7 +9,8 @@ package's sources at first use:
 
 * B1, the interleaved rANS drain, CUDA C++ (``csrc/rans_drain.cu``, wrapper
   ``coding.drain``);
-* B2, the GDN/IGDN forward, Triton (``layers.gdn``);
+* B2, the GDN/IGDN forward, CUDA C++ (``csrc/gdn.cu``, wrapper
+  ``layers.gdn``);
 * B3 and B6, the 5×5 stride-2 conv and the stride-1 k×k conv with its
   bias/LeakyReLU/residual epilogue, CUDA C++ (``csrc/conv_direct.cu``,
   wrappers ``layers.conv_direct``);

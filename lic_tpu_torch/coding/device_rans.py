@@ -10,9 +10,11 @@ holding uint32 values: products and shifts are masked to 32 bits, the
 unsigned compare ``state < 2^16`` is exact on the non-negative int64, and
 the escape unzigzag runs on the non-negative value (a logical shift).
 
-One departure, only for corrupt streams: a renorm word past the end of the
-payload reads as 0, where the JAX window slice clamps its start.  Valid
-streams carry >= L trailing zero words and never reach the end.
+A renorm word at or past the payload's end reads as 0.  The JAX window
+slice clamps its start to W - L instead, which reads the same zeros: the
+format's contract puts >= L zero words at the end of every stream
+(``tests/test_torch_port_rans.py`` holds the two to each other on corrupt
+streams).
 """
 
 from __future__ import annotations

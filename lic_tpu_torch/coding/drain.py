@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..utils.build import CudaLibrary, check_launch
@@ -27,11 +28,45 @@ from .device_rans import (
 def _bind(lib: ctypes.CDLL) -> None:
     lib.rans_drain_launch.restype = ctypes.c_int
     lib.rans_drain_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
 
 
 library = CudaLibrary("rans_drain.cu", _bind)
+
+SLOT_BUCKET_BITS = 7  # the coarse slot index keys on cum >> 7: 512 buckets
+
+
+def slot_index(cdfs: np.ndarray) -> np.ndarray:
+    """The kernel's coarse slot index.  For each CDF row and each h in
+    0..512, with lo the slot of cum = min(h << 7, 65535), i.e.
+    ``#{j : cdf[j] <= cum} - 1``: the entry ``cdf[lo] << 8 | lo``.  The
+    slot of any cum in bucket h lies between the slots of entries h and
+    h + 1.  (rows, 513) uint32; the rows must ascend from cdf[0] = 0 to a
+    last entry above 65535 and hold at most 256 entries."""
+    cdfs = np.asarray(cdfs, np.int64)
+    rows, row_len = cdfs.shape
+    if (row_len > 256 or (cdfs[:, 0] != 0).any() or (cdfs[:, -1] <= 0xFFFF).any()
+            or (np.diff(cdfs, axis=1) < 0).any()):
+        raise ValueError(
+            "slot_index: rows must ascend from 0 past 65535 and hold <= 256 entries"
+        )
+    n = (1 << (16 - SLOT_BUCKET_BITS)) + 1
+    cums = np.minimum(np.arange(n) << SLOT_BUCKET_BITS, 0xFFFF)
+    out = np.empty((rows, n), np.uint32)
+    for r in range(rows):
+        lo = np.searchsorted(cdfs[r], cums, side="right") - 1
+        out[r] = (cdfs[r, lo] << 8) | lo
+    return out
+
+
+def _slot_index_on(dev: DeviceRans16Interleaved) -> torch.Tensor:
+    """``slot_index`` of the coder's tables, on their device, built once."""
+    idx = getattr(dev, "_slot_index", None)
+    if idx is None or idx.device != dev.cdf_rows.device:
+        idx = torch.from_numpy(slot_index(dev.cdf_rows.cpu().numpy())).to(dev.cdf_rows.device)
+        dev._slot_index = idx
+    return idx
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -45,7 +80,7 @@ def _drain_cuda(dev, lanes, payload, rows_flat, s_tot):
     w_len = payload.shape[1]
     device = payload.device
     _check(0 <= s_tot <= s, f"s_tot={s_tot} outside [0, {s}]")
-    _check(L % 32 == 0 and 0 < L <= 1024, f"L={L} must be a multiple of 32 <= 1024")
+    _check(L == 128, f"L={L}: the kernel takes the format's 128 lanes")
     _check(payload.dtype == torch.int32 and payload.is_contiguous(),
            "payload must be contiguous int32")
     _check(payload.shape[0] == b and w_len >= 2 * L,
@@ -55,9 +90,13 @@ def _drain_cuda(dev, lanes, payload, rows_flat, s_tot):
     _check(tuple(lanes.state.shape) == (b, L) and tuple(lanes.ptr.shape) == (b,),
            "lane state shape")
     # the interleaved format's contract (device_rans.py:361-363): every
-    # stream ends with >= L zero words
-    _check(not bool(payload[:, w_len - L:].any()),
-           f"each payload row needs >= {L} trailing zero words")
+    # stream ends with >= L zero words.  Checked once per payload tensor and
+    # again after an in-place write (its version counter moves): the check
+    # waits for the card, and one decode drains the same payload per slice
+    if getattr(payload, "_rans_zero_tail", None) != (payload._version, L):
+        _check(not bool(payload[:, w_len - L:].any()),
+               f"each payload row needs >= {L} trailing zero words")
+        payload._rans_zero_tail = (payload._version, L)
     rows = rows_flat.to(torch.int32).contiguous()
     out = torch.zeros((b, s), dtype=torch.int32, device=device)
     if s_tot == 0:
@@ -70,7 +109,7 @@ def _drain_cuda(dev, lanes, payload, rows_flat, s_tot):
     err = library().rans_drain_launch(
         rows.data_ptr(), payload.data_ptr(), state.data_ptr(), ptr.data_ptr(),
         out.data_ptr(), dev.cdf_rows.data_ptr(), dev.offsets.data_ptr(),
-        b, s, int(s_tot), w_len, L, dev.rows, dev.row_len, stream,
+        _slot_index_on(dev).data_ptr(), b, s, int(s_tot), w_len, L, dev.rows, dev.row_len, stream,
     )
     check_launch(err, "rans_drain")
     rans_drain.launches += 1

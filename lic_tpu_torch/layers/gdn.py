@@ -1,28 +1,18 @@
-"""GDN / IGDN, and kernel B2: the fused GDN forward in Triton.
+"""GDN / IGDN, and kernel B2: the fused GDN forward in CUDA C++.
 
 ``y = x · (x²Γᵀ + β)^∓½`` over (rows, C), Γ indexed ``[out, in]``
 (``lic_tpu/layers/gdn.py:65-102``).  The module stores β/Γ in
 ``NonNegativeParametrizer`` space with the JAX package's inits
 (β = sqrt(1 + ped), Γ = sqrt(0.1·I + ped), ``gdn.py:46-62``).
 
-Kernel B2 — replaces ``lic_tpu/layers/pallas_gdn.py::gdn_fused``
-(``_gdn_fwd_pallas`` → ``_gdn_kernel``).
-
-* What bounds it on this card: the pass reads x once and writes y once;
-  its one product is a row tile times the C×C Γ (C ≤ 192).  In bf16 that
-  is far below the ~295 FLOP/byte ridge of an H100, so bytes bound it.
-  In fp32 the product runs in IEEE fp32 on the CUDA cores (TF32 would
-  break the 1e-5 parity), at 2·C FLOP per element read: near the ridge of
-  the fp32 FMA rate at C = 192.
-* What the design does: one program per 64-row tile loads the x tile once
-  (masked to the next power of two of C, 256 for C = 192), squares it in
-  registers and runs ``tl.dot`` against Γᵀ in 64-wide output-channel
-  blocks, each followed by the sqrt/rsqrt epilogue and the store.  The
-  per-block re-read of x's output columns hits L1/L2, so device memory
-  sees x once and y once — the property the TPU kernel was written for
-  (``pallas_gdn.py:3-8``).  The norm accumulates in fp32 for bf16 inputs,
-  as ``pallas_gdn.py:35`` does; fp32 inputs pass
-  ``input_precision="ieee"`` so ``tl.dot`` does not drop to TF32.
+Kernel B2 (``csrc/gdn.cu``) replaces ``lic_tpu/layers/pallas_gdn.py::gdn_fused``
+(``_gdn_fwd_pallas`` → ``_gdn_kernel``): it reads x once and writes y once.
+For 16 < C ≤ 192 (C % 4 == 0) the product x²Γᵀ runs 3xTF32 on the tensor
+cores (``wgmma``, x fed by TMA, Γ split hi/lo by each CTA into shared memory
+on every call, so no cache can key on a reused address); for C ≤ 16 a
+CUDA-core kernel.  The source's head note says what bounds it and why.
+bf16 inputs are widened to fp32 (exact), squared and rounded to bf16 in the
+kernel as the TPU kernel squares, and y is rounded back to bf16.
 
 ``gdn_fused`` is the wrapper: CPU tensors take ``gdn_plain``, CUDA tensors
 launch the kernel, anything else raises.  The backward comes with training;
@@ -31,16 +21,27 @@ a backward through the CUDA path raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch import nn
 
 from ..ops.bounds import NonNegativeParametrizer
+from ..utils.build import CudaLibrary, check_launch
 
-_BLOCK_R = 64
-_BLOCK_N = 64
-_KERNEL = None
 _BETA_MIN = 1e-6
 _GAMMA_INIT = 0.1
+_MAX_C = 192  # the tensor-core kernel keeps 6 chunks of Γ's split resident
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.gdn_launch.restype = ctypes.c_int
+    lib.gdn_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.gdn_occupancy.restype = ctypes.c_int
+    lib.gdn_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+
+
+library = CudaLibrary("gdn.cu", _bind)
 
 
 def gdn_plain(
@@ -53,55 +54,15 @@ def gdn_plain(
     return y.to(x.dtype)
 
 
-def _build_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _gdn_fwd_kernel(
-        x_ptr, gt_ptr, beta_ptr, y_ptr, R, C,
-        BLOCK_R: tl.constexpr, BLOCK_K: tl.constexpr, BLOCK_N: tl.constexpr,
-        INVERSE: tl.constexpr, IEEE: tl.constexpr,
-    ):
-        pid = tl.program_id(0)
-        rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
-        rmask = rows < R
-        ks = tl.arange(0, BLOCK_K)
-        kmask = ks < C
-        x = tl.load(
-            x_ptr + rows[:, None] * C + ks[None, :],
-            mask=rmask[:, None] & kmask[None, :], other=0.0,
-        )
-        xsq = x * x  # in x's dtype, as the TPU kernel squares
-        for n0 in range(0, C, BLOCK_N):
-            ns = n0 + tl.arange(0, BLOCK_N)
-            nmask = ns < C
-            g = tl.load(
-                gt_ptr + ks[:, None] * C + ns[None, :],
-                mask=kmask[:, None] & nmask[None, :], other=0.0,
-            )
-            if IEEE:
-                norm = tl.dot(xsq, g, input_precision="ieee")
-            else:
-                norm = tl.dot(xsq, g)  # bf16 operands, fp32 accumulator
-            b = tl.load(beta_ptr + ns, mask=nmask, other=1.0).to(tl.float32)
-            norm = norm + b[None, :]
-            offs = rows[:, None] * C + ns[None, :]
-            omask = rmask[:, None] & nmask[None, :]
-            xn = tl.load(x_ptr + offs, mask=omask, other=0.0).to(tl.float32)
-            if INVERSE:
-                y = xn * tl.sqrt(norm)
-            else:
-                y = xn * tl.rsqrt(norm)
-            tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=omask)
-
-    return _gdn_fwd_kernel
+def occupancy():
+    """(shared memory bytes per CTA, CTAs per SM) of the tensor-core kernel
+    at C = 192, from the card's occupancy calculator."""
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    check_launch(library().gdn_occupancy(ctypes.byref(smem), ctypes.byref(ctas)), "gdn")
+    return smem.value, ctas.value
 
 
 def _launch(x, gamma, beta, inverse):
-    global _KERNEL
-    import triton
-
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"gdn kernel takes fp32 or bf16, got {x.dtype}")
     rows, c = x.shape
@@ -110,24 +71,25 @@ def _launch(x, gamma, beta, inverse):
             f"gamma {tuple(gamma.shape)} / beta {tuple(beta.shape)} do not "
             f"match C={c}"
         )
-    if _KERNEL is None:
-        _KERNEL = _build_kernel()
-    x = x.contiguous()
-    gamma_t = gamma.t().to(x.dtype).contiguous()  # (C_in, C_out)
-    beta = beta.float().contiguous()
-    y = torch.empty_like(x)
-    block_k = max(16, triton.next_power_of_2(c))
-    grid = (triton.cdiv(rows, _BLOCK_R),)
-    _KERNEL[grid](
-        x, gamma_t, beta, y, rows, c,
-        BLOCK_R=_BLOCK_R, BLOCK_K=block_k, BLOCK_N=min(_BLOCK_N, block_k),
-        INVERSE=bool(inverse), IEEE=x.dtype == torch.float32,
-        # the squared tile stays live across the channel blocks: 8 warps
-        # keep it at 64 fp32 registers a thread for a 64×256 tile
-        num_warps=8 if block_k > 64 else 4, num_stages=1,
-    )
-    gdn_fused.launches += 1
-    return y
+    if gamma.device != x.device or beta.device != x.device:
+        raise ValueError("gdn: x, gamma and beta must share a device")
+    if not (c <= 16 or (c <= _MAX_C and c % 4 == 0)):
+        raise ValueError(f"gdn kernel takes C <= 16, or C <= {_MAX_C} with C % 4 == 0; got {c}")
+    xk = x.float().contiguous()
+    if xk.data_ptr() % 16:  # TMA reads from a 16-byte-aligned base
+        xk = xk.clone()
+    y = torch.empty_like(xk)
+    if rows:
+        g = gamma.float().contiguous()
+        b = beta.float().contiguous()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = library().gdn_launch(
+            xk.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), rows, c,
+            int(bool(inverse)), int(x.dtype == torch.bfloat16), stream,
+        )
+        check_launch(err, "gdn")
+        gdn_fused.launches += 1
+    return y.to(x.dtype)
 
 
 class _GdnKernel(torch.autograd.Function):

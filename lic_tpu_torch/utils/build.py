@@ -15,19 +15,21 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 
 
-def build_if_stale(src: Path, out: Path, cmd: List[str]) -> str:
+def build_if_stale(src: Path, out: Path, cmd: List[str], deps: Sequence[Path] = ()) -> str:
     """Run ``cmd`` (which must write its output to the path in the last
-    ``{out}`` placeholder) unless ``out`` is newer than ``src``.  The build
+    ``{out}`` placeholder) unless ``out`` is newer than ``src`` and every
+    header in ``deps``.  The build
     goes to a temporary name and is renamed into place, so a process that
     races the build never loads a half-written file.  Returns the
     compiler's output (``ptxas`` register and spill lines for ``nvcc``)."""
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *deps))
+    if out.exists() and out.stat().st_mtime >= newest:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}"
@@ -46,6 +48,7 @@ class CudaLibrary:
     """A kernel source under ``csrc/``, compiled with ``nvcc`` for
     ``sm_90a`` into ``build/<stem>.so`` (a plain C interface) at first call
     and loaded with ``ctypes``; ``bind`` sets the entry points' argtypes.
+    The headers under ``csrc/`` (``*.cuh``) count as its sources too.
     A failed build raises.  ``log`` keeps this process's compiler output
     (``ptxas -v``: registers, shared memory, spills) and ``seconds`` its
     build time."""
@@ -70,7 +73,7 @@ class CudaLibrary:
                     nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
                     "-Xcompiler", "-fPIC", "-o", "{out}", str(self.src),
-                ])
+                ], deps=sorted(self.src.parent.glob("*.cuh")))
                 self.seconds = time.perf_counter() - t0
                 lib = ctypes.CDLL(str(self.so))
                 self._bind(lib)

@@ -2,7 +2,8 @@
 card: B1 (rANS drain), B2 (GDN), B3 (5×5 stride-2 conv), B4/B5 (window
 attention) and B6 (stride-1 conv).  Every test here is marked ``cuda`` and
 skips without CUDA.  fp32 tolerance: atol/rtol 1e-5 (sums in another order
-than cuDNN's / cuBLAS's); a repeat call of B3-B6 is bit-identical.
+than cuDNN's / cuBLAS's); a repeat call of B2-B6 is bit-identical; B1 is
+bit-exact.
 
 The file imports no jax, so it also runs on a GPU host without the JAX
 package (``tests/conftest.py`` imports jax; pass ``--noconftest``):
@@ -45,7 +46,7 @@ L = 128
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the port's CUDA/Triton kernels have no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA kernels have no CPU mode")
     set_numerics_flags()  # no TF32 in the plain versions' cuDNN/cuBLAS calls
     return torch.device("cuda")
 
@@ -70,6 +71,78 @@ def test_gdn_kernel_matches_plain(cuda_device, c, rows, inverse, dtype):
     torch.testing.assert_close(
         y.float(), gdn_plain(x, gamma, beta, inverse).float(), atol=tol, rtol=tol
     )
+
+
+# the GDN/IGDN shapes of a B=8 512×768 forward: (rows, C, inverse)
+_GDN_PATH = [(786432, 192, False), (196608, 192, False), (49152, 192, False),
+             (49152, 192, True), (196608, 192, True), (786432, 192, True),
+             (3145728, 16, True)]
+
+
+def _gdn_case(rows, c, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, c, generator=g)
+    gamma = 0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=g)
+    beta = 1.0 + torch.rand(c, generator=g)
+    return x.to(dev), gamma.to(dev), beta.to(dev)
+
+
+@pytest.mark.parametrize("rows,c,inverse", _GDN_PATH)
+def test_gdn_kernel_at_path_shapes_vs_float64(cuda_device, rows, c, inverse):
+    """The 7 shapes of the forward, against the plain version in float64:
+    3xTF32 with an fp32 sum per 32-channel chunk (C = 192) and the CUDA-core
+    kernel (C = 16) keep 1e-5."""
+    x, gamma, beta = _gdn_case(rows, c, rows + c, cuda_device)
+    _check_kernel(gdn_fused, gdn_plain, (x, gamma, beta, inverse), f64=True)
+
+
+@pytest.mark.parametrize("c,rows", [(16, 3000), (192, 5000)])
+def test_gdn_kernel_repeatable_and_rows_independent(cuda_device, c, rows):
+    """A repeat is bit-identical, and a row's output does not depend on the
+    rows around it (ragged tiles at both ends of the slice)."""
+    x, gamma, beta = _gdn_case(rows, c, 7, cuda_device)
+    with torch.no_grad():
+        y = gdn_fused(x, gamma, beta, False)
+        assert torch.equal(gdn_fused(x, gamma, beta, False), y)
+        assert torch.equal(gdn_fused(x[1001:].clone(), gamma, beta, False), y[1001:])
+        assert torch.equal(gdn_fused(x[37:1001].clone(), gamma, beta, False), y[37:1001])
+
+
+@pytest.mark.parametrize("c", [16, 192])
+def test_gdn_kernel_follows_gamma_rebuilt_at_the_same_address(cuda_device, c):
+    """Γ is a fresh tensor every forward and the allocator reuses its
+    address: the kernel splits Γ on every call, so a Γ rewritten in place,
+    or freed and rebuilt, gives the new Γ's output."""
+    x, gamma, beta = _gdn_case(1000, c, 11, cuda_device)
+    with torch.no_grad():
+        y0 = gdn_fused(x, gamma, beta, False)
+        ptr = gamma.data_ptr()
+        gamma.mul_(3.0).add_(0.05)
+        assert gamma.data_ptr() == ptr
+        y1 = gdn_fused(x, gamma, beta, False)
+        torch.testing.assert_close(y1, gdn_plain(x, gamma, beta, False), atol=TOL, rtol=TOL)
+        assert not torch.equal(y1, y0)
+        del gamma
+        gamma2 = 0.2 * torch.eye(c, device=cuda_device) + 0.03
+        y2 = gdn_fused(x, gamma2, beta, True)
+        torch.testing.assert_close(y2, gdn_plain(x, gamma2, beta, True), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("c,rows", [(8, 1000), (32, 1000), (100, 777), (96, 130)])
+def test_gdn_kernel_other_widths(cuda_device, c, rows):
+    """C = 8 on the CUDA cores (16 lanes of the row, half unused); on the
+    tensor cores C = 32 (one K-chunk), C = 100 (a K-chunk and an N-tile cut
+    short) and C = 96 (one N-tile)."""
+    x, gamma, beta = _gdn_case(rows, c, c, cuda_device)
+    for inverse in (False, True):
+        _check_kernel(gdn_fused, gdn_plain, (x, gamma, beta, inverse), f64=True)
+
+
+def test_gdn_kernel_rejects_unsupported_widths(cuda_device):
+    for c in (130, 256):
+        x, gamma, beta = _gdn_case(8, c, 0, cuda_device)
+        with torch.no_grad(), pytest.raises(ValueError, match="gdn kernel takes C"):
+            gdn_fused(x, gamma, beta, False)
 
 
 def test_gdn_kernel_backward_raises(cuda_device):
@@ -107,6 +180,87 @@ def test_drain_kernel_bitexact_vs_plain(cuda_device):
         off += m
     assert bool((k_lanes.state == 1 << 16).all())
     assert k_lanes.ptr.tolist() == ends
+
+
+def _drain_vs_plain(dev, payt, idx, steps, lanes=None):
+    """Drain ``steps`` symbols per call with the kernel and the plain
+    version, threading each one's lane state; every call bit-exact.
+    → (kernel lanes, decoded (B, sum(steps)) numpy)."""
+    k_lanes = p_lanes = lanes if lanes is not None else dev.init_lanes(payt)
+    off, decs = 0, []
+    for m in steps:
+        rows = torch.from_numpy(idx[:, off : off + m].copy()).to(payt.device)
+        k_lanes, k_dec = rans_drain(dev, k_lanes, payt, rows, m)
+        p_lanes, p_dec = drain_plain(dev, p_lanes, payt, rows, m)
+        assert torch.equal(k_dec, p_dec)
+        assert torch.equal(k_lanes.state, p_lanes.state)
+        assert torch.equal(k_lanes.ptr, p_lanes.ptr)
+        decs.append(k_dec.cpu().numpy())
+        off += m
+    return k_lanes, np.concatenate(decs, 1)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("with_escapes", [False, True])
+def test_drain_kernel_bitexact_batches_and_escapes(cuda_device, b, with_escapes):
+    """B = 1 and 8, no escapes and 1 symbol in 17 escaping; calls of s_tot
+    not a multiple of L (one of them a single symbol) thread the state."""
+    steps = [700, 129, 1, 300]
+    coder = GaussianCoder()
+    cdfs, offsets = coder.codec.cdfs, coder.codec.offsets
+    sym, idx, pay, ends = random_streams(
+        cdfs, offsets, [(100 + i, with_escapes) for i in range(b)], steps, L)
+    dev = DeviceRans16Interleaved(cdfs, offsets, L, device=cuda_device)
+    payt = torch.from_numpy(pay).to(cuda_device)
+    lanes, dec = _drain_vs_plain(dev, payt, idx, steps)
+    np.testing.assert_array_equal(dec, sym)
+    assert bool((lanes.state == 1 << 16).all())
+    assert lanes.ptr.tolist() == ends
+
+
+@pytest.mark.parametrize("kind", ["flipped", "zeroed", "low_state"])
+def test_drain_kernel_bitexact_on_corrupt_streams(cuda_device, kind):
+    """Corrupt streams, trailing zeros kept, against the plain version:
+    ``flipped`` xors bits into 30% of the words; ``zeroed`` zeroes each
+    stream after its lane heads, so the pointer runs past W - L into the
+    trailing zeros and past W (words there read 0); ``low_state`` starts
+    lane 0 of stream 0 below 2^16 at the escape slot's start, so its state
+    after the main phase is below 2^16 and the chunk takes the
+    phase-by-phase escape path."""
+    steps = [700]
+    coder = GaussianCoder()
+    cdfs, offsets = coder.codec.cdfs, coder.codec.offsets
+    _, idx, pay, ends = random_streams(cdfs, offsets, [(90, True), (91, False)], steps, L)
+    rng = np.random.default_rng(5)
+    bad = pay.copy()
+    for b, end in enumerate(ends):
+        if kind == "flipped":
+            m = rng.random(end) < 0.3
+            m[: 2 * L] = False
+            bad[b, :end][m] ^= rng.integers(1, 1 << 16, int(m.sum())).astype(np.int32)
+        elif kind == "zeroed":
+            bad[b, 2 * L + 5 :] = 0
+    if kind == "low_state":
+        nsyms = cdfs.shape[1] - 2
+        bad[0, 0], bad[0, 1] = 0, cdfs[idx[0, 0], nsyms]
+    dev = DeviceRans16Interleaved(cdfs, offsets, L, device=cuda_device)
+    payt = torch.from_numpy(bad).to(cuda_device)
+    lanes, _ = _drain_vs_plain(dev, payt, idx, steps)
+    if kind == "zeroed":
+        assert int(lanes.ptr.max()) > bad.shape[1] - L
+
+
+def test_drain_kernel_rechecks_trailing_zeros_after_in_place_write(cuda_device):
+    """The trailing-zeros check runs once per payload tensor, and again once
+    the tensor is written in place (its version counter moves)."""
+    (cdfs, offsets), _, idx, pay, _ = _streams(1, [200], seed=82)
+    dev = DeviceRans16Interleaved(cdfs, offsets, L, device=cuda_device)
+    payt = torch.from_numpy(pay).to(cuda_device)
+    rows = torch.from_numpy(idx).to(cuda_device)
+    rans_drain(dev, dev.init_lanes(payt), payt, rows, 200)
+    payt[0, -1] = 7
+    with pytest.raises(ValueError, match="trailing zero"):
+        rans_drain(dev, dev.init_lanes(payt), payt, rows, 200)
 
 
 def test_drain_kernel_rejects_payload_without_trailing_zeros(cuda_device):

@@ -2,7 +2,7 @@
 
 The port's plain GDN is held to ``lic_tpu.layers.gdn.GDN`` (its plain
 einsum path) and to the JAX kernel ``gdn_fused`` run in interpret mode, at
-atol 1e-5 / rtol 1e-5 (fp32 sums in another order).  The Triton kernel
+atol 1e-5 / rtol 1e-5 (fp32 sums in another order).  The CUDA kernel
 itself needs a card: ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``
 hold it to the plain version there.
 """

@@ -6,7 +6,8 @@ codec's own 64 × 131 Gaussian tables, with and without escapes (including
 The port's plain drain must be BIT-EXACT with the JAX
 ``DeviceRans16Interleaved`` chunk scan and with ``pallas_drain`` in
 interpret mode: values, final states and pointers, also when one decode is
-split into several calls that thread the lane state.  The CUDA kernel is
+split into several calls that thread the lane state, and on corrupt
+streams whose pointer runs past the payload's last L words.  The CUDA kernel is
 held to this plain version by ``tests/test_torch_port_cuda.py``.
 """
 
@@ -28,6 +29,7 @@ from lic_tpu_torch.coding import (
     random_streams,
     rans_drain,
 )
+from lic_tpu_torch.coding.drain import slot_index
 
 torch.set_num_threads(2)
 
@@ -150,3 +152,81 @@ def test_wrapper_rejects_other_devices(tables):
                          torch.zeros(1, dtype=torch.int64, device="meta"))
     with pytest.raises(RuntimeError, match="no kernel"):
         rans_drain(dev, lanes, pay, torch.zeros((1, 8), dtype=torch.int32, device="meta"), 8)
+
+
+def _corrupt(pay, ends, kind, seed):
+    """A corrupt copy of the payload, its >= L trailing zero words kept:
+    ``flipped`` xors random bits into 30% of each stream's words after the
+    lane heads; ``zeroed`` zeroes each stream after its lane heads, so the
+    decode's renorms run the pointer into the trailing zeros."""
+    rng = np.random.default_rng(seed)
+    bad = pay.copy()
+    for b, end in enumerate(ends):
+        if kind == "flipped":
+            m = rng.random(end) < 0.3
+            m[: 2 * L] = False
+            bad[b, :end][m] ^= rng.integers(1, 1 << 16, int(m.sum())).astype(np.int32)
+        else:
+            bad[b, 2 * L + 5 :] = 0
+    return bad
+
+
+@pytest.mark.parametrize("kind", ["flipped", "zeroed"])
+def test_drain_on_corrupt_streams_matches_jax_and_pallas(tables, kind):
+    """Past the payload: a renorm word at or past W reads 0 in the port,
+    where the JAX window slice clamps its start to W - L.  Under the
+    format's contract of >= L trailing zero words the two read the same
+    words, so a corrupt stream decodes to the same values, states and
+    pointers in the JAX scan, ``pallas_drain`` (interpret mode) and
+    ``drain_plain``; ``zeroed`` drives the pointer past W - L."""
+    cdfs, offsets = tables
+    n = 700
+    _, idx, pay, ends = random_streams(cdfs, offsets, [(90, True), (91, False)], [n], L)
+    bad = _corrupt(pay, ends, kind, seed=5)
+    dev = DeviceRans16Interleaved(cdfs, offsets, L, device="cpu")
+    payt = torch.from_numpy(bad)
+    t_lanes, t_dec = drain_plain(dev, dev.init_lanes(payt), payt, torch.from_numpy(idx), n)
+    jdev = JDev(cdfs, offsets, L)
+    jpay = jnp.asarray(bad)
+    j_lanes, j_dec = _jax_scan(jdev, jdev.init_lanes(jpay), jpay, idx, n)
+    _assert_same(t_lanes, t_dec, j_lanes, j_dec)
+    p_lanes, p_dec = pallas_drain(
+        jdev, jdev.init_lanes(jpay), jpay, jnp.asarray(idx), n, interpret=True
+    )
+    _assert_same(t_lanes, t_dec, p_lanes, p_dec)
+    if kind == "zeroed":
+        assert int(t_lanes.ptr.max()) > bad.shape[1] - L
+
+
+def test_slot_index_brackets_every_cum(tables):
+    """The CUDA drain's coarse slot index: for every cum in [0, 2^16) the
+    slot ``#{j : cdf[j] <= cum} - 1`` lies between the slots of the entries
+    of cum's bucket (cum >> 7) and the next, and each entry carries its
+    slot's CDF value (``cdf[lo] << 8 | lo``), on the codec's Gaussian tables
+    and on random tables with zero-frequency slots."""
+    cdfs, _ = tables
+    rng = np.random.default_rng(3)
+    freqs = rng.integers(0, 900, (5, 40))
+    freqs[:, -1] = 1
+    rand = np.concatenate([np.zeros((5, 1), np.int64), np.cumsum(freqs, 1)], 1)
+    rand = rand * 65535 // rand[:, -1:] + (np.arange(41) == 40)  # last entry 65536
+    cums = np.arange(1 << 16)
+    for tab in (np.asarray(cdfs, np.int64), rand):
+        idx = slot_index(tab).astype(np.int64)
+        assert idx.shape == (tab.shape[0], 513)
+        for r, row in enumerate(tab):
+            slot = (row[None, :] <= cums[:, None]).sum(1) - 1
+            e_lo, e_hi = idx[r, cums >> 7], idx[r, (cums >> 7) + 1]
+            lo, hi = e_lo & 0xFF, e_hi & 0xFF
+            assert (lo <= slot).all() and (slot <= hi).all()
+            assert (row[lo] == e_lo >> 8).all() and (row[hi] == e_hi >> 8).all()
+            assert (row[lo] <= cums).all() and (hi <= tab.shape[1] - 2).all()
+
+
+def test_slot_index_rejects_tables_it_cannot_index():
+    with pytest.raises(ValueError, match="ascend"):
+        slot_index(np.array([[1, 5, 65536]]))
+    with pytest.raises(ValueError, match="ascend"):
+        slot_index(np.array([[0, 5, 4, 65536]]))
+    with pytest.raises(ValueError, match="ascend"):
+        slot_index(np.array([[0, 5, 65535]]))

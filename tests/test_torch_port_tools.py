@@ -1,14 +1,20 @@
 """The port's measurement scripts, on the CPU: the sub-pixel lowering of
 the deconv probe equals ``F.conv_transpose2d`` (atol 1e-5: another
 summation order), the profile's device busy time is the union of the
-device intervals in a trace, and the build's ``ptxas`` summary keeps each
-kernel's register and spill counts."""
+device intervals in a trace, the build's ``ptxas`` summary keeps each
+kernel's register and spill counts, and the kernel probe still finds the
+lines of the B1 and B2 sources it attaches to."""
 
 import pytest
 import torch
 import torch.nn.functional as F
 
 from lic_tpu_torch.tools.deconv_probe import subpel_conv_transpose2d, subpel_weights
+from lic_tpu_torch.tools.kernel_probe import (
+    DRAIN_STEPS,
+    gdn_variant_source,
+    instrumented_drain_source,
+)
 from lic_tpu_torch.tools.profile_path import device_activity, union_length
 from lic_tpu_torch.utils.build import CudaLibrary
 
@@ -70,3 +76,14 @@ ptxas info    : Used 40 registers
         "_Z5otherv: Used 40 registers | 0 bytes stack frame, 0 bytes spill stores,"
         " 0 bytes spill loads",
     ]
+
+
+def test_kernel_probe_attaches_to_the_kernel_sources():
+    """Every probe point of B1's chunk lands once, and B2's variant
+    differs from the kernel's source."""
+    src = instrumented_drain_source()
+    for k in range(len(DRAIN_STEPS)):
+        assert src.count(f"PT({k});") == 1
+    assert gdn_variant_source("no_mma") != gdn_variant_source("kernel")
+    with pytest.raises(ValueError, match="no gdn variant"):
+        gdn_variant_source("other")
