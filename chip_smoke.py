@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py
 
-It drives the port's two serving paths at full width (N=192, M=16), random
+It drives the port's four serving paths at full width (N=192, M=16), random
 weights from a seed (UNTRAINED), through the entry points a user calls, on
 a batch of 8 synthetic 512×768 images, and checks them:
 
 * ``source_net`` — plain GDN transforms, the classic dual hyper, 4-slice
   ChARM, the rANS roundtrip;
 * ``source_net_wam`` — the same with four ``WinNoShiftAttention`` gates
-  (window attention + 3×3/7×7 conv branches) in g_a and g_s.
+  (window attention + 3×3/7×7 conv branches) in g_a and g_s;
+* ``net_ga`` — the rich transforms (``ResidualBottleneck``,
+  ``ResidualBlockWithStride``, the WAM gates), the ELIC hyper, the SWAtten
+  slice stacks and the WAM syntax model;
+* ``net_unet_ha_hs_dec`` — the same with the decodable U-Net hyper, whose
+  window attention (head widths 12, 16, 32, 64) takes the plain route;
+
+then one ``source_net`` forward in bf16 and one at ``is_high`` (N = 384).
 
 Each phase prints one line:
 
@@ -29,32 +36,47 @@ Each phase prints one line:
    shared memory per CTA and CTAs per SM, then the kernels' ``ptxas``
    register and spill lines; B1 on escape-heavy stress streams (about 1
    symbol in 17 escapes), with each set's escape share;
-4. per path: the zero-init weights of the WAM gates (each attention's
-   output projection, each ``ResidualBlock``'s second conv) get small
-   seeded values, so that every check below sees those branches; the same
+4. per path: the zero-init weights (each attention's output projection,
+   each residual branch's last conv, WMSA's output and the Swin MLP's
+   second layer) get small seeded values, so that every check below sees
+   those branches; the same
    model on a small input against its CPU run (plain versions, no kernel),
    stage by stage on the same inputs, so that no rounding flip can spread,
    within 1e-4; the eval forward (finite); the roundtrip ``compress_batch``
    → ``decompress_batch`` (final-state check, reconstruction within 1e-4 of
    the forward's); the exact launch count of every kernel over forward +
-   roundtrip, counters zeroed just before and read just after, and every
+   roundtrip, counters zeroed just before and read just after, every
    B3/B6 call of that run with its shapes and flags, read by hooks on the
-   ``Conv2d`` modules; ``compress`` → ``decompress`` at B=1; the times; for
+   ``Conv2d`` modules, and every B4 call with its shape, as B4's wrapper
+   records it; ``compress`` → ``decompress`` at B=1; the times; for
    ``source_net`` also B1 against its plain version on the streams of that
    B=8 decode (its payload, rows and threaded lane states, recorded from a
    second ``decompress_batch``), bit-exact, with the time and escape share.
-   ``source_net_wam`` then checks that every attention branch outputs
-   non-zero values and runs its forward once more with ``fuse_proj``
-   (kernel B5 in place of B4): its launches, and g_a's latent and the
-   synthesis of the same latent within 1e-4 of the B4 run's (the whole
+   A path with window attention then checks that every attention branch
+   outputs non-zero values and runs its forward once more with
+   ``fuse_proj`` (kernel B5 where it takes the shape, else B4 between the
+   ``Linear``s, else the plain route): its launches, and g_a's latent and
+   the synthesis of the same latent within 1e-4 of the B4 run's (the whole
    forward would compare rounded symbols, where a 1e-6 difference can flip
    one);
-5. B3 and B6 against their plain versions, as in 3, at every distinct
-   shape and flag set that the paths gave them in 4, with TFLOP/s, the
+5. ``source_net`` in bf16 (``model.to(torch.bfloat16)``, a bf16 input):
+   its exact launches, g_a and the synthesis of the fp32 run's latent
+   within 3% of the fp32 stages' largest magnitude, the forward finite;
+   ``source_net`` at ``is_high``: exact launches (its N = 384 GDNs take the
+   plain route, B3 runs at C_in 384), z3 / μ0 / σ0 / reconstruction within
+   1e-4 of its CPU run at 128×128, the forward finite; both timed;
+6. B4 against its plain version at every (shape, window, heads, masked)
+   the paths gave it beyond those of 3;
+7. B3 and B6 against their plain versions, as in 3, at every distinct
+   shape and flag set that the paths gave them in 4-5, with TFLOP/s, the
    bound at the 3xTF32 rate (495/3 TFLOP/s: the kernel runs three TF32
    products on the tensor cores) beside the HBM bound, the share of it, the
    time over cuDNN's, and the time of the weight's one-off TF32 prepack
-   (cached on the weight, so not inside the kernel times); then the conv
+   (cached on the weight, so not inside the kernel times); at the shapes
+   the bf16 forward ran, the kernel on bf16 tensors against the plain
+   version in float64 on the same values (rtol 2⁻⁸: one bf16 rounding), its
+   time beside the fp32 call's (what widening to fp32 and rounding back
+   cost) and cuDNN's bf16 time; then the conv
    kernel's shared memory per CTA, CTAs per SM and ``ptxas`` line.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
@@ -94,10 +116,14 @@ PEAK_FP32 = 67e12
 PEAK_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
-# exact launches of each kernel over forward + compress_batch +
-# decompress_batch; each WinNoShiftAttention gate runs 4 window attentions
-# and 14 B6 convs (3 + 3 ResidualBlocks, the 3x3 and the 7x7); the B6 slot
-# also holds h_a.c0, both h_s.c2 and slice 0's two ChARM c0 convs
+# exact launches of each kernel, and calls of each plain route, over forward
+# + compress_batch + decompress_batch; each WinNoShiftAttention gate runs 4
+# window attentions and 14 B6 convs (3 + 3 ResidualBlocks, the 3x3 and the
+# 7x7); the B6 slot also holds h_a.c0, both h_s.c2 and slice 0's two ChARM
+# c0 convs of the classic hyper, the ELIC hyper's h_a.c0 and both h_s.c0,
+# and each ResidualBlockWithStride's conv2.  The WAM syntax gate (C 64)
+# runs B4 at head width 8 but no B6 (C_in 64); the U-Net hyper's 5 window
+# attentions take the plain route (3 in h_a, 2 in h_s)
 EXPECTED = {
     "source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14,
                    "wba": 0, "wba_proj": 0},
@@ -105,7 +131,29 @@ EXPECTED = {
                        "wba": 32, "wba_proj": 0},
     "source_net_wam+fuse_proj": {"gdn": 7, "drain": 0, "conv5s2": 3, "convk_s1": 61,
                                  "wba": 0, "wba_proj": 16},
+    "net_ga": {"gdn": 18, "drain": 4, "conv5s2": 4, "convk_s1": 130,
+               "wba": 40, "wba_proj": 0},
+    "net_ga+fuse_proj": {"gdn": 9, "drain": 0, "conv5s2": 2, "convk_s1": 63,
+                         "wba": 4, "wba_proj": 16},
+    "net_unet_ha_hs_dec": {"gdn": 18, "drain": 4, "conv5s2": 4, "convk_s1": 122,
+                           "wba": 40, "wba_proj": 0, "wba_plain_route": 12},
+    "net_unet_ha_hs_dec+fuse_proj": {"gdn": 9, "drain": 0, "conv5s2": 2, "convk_s1": 60,
+                                     "wba": 4, "wba_proj": 16, "wba_plain_route": 5},
+    # one eval forward each
+    "source_net+bf16": {"gdn": 7, "drain": 0, "conv5s2": 3, "convk_s1": 5,
+                        "wba": 0, "wba_proj": 0},
+    "source_net+is_high": {"gdn": 1, "gdn_plain_route": 6, "drain": 0, "conv5s2": 3,
+                           "convk_s1": 0, "wba": 0, "wba_proj": 0},
 }
+PATHS = ("source_net", "source_net_wam", "net_ga", "net_unet_ha_hs_dec")
+# the bf16 forward against the fp32 one, stage by stage on the same input:
+# within this share of the fp32 stage's largest magnitude (the port's CPU
+# test holds bf16 to the JAX bf16 forward at the same share)
+BF16_STAGE = 0.03
+# a bf16 kernel output against the plain version in float64 on the same
+# bf16 values: one bf16 rounding (half an ulp, 2**-9 of the value) over the
+# fp32 kernel's own error
+BF16_RTOL, BF16_ATOL = 2 ** -8, 1e-5
 
 
 def _say(phase: str, **kv) -> None:
@@ -271,7 +319,7 @@ def main() -> int:
 
     from lic_tpu_torch import coding
     from lic_tpu_torch.coding import drain as drain_mod
-    from lic_tpu_torch.layers import conv_direct, window_attn
+    from lic_tpu_torch.layers import conv_direct, win_attention, window_attn
     from lic_tpu_torch.layers import gdn as gdn_mod
     from lic_tpu_torch.models.compress import set_numerics_flags
 
@@ -281,6 +329,10 @@ def main() -> int:
         "conv5s2": conv_direct.conv5s2, "convk_s1": conv_direct.convk_s1,
         "wba": window_attn.window_attention, "wba_proj": window_attn.window_attention_proj,
     }
+    # the plain routes on the card, counted as the kernels are
+    routes = {"gdn_plain_route": gdn_mod.gdn_plain_route,
+              "wba_plain_route": win_attention.wba_plain_route}
+    counted = {**counters, **routes}
 
     # ---- 2. build: one nvcc per CUDA source, all started together
     cuda_libs = {"b1_drain": drain_mod.library, "b2_gdn": gdn_mod.library,
@@ -432,9 +484,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the paths
-    launches, times, conv_calls = {}, {}, {}
-    for preset in ("source_net", "source_net_wam"):
-        runs, t, drains = _drive(preset, dev, counters, conv_calls)
+    launches, times, conv_calls, attn_calls = {}, {}, {}, {}
+    for preset in PATHS:
+        runs, t, drains = _drive(preset, dev, counted, conv_calls, attn_calls)
         launches.update(runs)
         times[preset] = t
         if preset == "source_net":
@@ -452,12 +504,54 @@ def main() -> int:
                  plain_ms=f"{pms:.3f}")
             del drains, decoded
         torch.cuda.empty_cache()
+
+    # ---- 5. source_net in bf16 and at is_high, one forward each
+    launches.update(_drive_variants(dev, counted, conv_calls))
+    torch.cuda.empty_cache()
     for run, want in EXPECTED.items():
+        want = {k: want.get(k, 0) for k in counted}
         if launches[run] != want:
             raise AssertionError(f"{run}: kernel launches {launches[run]}, expected {want}")
     _say("launches", **{k.replace("+", "_"): v for k, v in launches.items()})
 
-    # ---- 5. B3 and B6 vs plain at every (shape, flags) the paths gave them;
+    # ---- 6. B4 vs plain at the paths' other (shape, window, shift)s
+    # (a shift mask of the map's window grid stands for the path's own: the
+    # kernel adds whichever mask it is given)
+    for (shape, ws, nh, masked), by_run in attn_calls.items():
+        if (shape, ws, nh, masked) in (((BATCH, H // 4, W // 4, 576), 8, 8, True),
+                                       ((BATCH, H // 16, W // 16, 576), 4, 8, True)):
+            continue  # checked in 3c
+        b, hp, wp, c3 = shape
+        c, n, ss = c3 // 3, ws * ws, ws // 2
+        hd = c // nh
+        rel = (0.5 * torch.randn(nh, n, n, generator=g)).to(dev)
+        mask = window_attn.shift_mask(hp, wp, ws, ss, 0, 0, dev) if masked else None
+        qkv = torch.randn(b, hp, wp, 3 * c, generator=g).to(dev)
+        nwin = b * (hp // ws) * (wp // ws)
+        heads = lambda t: t.reshape(nwin, n, nh, hd).transpose(1, 2)
+        qkv_w = window_attn.window_partition(qkv, ws)
+        q, kk, v = (heads(qkv_w[..., i * c : (i + 1) * c]) for i in range(3))
+        amask = rel[None].expand(nwin, -1, -1, -1)
+        if mask is not None:
+            amask = (rel[None, None] + mask[None, :, None]).expand(b, -1, -1, -1, -1)
+            amask = amask.reshape(nwin, nh, n, n)
+        flops = nwin * nh * 4 * n * n * hd
+        err, ms, pms, lms, err32 = _vs_plain(
+            f"wba ws{ws} {(b, hp, wp, c)}", window_attn.window_attention,
+            window_attn.wba_plain, (qkv, rel, mask, ws, nh),
+            library=lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=amask),
+        )
+        nbytes = _nbytes(qkv, rel, mask) + qkv.numel() // 3 * 4
+        tally["wba"].add(err, ms, pms, lms, nbytes, flops)
+        _say("b4_wba", ws=ws, masked=masked, shape=shape, head_dim=hd,
+             path_launches=by_run, max_abs_err=f"{err:.3g}", vs_fp32_plain=f"{err32:.3g}",
+             ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", sdpa_ms=f"{lms:.4f}",
+             **_roofline(ms, lms, nbytes, flops),
+             **dict(zip(occ, window_attn.occupancy(False, ws, hd, c))))
+        del qkv, q, kk, v, qkv_w, amask
+    torch.cuda.empty_cache()
+
+    # ---- 7. B3 and B6 vs plain at every (shape, flags) the paths gave them;
     # library: cuDNN conv + bias on the same (padded) input
     for key, by_run in conv_calls.items():
         slot, xs, wshape, has_bias, act, has_res = key
@@ -487,6 +581,25 @@ def main() -> int:
              tflops=f"{flops / ms / 1e9:.1f}", plain_ms=f"{pms:.3f}", cudnn_ms=f"{lms:.3f}",
              **_roofline(ms, lms, nbytes, flops, PEAK_TF32X3), peak="3xTF32 165 TFLOP/s",
              weight_prepack_ms=f"{prepack_ms:.4f}")
+        if "source_net+bf16" in by_run:
+            # bf16 tensors: widened to fp32 at the kernel, the output
+            # rounded back; against the plain version in float64
+            bargs = tuple(a.bfloat16() if torch.is_tensor(a) else a for a in args)
+            up = lambda a: a.double() if torch.is_tensor(a) else a
+            with torch.no_grad():
+                yb = counters[slot](*bargs)
+                ref = getattr(conv_direct, f"{slot}_plain")(*map(up, bargs))
+                torch.cuda.synchronize()
+                berr = float((yb.double() - ref).abs().max())
+                torch.testing.assert_close(yb.double(), ref, atol=BF16_ATOL, rtol=BF16_RTOL,
+                                           msg=lambda m: f"{slot} bf16 {xs}: {m}")
+                bms = _cuda_ms(lambda: counters[slot](*bargs), 5)
+                cudnn_bf16_ms = _cuda_ms(lambda: getattr(conv_direct, f"{slot}_plain")(*bargs), 5)
+            del yb, ref
+            _say(f"b{3 if slot == 'conv5s2' else 6}_{slot}_bf16", shape=xs, c_out=cout, k=k,
+                 dtype="bfloat16", max_abs_err_vs_f64=f"{berr:.3g}", ms=f"{bms:.4f}",
+                 fp32_ms=f"{ms:.4f}", cast_cost_ms=f"{bms - ms:.4f}",
+                 plain_bf16_ms=f"{cudnn_bf16_ms:.4f}")
     _say("b3_b6_occupancy", **dict(zip(occ, conv_direct.occupancy())))
     for line in conv_direct.library.ptxas():
         _say("b3_b6_ptxas", kernel=repr(line))
@@ -528,10 +641,11 @@ def main() -> int:
 
 
 def _wake_zero_leaves(*models):
-    """Seeded values of gain ~0.5 for the all-zero weights under the WAM
-    gates (each attention's ``proj``, each ``ResidualBlock``'s ``conv2``),
-    the same on every model given: at their zero init those branches add
-    exactly 0 and no check could see them.  → leaves woken per model."""
+    """Seeded values of gain ~0.5 for the all-zero weights (each attention's
+    ``proj``, each residual branch's last conv, WMSA's ``linear``, the Swin
+    MLP's ``mlp_fc2``), the same on every model given: at their zero init
+    those branches add exactly 0 and no check could see them.  → leaves
+    woken per model."""
     import torch
 
     for m in models:
@@ -539,11 +653,109 @@ def _wake_zero_leaves(*models):
         woken = 0
         with torch.no_grad():
             for name, p in m.named_parameters():
-                if "wam" in name and name.endswith("weight") and not p.any():
+                if name.endswith("weight") and not p.any():
                     fan_in = p[0].numel()
                     p.copy_(torch.randn(p.shape, generator=g) * 0.5 * fan_in ** -0.5)
                     woken += 1
     return woken
+
+
+def _hooks_agree(run, counts, conv_calls):
+    """The launches a run counted equal the calls its hooks recorded."""
+    for slot in ("conv5s2", "convk_s1"):
+        seen = sum(n.get(run, 0) for key, n in conv_calls.items() if key[0] == slot)
+        if seen != counts[slot]:
+            raise AssertionError(f"{run}: {counts[slot]} {slot} launches, "
+                                 f"{seen} seen by the Conv2d hooks")
+
+
+def _drive_variants(dev, counters, conv_calls):
+    """``source_net`` in bf16 and at ``is_high``, one eval forward each with
+    its launches counted and its B3/B6 calls recorded.  bf16: g_a and the
+    synthesis of the fp32 latent against the fp32 model's, within
+    ``BF16_STAGE`` of the fp32 stage's largest magnitude.  is_high: z3, μ0,
+    σ0 and the reconstruction against its CPU run at 128×128 (plain
+    versions) within 1e-4.  → {run: launches}."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models import build_model
+
+    x_np = smooth_images(np.random.default_rng(SEED), BATCH, H, W)
+    x = torch.from_numpy(x_np).to(dev).contiguous(memory_format=torch.channels_last)
+    runs, mp = {}, BATCH * H * W / 1e6
+
+    def counted(run, fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        hooks = _record_conv_slots(model, conv_calls, run)
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        runs[run] = {k: c.launches for k, c in counters.items()}
+        _hooks_agree(run, runs[run], conv_calls)
+        if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
+            raise AssertionError(f"{run}: non-finite forward output")
+        if out.x_tilde.shape != (BATCH, 3, H, W):
+            raise AssertionError(f"{run}: shape {tuple(out.x_tilde.shape)}")
+        return out
+
+    # bf16: the whole model and its input cast, as the JAX bf16_params run
+    model = build_model("source_net", device=dev, seed=SEED)
+    with torch.no_grad():
+        z3, y_hat = model.analyze(x), model(x).extras["y_hat"]
+        syn = model.syntax_from_latent(z3)
+        rec = model.synthesize(y_hat, syn)
+        model = model.to(torch.bfloat16)
+        xb = x.bfloat16()
+        out = counted("source_net+bf16", lambda: model(xb))
+        errs = {"g_a": (model.analyze(xb).float() - z3).abs().max() / z3.abs().max(),
+                "synthesis": (model.synthesize(y_hat.bfloat16(), syn.bfloat16()).float()
+                              - rec).abs().max() / rec.abs().max()}
+        errs = {k: float(v) for k, v in errs.items()}
+        if max(errs.values()) > BF16_STAGE:
+            raise AssertionError(f"bf16 stages off the fp32 ones: {errs}")
+        ms = _cuda_ms(lambda: model(xb), 3)
+    _say("forward", preset="source_net", dtype="bfloat16", finite=True,
+         bpp_est=f"{float(out.bpp):.4f}", launches=runs["source_net+bf16"],
+         share_of_fp32_range=json.dumps({k: round(v, 5) for k, v in errs.items()}),
+         forward_ms=f"{ms:.2f}", forward_mps=f"{mp / ms * 1e3:.2f}", weights="UNTRAINED")
+    del model, out, z3, y_hat, syn, rec, xb
+    torch.cuda.empty_cache()
+
+    # is_high: N = 384; its GDNs take the plain route, B3 runs at C_in 384
+    model = build_model("source_net", device=dev, seed=SEED, is_high=True)
+    cpu_model = build_model("source_net", device="cpu", seed=SEED, is_high=True)
+    small = torch.from_numpy(x_np[:1, :, :128, :128].copy())
+    with torch.no_grad():
+        ref = cpu_model(small)
+        z3c = cpu_model.analyze(small)
+        gpu_small = small.to(dev).contiguous(memory_format=torch.channels_last)
+        z3g = model.analyze(gpu_small)
+        med = cpu_model.eb_medians()[None, :, None, None]
+        z_hat = torch.round(cpu_model.hyper_encode(z3c) - med) + med
+        s_c, m_c = cpu_model.hyper_decode(z_hat)
+        s_g, m_g = model.hyper_decode(z_hat.to(dev).contiguous(memory_format=torch.channels_last))
+        mu_c, sg_c, _ = cpu_model.charm_entropy_params(m_c, s_c, [], 0)
+        mu_g, sg_g, _ = model.charm_entropy_params(m_g, s_g, [], 0)
+        syn = cpu_model.syntax_from_latent(z3c)
+        rec_g = model.synthesize(ref.extras["y_hat"].to(dev), syn.to(dev))
+        errs = {"z3": (z3g.cpu() - z3c), "mu0": (mu_g.cpu() - mu_c),
+                "sigma0": (sg_g.cpu() - sg_c), "rec": (rec_g.cpu() - ref.x_tilde)}
+        errs = {k: float(v.abs().max()) for k, v in errs.items()}
+        if max(errs.values()) > RECON_TOL:
+            raise AssertionError(f"is_high: GPU stages disagree with the CPU run: {errs}")
+        out = counted("source_net+is_high", lambda: model(x))
+        ms = _cuda_ms(lambda: model(x), 3)
+    _say("forward", preset="source_net", is_high=True, N=model.cfg.N, finite=True,
+         bpp_est=f"{float(out.bpp):.4f}", launches=runs["source_net+is_high"],
+         small_vs_cpu_max_err=f"{max(errs.values()):.3g}", forward_ms=f"{ms:.2f}",
+         forward_mps=f"{mp / ms * 1e3:.2f}", weights="UNTRAINED")
+    return runs
 
 
 def _record_conv_slots(model, calls, run):
@@ -566,17 +778,18 @@ def _record_conv_slots(model, calls, run):
             for m in model.modules() if isinstance(m, Conv2d)]
 
 
-def _drive(preset, dev, counters, conv_calls):
+def _drive(preset, dev, counters, conv_calls, attn_calls):
     """One path: the small-input check against the CPU, the main path with
-    its launch counts and its B3/B6 calls (into ``conv_calls``), the B=1
-    roundtrip, the times (and for the WAM preset the ``fuse_proj`` pass).
+    its launch counts and its B3/B6 and B4 calls (into ``conv_calls`` and
+    ``attn_calls``, by run), the B=1 roundtrip, the times (and for a preset with
+    window attention the ``fuse_proj`` pass).
     → ({run: launches}, times, the drain calls of a B=8 decode of
     ``source_net``, else [])."""
     import numpy as np
     import torch
 
     from lic_tpu_torch.data import smooth_images
-    from lic_tpu_torch.layers import WindowAttention
+    from lic_tpu_torch.layers import WindowAttention, window_attn
     from lic_tpu_torch.models import build_model
     from lic_tpu_torch.models.compress import ChannelCoder
     from lic_tpu_torch.tools.kernel_probe import record_drains
@@ -618,6 +831,7 @@ def _drive(preset, dev, counters, conv_calls):
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
+        window_attn.window_attention.calls.clear()
 
     def read():
         torch.cuda.synchronize()
@@ -634,11 +848,9 @@ def _drive(preset, dev, counters, conv_calls):
     runs = {preset: read()}
     for h in hooks:
         h.remove()
-    for slot in ("conv5s2", "convk_s1"):
-        seen = sum(n.get(preset, 0) for key, n in conv_calls.items() if key[0] == slot)
-        if seen != runs[preset][slot]:
-            raise AssertionError(f"{preset}: {runs[preset][slot]} {slot} launches, "
-                                 f"{seen} seen by the Conv2d hooks")
+    _hooks_agree(preset, runs[preset], conv_calls)
+    for key, n in window_attn.window_attention.calls.items():
+        attn_calls.setdefault(key, {})[preset] = n
     if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
         raise AssertionError(f"{preset}: non-finite forward output")
     if out.x_tilde.shape != (BATCH, 3, H, W) or rec.shape != out.x_tilde.shape:

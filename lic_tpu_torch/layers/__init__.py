@@ -1,10 +1,29 @@
 """Layers (counterpart of ``lic_tpu.layers``): convs with kernels B3/B6,
-GDN with kernel B2, residual blocks, window attention with kernels B4/B5."""
+GDN with kernel B2, residual blocks, window attention with kernels B4/B5,
+the Swin blocks of ``SWAtten``."""
 
-from .blocks import ResidualBlock
-from .conv import Conv2d, ConvTranspose2d, Linear, gelu, variance_scaling_
+from .blocks import (
+    AttentionBlock,
+    ResidualBlock,
+    ResidualBlock3_5,
+    ResidualBlock3x3,
+    ResidualBlock5x5,
+    ResidualBlockWithStride,
+    ResidualBottleneck,
+    ResidualUnit,
+)
+from .conv import (
+    Conv2d,
+    ConvTranspose2d,
+    DepthwiseConv2d,
+    Linear,
+    SubpelConv2d,
+    gelu,
+    variance_scaling_,
+)
 from .conv_direct import conv5s2, conv5s2_plain, convk_s1, convk_s1_plain
 from .gdn import GDN, IGDN, gdn_fused, gdn_plain
+from .swin import WMSA, SwinBlock, SwinTransformerBlock, SWAtten
 from .win_attention import WinBasedAttention, WindowAttention, WinNoShiftAttention
 from .window_attn import (
     wba_plain,
@@ -14,9 +33,12 @@ from .window_attn import (
 )
 
 __all__ = [
+    "AttentionBlock",
     "Conv2d",
     "ConvTranspose2d",
+    "DepthwiseConv2d",
     "Linear",
+    "SubpelConv2d",
     "gelu",
     "variance_scaling_",
     "conv5s2",
@@ -28,6 +50,16 @@ __all__ = [
     "gdn_fused",
     "gdn_plain",
     "ResidualBlock",
+    "ResidualBlock3_5",
+    "ResidualBlock3x3",
+    "ResidualBlock5x5",
+    "ResidualBlockWithStride",
+    "ResidualBottleneck",
+    "ResidualUnit",
+    "SWAtten",
+    "SwinBlock",
+    "SwinTransformerBlock",
+    "WMSA",
     "WinBasedAttention",
     "WindowAttention",
     "WinNoShiftAttention",

@@ -19,10 +19,17 @@ under exactly the JAX module's gates (``lic_tpu/layers/conv.py:434-458``):
   k//2, with the bias, ``fused_act`` and an optional residual in its
   epilogue.
 
-On a CPU tensor those wrappers run their plain versions.  Every other conv,
-and the JAX module's other TPU lowerings (space-to-depth, polyphase and
-subpel deconvs, stencils, im2col, 1x1-as-matmul), is ``F.conv2d`` /
+On a CPU tensor those wrappers run their plain versions.  A C_in that is
+no multiple of 4 keeps its conv out of both slots (the kernels' TMA loads
+need rows of whole 16 bytes), and so does a grouped conv.  Every other
+conv, and the JAX module's other TPU lowerings (space-to-depth, polyphase
+and subpel deconvs, stencils, im2col, 1x1-as-matmul), is ``F.conv2d`` /
 ``F.conv_transpose2d``: the JAX package runs them through XLA, not Pallas.
+
+Also here: ``SubpelConv2d`` (3×3 conv + pixel shuffle, channels in torch's
+``PixelShuffle`` order as the JAX module puts them,
+``lic_tpu/layers/conv.py:605-609``) and ``DepthwiseConv2d`` (flax
+``nn.Conv`` with ``feature_group_count = C``).
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ def variance_scaling_(
 
 class Conv2d(nn.Module):
     """Conv with torch-style explicit padding and the JAX package's
-    fan-in LeCun truncated-normal init (``conv.py:40-43``), zero bias.
+    fan-in LeCun truncated-normal init (``conv.py:40-43``), zero bias;
+    ``groups`` as ``F.conv2d``'s (the weight is (out, in/groups, k, k)).
 
     ``fused_act`` (None | ``'leaky_relu'``) is applied after the bias, in
     the B6 kernel's epilogue where that slot runs; ``forward``'s
@@ -76,6 +84,7 @@ class Conv2d(nn.Module):
         bias: bool = True,
         *,
         fused_act: Optional[str] = None,
+        groups: int = 1,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -85,15 +94,20 @@ class Conv2d(nn.Module):
         self.stride = stride
         self.padding = padding
         self.fused_act = fused_act
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
-        variance_scaling_(self.weight, 1.0, in_channels * k * k, generator)
+        self.groups = groups
+        cin = in_channels // groups
+        self.weight = nn.Parameter(torch.empty(out_channels, cin, k, k))
+        variance_scaling_(self.weight, 1.0, cin * k * k, generator)
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def kernel_slot(self, x: torch.Tensor) -> Optional[str]:
         """``'conv5s2'`` (B3) or ``'convk_s1'`` (B6) where a call on ``x``
-        takes that kernel's slot under the JAX gates, else None."""
+        takes that kernel's slot under the JAX gates, else None.  A grouped
+        conv or a C_in that is no multiple of 4 takes neither."""
         k = self.weight.shape[-1]
         cin, h, w = x.shape[1:]
+        if self.groups != 1 or cin % 4:
+            return None
         if (k == 5 and self.stride == 2 and self.padding == (1, 2, 1, 2)
                 and cin >= 128 and h % 2 == 0 and w % 2 == 0):
             return "conv5s2"
@@ -111,12 +125,43 @@ class Conv2d(nn.Module):
         if slot == "conv5s2":
             y = conv5s2(x, self.weight, self.bias)
         elif isinstance(self.padding, int):
-            y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+            y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                         groups=self.groups)
         else:
-            y = F.conv2d(F.pad(x, self.padding), self.weight, self.bias, self.stride)
+            y = F.conv2d(F.pad(x, self.padding), self.weight, self.bias, self.stride,
+                         groups=self.groups)
         if self.fused_act == "leaky_relu":
             y = F.leaky_relu(y, LEAKY_SLOPE)
         return y if residual is None else y + residual
+
+
+def DepthwiseConv2d(channels: int, *, generator: Optional[torch.Generator] = None) -> Conv2d:
+    """Depthwise 3×3, padding 1, with bias: flax ``nn.Conv(C, (3, 3),
+    padding=1, feature_group_count=C)``, whose default init is the same
+    fan-in LeCun truncated normal (fan 9)."""
+    return Conv2d(channels, channels, 3, 1, 1, groups=channels, generator=generator)
+
+
+class SubpelConv2d(nn.Module):
+    """3×3 conv (padding 1) to ``out_channels · r²``, then pixel shuffle:
+    ``lic_tpu/layers/conv.py::SubpelConv2d``.  The JAX module orders the
+    conv's channels c_out-major, then (r, r): torch's ``PixelShuffle``
+    order, so ``F.pixel_shuffle`` is its shuffle.  The JAX module calls
+    ``lax.conv`` itself, never a Pallas slot; so does this one."""
+
+    def __init__(
+        self, in_channels: int, out_channels: int, r: int = 2, *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.r = r
+        self.weight = nn.Parameter(torch.empty(out_channels * r * r, in_channels, 3, 3))
+        variance_scaling_(self.weight, 1.0, in_channels * 9, generator)
+        self.bias = nn.Parameter(torch.zeros(out_channels * r * r))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x, self.weight, self.bias, padding=1)
+        return F.pixel_shuffle(y, self.r).contiguous(memory_format=torch.channels_last)
 
 
 class ConvTranspose2d(nn.Module):

@@ -8,11 +8,14 @@
   ``lic_tpu/layers/pallas_conv_s1.py::convk_s1_pallas``; plain version
   ``convk_s1_plain``.
 
-Tensors are NCHW in ``channels_last`` memory (the kernels read NHWC), fp32,
-weights OIHW.  CPU tensors take the plain version; CUDA tensors launch the
-kernel, built at first use; any other device, another memory format or
-dtype raises (nothing is copied quietly), and so does a C_in that is no
-multiple of 4 (the kernel's TMA loads need 16-byte rows).  The kernels are
+Tensors are NCHW in ``channels_last`` memory (the kernels read NHWC), fp32
+or bf16, weights OIHW.  The kernel computes in fp32: a bf16 call is widened
+at the kernel boundary (exactly) and its output rounded back to bf16 — bf16
+operands, an fp32 sum, a bf16 result, as the JAX package's bf16 convs.  CPU
+tensors take the plain version; CUDA tensors launch the kernel, built at
+first use; any other device, another memory format or dtype raises, and so
+does a C_in that is no multiple of 4 (the kernel's TMA loads need 16-byte
+rows; ``Conv2d`` keeps such convs out of the slots).  The kernels are
 forward only: a CUDA call that autograd would have to differentiate raises.
 ``Conv2d`` sends its B3 and B6 slots here, under the JAX package's gates.
 
@@ -141,9 +144,12 @@ def _launch(name, x, weight, bias, residual, stride, pad_t, pad_l, ho, wo, leaky
         _channels_last(name, residual)
         if tuple(residual.shape) != (b, cout, ho, wo):
             raise ValueError(f"{name}: residual {tuple(residual.shape)} vs output")
-    w_hi, w_lo = prepacked(weight)
-    bias = None if bias is None else bias.contiguous()
-    y = torch.empty((b, cout, ho, wo), device=x.device, dtype=x.dtype,
+    w_hi, w_lo = prepacked(weight)  # the split widens a bf16 weight
+    dtype = x.dtype
+    x = x.float()  # keeps channels_last
+    bias = None if bias is None else bias.float().contiguous()
+    residual = None if residual is None else residual.float()
+    y = torch.empty((b, cout, ho, wo), device=x.device, dtype=torch.float32,
                     memory_format=torch.channels_last)
     err = library().conv_direct_launch(
         x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
@@ -153,7 +159,7 @@ def _launch(name, x, weight, bias, residual, stride, pad_t, pad_l, ho, wo, leaky
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(err, name)
-    return y
+    return y.to(dtype)
 
 
 def conv5s2(x: torch.Tensor, weight: torch.Tensor,

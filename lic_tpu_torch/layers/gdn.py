@@ -15,8 +15,12 @@ bf16 inputs are widened to fp32 (exact), squared and rounded to bf16 in the
 kernel as the TPU kernel squares, and y is rounded back to bf16.
 
 ``gdn_fused`` is the wrapper: CPU tensors take ``gdn_plain``, CUDA tensors
-launch the kernel, anything else raises.  The backward comes with training;
-a backward through the CUDA path raises.
+launch the kernel, anything else raises.  The ``GDN`` module sends a
+tensor whose width B2 does not take (``b2_takes``: C > 192, or 16 < C with
+C % 4 ≠ 0) to ``gdn_plain_route``, the plain version, counted like a
+kernel: the JAX package's default GDN is its XLA path at every
+width (``lic_tpu/layers/gdn.py:34,85``).  The backward comes with
+training; a backward through the CUDA path raises.
 """
 
 from __future__ import annotations
@@ -54,6 +58,21 @@ def gdn_plain(
     return y.to(x.dtype)
 
 
+def b2_takes(c: int) -> bool:
+    """Whether kernel B2 is built for width ``c``."""
+    return c <= 16 or (c <= _MAX_C and c % 4 == 0)
+
+
+def gdn_plain_route(x, gamma, beta, inverse):
+    """``gdn_plain`` for a width B2 does not take; counted in
+    ``gdn_plain_route.launches``."""
+    gdn_plain_route.launches += 1
+    return gdn_plain(x, gamma, beta, inverse)
+
+
+gdn_plain_route.launches = 0
+
+
 def occupancy():
     """(shared memory bytes per CTA, CTAs per SM) of the tensor-core kernel
     at C = 192, from the card's occupancy calculator."""
@@ -73,7 +92,7 @@ def _launch(x, gamma, beta, inverse):
         )
     if gamma.device != x.device or beta.device != x.device:
         raise ValueError("gdn: x, gamma and beta must share a device")
-    if not (c <= 16 or (c <= _MAX_C and c % 4 == 0)):
+    if not b2_takes(c):
         raise ValueError(f"gdn kernel takes C <= 16, or C <= {_MAX_C} with C % 4 == 0; got {c}")
     xk = x.float().contiguous()
     if xk.data_ptr() % 16:  # TMA reads from a 16-byte-aligned base
@@ -141,10 +160,8 @@ class GDN(nn.Module):
         b, c, h, w = x.shape
         # channels_last NCHW ⇔ contiguous NHWC: the reshape is a view
         x2d = x.permute(0, 2, 3, 1).reshape(-1, c)
-        y = gdn_fused(
-            x2d, self._gamma_rp(self.gamma), self._beta_rp(self.beta),
-            self.inverse,
-        )
+        fn = gdn_fused if b2_takes(c) else gdn_plain_route
+        y = fn(x2d, self._gamma_rp(self.gamma), self._beta_rp(self.beta), self.inverse)
         return y.view(b, h, w, c).permute(0, 3, 1, 2)
 
 
@@ -153,4 +170,4 @@ def IGDN(num_features: int) -> GDN:
     return GDN(num_features, inverse=True)
 
 
-__all__ = ["GDN", "IGDN", "gdn_fused", "gdn_plain"]
+__all__ = ["GDN", "IGDN", "b2_takes", "gdn_fused", "gdn_plain", "gdn_plain_route"]

@@ -8,8 +8,15 @@
   (``window_attention``) between the two projections, or, with
   ``fuse_proj`` (the JAX package's ``set_pallas_attn(..., fuse_proj=True)``),
   kernel B5 (``window_attention_proj``) with both projections inside.  The
-  parameters are the same either way.  On the card the kernel runs at every
-  size: the JAX gate ``hp·wp >= 4096`` was chosen on a TPU.
+  parameters are the same either way.  On the card the kernels run at every
+  size they are built for (``b4_takes``/``b5_takes``).  On a padded map of
+  fewer than 4096 tokens, the JAX package's own gate below which it runs
+  XLA, never its Pallas kernels (``lic_tpu/layers/win_attention.py:305``),
+  a ``fuse_proj`` shape B5 does not take runs B4 between the two
+  ``Linear``s, and a shape B4 does not take runs ``wba_plain_route`` (the
+  plain version, counted like a kernel).  At or above 4096 tokens such a
+  shape goes to the kernel's wrapper, which raises on the card.  The gate
+  reads the shape only: on the CPU every wrapper runs its plain version.
 * ``WinBasedAttention`` — pad to the window grid, cyclic shift, W-MSA with
   the additive −100 shift/pad mask, roll back, crop, residual.
 * ``WinNoShiftAttention`` — the two-branch gate ``a · σ(b) + x``
@@ -30,9 +37,31 @@ from torch import nn
 
 from .blocks import ResidualBlock
 from .conv import Conv2d, Linear
-from .window_attn import rel_index, shift_mask, window_attention, window_attention_proj
+from .window_attn import (
+    b4_takes,
+    b5_takes,
+    rel_index,
+    shift_mask,
+    wba_plain,
+    window_attention,
+    window_attention_proj,
+)
 
 _BIAS_STD = 0.02
+# the JAX gate: its Pallas attention runs only on maps of this many tokens
+# or more (lic_tpu/layers/win_attention.py:305)
+PLAIN_ROUTE_TOKENS = 4096
+
+
+def wba_plain_route(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
+    """``wba_plain`` for a (ws, head width) B4 does not take on a map of
+    fewer than ``PLAIN_ROUTE_TOKENS`` tokens; counted in
+    ``wba_plain_route.launches``."""
+    wba_plain_route.launches += 1
+    return wba_plain(qkv, rel, mask, ws, nh)
+
+
+wba_plain_route.launches = 0
 
 
 class WindowAttention(nn.Module):
@@ -53,18 +82,33 @@ class WindowAttention(nn.Module):
         self.proj = Linear(dim, dim, generator=generator)
         nn.init.zeros_(self.proj.weight)  # residual_out_init
 
+    def route(self, x: torch.Tensor) -> str:
+        """How a call on the NHWC map ``x`` runs, by its shape: ``'wba_proj'``
+        (B5), ``'wba'`` (B4 between the ``Linear``s) or ``'plain'``
+        (``wba_plain_route``)."""
+        ws, nh = self.window_size, self.num_heads
+        _, hp, wp, c = x.shape
+        gated = hp * wp < PLAIN_ROUTE_TOKENS
+        if self.fuse_proj and (b5_takes(ws, c, c // nh) or not gated):
+            return "wba_proj"
+        if b4_takes(ws, c // nh) or not gated:
+            return "wba"
+        return "plain"
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """x: (B, Hp, Wp, C) NHWC; mask: (nW, n, n) or None."""
         ws, nh = self.window_size, self.num_heads
         n = ws * ws
         idx = rel_index(ws, x.device)
         rel = self.relative_position_bias_table[idx].reshape(n, n, nh).permute(2, 0, 1)
-        if self.fuse_proj:
+        route = self.route(x)
+        if route == "wba_proj":
             return window_attention_proj(
                 x, rel, self.qkv.weight, self.qkv.bias, self.proj.weight,
                 self.proj.bias, mask, ws, nh,
             )
-        return self.proj(window_attention(self.qkv(x), rel, mask, ws, nh))
+        core = window_attention if route == "wba" else wba_plain_route
+        return self.proj(core(self.qkv(x), rel, mask, ws, nh))
 
 
 class WinBasedAttention(nn.Module):

@@ -15,9 +15,12 @@ and the roll stay outside the kernels, the windowing happens inside.
 ``rel`` is the gathered bias (nh, n, n), ``mask`` the additive (nW, n, n)
 mask of one image's nW windows, or None.  Projection weights are in
 torch's ``Linear`` layout (out, in), which B5 reads as it is.  CPU tensors
-take the plain versions; CUDA tensors launch the kernels (fp32, ws ∈ {4, 8},
-head width hd ∈ {8, 24}, B5 at (C, hd) ∈ {(192, 24), (16, 8)}), built at
-first use; anything else raises.  The kernels are forward only.
+take the plain versions; CUDA tensors launch the kernels (ws ∈ {4, 8},
+head width hd ∈ {8, 24}, B5 at (C, hd) ∈ {(192, 24), (16, 8)}: ``b4_takes``
+and ``b5_takes``), built at first use; anything else raises.  The kernels
+compute in fp32: bf16 tensors are widened at the kernel boundary and the
+output is rounded back to bf16 (bf16 operands, an fp32 sum, a bf16 result).
+The kernels are forward only.
 
 Also here, as in ``lic_tpu/layers/win_attention.py:55-119``:
 ``window_partition``, ``window_reverse``, ``relative_position_index`` and
@@ -108,7 +111,8 @@ def rel_index(ws: int, device) -> torch.Tensor:
 
 
 def wba_plain(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
-    """Plain W-MSA core: qkv (B, Hp, Wp, 3C) → (B, Hp, Wp, C)."""
+    """Plain W-MSA core: qkv (B, Hp, Wp, 3C) → (B, Hp, Wp, C); the mask is
+    added in the logits' dtype."""
     b, hp, wp, c3 = qkv.shape
     c, n = c3 // 3, ws * ws
     hd = c // nh
@@ -119,6 +123,7 @@ def wba_plain(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
     logits = q @ k.transpose(-1, -2) + rel[None]
     if mask is not None:
         nw = mask.shape[0]
+        mask = mask.to(logits.dtype)
         logits = (logits.reshape(b, nw, nh, n, n) + mask[None, :, None]).reshape(-1, nh, n, n)
     o = (torch.softmax(logits, dim=-1) @ v).transpose(1, 2).reshape(-1, n, c)
     return window_reverse(o, ws, hp, wp)
@@ -148,6 +153,22 @@ B4_HEAD_DIMS = (8, 24)
 B5_WIDTHS = ((192, 24), (16, 8))
 
 
+def b4_takes(ws: int, hd: int) -> bool:
+    """Whether B4 is built for window ``ws`` and head width ``hd``."""
+    return ws in (4, 8) and hd in B4_HEAD_DIMS
+
+
+def b5_takes(ws: int, c: int, hd: int) -> bool:
+    """Whether B5 is built for window ``ws``, width ``c``, head width ``hd``."""
+    return ws in (4, 8) and (c, hd) in B5_WIDTHS
+
+
+def _fp32(*ts):
+    """Each tensor (None kept) widened to fp32 and contiguous: the kernels'
+    operands.  A bf16 value widens exactly."""
+    return [None if t is None else t.float().contiguous() for t in ts]
+
+
 def _check(name, x, c, rel, mask, ws, nh, *params):
     check_cuda_inputs(name, x, rel, mask, *params)
     if x.dim() != 4 or not x.is_contiguous():
@@ -173,7 +194,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
-    """B4: qkv (B, Hp, Wp, 3C) NHWC → (B, Hp, Wp, C)."""
+    """B4: qkv (B, Hp, Wp, 3C) NHWC → (B, Hp, Wp, C).  Each launch counts
+    one in ``launches`` and in ``calls[(qkv shape, ws, nh, masked)]``."""
     if qkv.device.type == "cpu":
         return wba_plain(qkv, rel, mask, ws, nh)
     b, hp, wp, c3 = qkv.shape
@@ -181,7 +203,8 @@ def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
     if c3 // 3 // nh not in B4_HEAD_DIMS:
         raise ValueError(f"window_attention: head width {c3 // 3 // nh} not supported "
                          f"(kernel built for {B4_HEAD_DIMS})")
-    rel, mask = rel.contiguous(), None if mask is None else mask.contiguous()
+    dtype = qkv.dtype
+    qkv, rel, mask = _fp32(qkv, rel, mask)
     _aligned("window_attention", qkv, rel, mask)
     out = qkv.new_empty((b, hp, wp, c3 // 3))
     err = library().wba_launch(
@@ -191,10 +214,13 @@ def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
     )
     check_launch(err, "window_attention")
     window_attention.launches += 1
-    return out
+    key = ((b, hp, wp, c3), ws, nh, mask is not None)
+    window_attention.calls[key] = window_attention.calls.get(key, 0) + 1
+    return out.to(dtype)
 
 
 window_attention.launches = 0
+window_attention.calls = {}
 
 
 def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: int):
@@ -211,7 +237,8 @@ def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: i
                          f"{tuple(wproj.shape)} vs C={c}")
     if not all(t.is_contiguous() for t in (wqkv, bqkv, wproj, bproj)):
         raise ValueError("window_attention_proj: weights and biases must be contiguous")
-    rel, mask = rel.contiguous(), None if mask is None else mask.contiguous()
+    dtype = x.dtype
+    x, rel, mask, wqkv, bqkv, wproj, bproj = _fp32(x, rel, mask, wqkv, bqkv, wproj, bproj)
     _aligned("window_attention_proj", x, rel, mask, wqkv, wproj)
     out = x.new_empty((b, hp, wp, c))
     err = library().wba_proj_launch(
@@ -222,7 +249,7 @@ def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: i
     )
     check_launch(err, "window_attention_proj")
     window_attention_proj.launches += 1
-    return out
+    return out.to(dtype)
 
 
 window_attention_proj.launches = 0

@@ -1,14 +1,16 @@
-"""The codec core, charm family with the classic dual hyper (``source_net``,
-``source_net_wam``).
+"""The codec core, charm family: the classic dual hyper (``source_net``,
+``source_net_wam``), the ELIC hyper (``net_ga``) and the decodable U-Net
+hyper (``net_unet_ha_hs_dec``), with or without the SWAtten slice stacks.
 
 Counterpart of ``lic_tpu/models/codec.py``: ``_CharmSliceStack``
-(``:73-85``), the eval-mode ``_forward_charm`` (``:481-575``) and the
+(``:73-85``), the hyper branches (``:141-162``, ``_hyper_forward``
+``:437-479``), the eval-mode ``_forward_charm`` (``:481-575``) and the
 sub-passes ``ChannelCoder`` calls (``:589-649``).  NCHW throughout.
 
-The ``source_net`` config also builds a ``PredictionModelSyntax`` that no
-charm forward calls (``config.py:88``, ``codec.py:115-119``); it is not
-ported, and ``utils.params`` skips its subtree.  Training-mode forwards,
-the other hypers and families, gain units and the HAN tail raise
+The charm configs also build a ``PredictionModelSyntax`` that no charm
+forward calls (``config.py:88``, ``codec.py:115-119``); it is not ported,
+and ``utils.params`` skips its subtree.  Training-mode forwards, the other
+hypers and families, gain units and the HAN tail raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -22,9 +24,16 @@ from torch import nn
 
 from ..config import CodecConfig
 from ..entropy import EntropyBottleneck, GaussianConditional
-from ..layers import Conv2d, gelu
+from ..layers import Conv2d, SWAtten, gelu
 from ..ops import bypass_round, quantize_ste_offset, ste_round
-from .hyper import ClassicHyperAnalysis, ClassicHyperSynthesis
+from .hyper import (
+    ClassicHyperAnalysis,
+    ClassicHyperSynthesis,
+    DecodableUnetHyperSynthesis,
+    ElicHyperAnalysis,
+    ElicHyperSynthesis,
+    UnetHyperAnalysis,
+)
 from .syntax import ConvGenerator, SyntaxModel, batch_conv
 from .transforms import AnalysisTransform, SynthesisTransform
 
@@ -48,13 +57,15 @@ def check_supported(cfg: CodecConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not carry yet."""
     gaps = [
         (cfg.family != "charm", f"family {cfg.family!r} (ROADMAP A15)"),
-        (cfg.transform not in ("plain", "plain_wam"),
-         f"transform {cfg.transform!r} (ROADMAP A10)"),
-        (cfg.hyper != "classic_dual", f"hyper {cfg.hyper!r} (ROADMAP A10-A11)"),
+        (cfg.transform not in ("plain", "plain_wam", "rich"),
+         f"transform {cfg.transform!r} (ROADMAP A16)"),
+        (cfg.hyper not in ("classic_dual", "elic", "unet_dec"),
+         f"hyper {cfg.hyper!r} (ROADMAP A16)"),
+        (cfg.hyper == "unet_dec" and not cfg.shared_hyper_decoder,
+         "two separate U-Net hyper decoders (ROADMAP A16)"),
         (cfg.context != "charm", f"context {cfg.context!r} (ROADMAP A14)"),
-        (cfg.swatten, "SWAtten slice stacks (ROADMAP A10)"),
-        (cfg.syntax != "basic" or not cfg.syntax_decoder,
-         f"syntax {cfg.syntax!r} (ROADMAP A10)"),
+        (cfg.syntax not in ("basic", "wam") or not cfg.syntax_decoder,
+         f"syntax {cfg.syntax!r} without its decoder (ROADMAP A16)"),
         (cfg.post_processing, "the HAN post-processing tail (ROADMAP A16)"),
         (cfg.gain_units > 0, "gain units (ROADMAP A16)"),
         (not cfg.lrp, "charm without LRP (ROADMAP A16)"),
@@ -86,15 +97,25 @@ class CodecModel(nn.Module):
         self.cfg = cfg
         N, M = cfg.N, cfg.M
         g = generator
-        wam = cfg.transform == "plain_wam"
-        self.g_a = AnalysisTransform(N, wam, generator=g)
-        self.g_s = SynthesisTransform(N, M, wam, generator=g)
-        self.syntax_model = SyntaxModel(M, M, generator=g)
+        self.g_a = AnalysisTransform(N, cfg.transform, generator=g)
+        self.g_s = SynthesisTransform(N, M, cfg.transform, generator=g)
+        self.syntax_model = SyntaxModel(M, M, cfg.syntax, generator=g)
         self.conv_weights_gen = ConvGenerator(M, M, generator=g)
-        self.h_a = ClassicHyperAnalysis(N, generator=g)
-        self.h_mean_s = ClassicHyperSynthesis(N, generator=g)
-        self.h_scale_s = ClassicHyperSynthesis(N, generator=g)
-        self.entropy_bottleneck = EntropyBottleneck(N, generator=g)
+        if cfg.hyper == "classic_dual":
+            self.h_a = ClassicHyperAnalysis(N, generator=g)
+            self.h_mean_s = ClassicHyperSynthesis(N, generator=g)
+            self.h_scale_s = ClassicHyperSynthesis(N, generator=g)
+            z_channels = N
+        elif cfg.hyper == "elic":
+            self.h_a = ElicHyperAnalysis(N, generator=g)
+            self.h_mean_s = ElicHyperSynthesis(N, generator=g)
+            self.h_scale_s = ElicHyperSynthesis(N, generator=g)
+            z_channels = 192
+        else:  # unet_dec: one decoder pass, two heads (scales, means)
+            self.h_a = UnetHyperAnalysis(N, generator=g)
+            self.h_s = DecodableUnetHyperSynthesis(N, two_heads=True, generator=g)
+            z_channels = 512
+        self.entropy_bottleneck = EntropyBottleneck(z_channels, generator=g)
         self.gaussian_conditional = GaussianConditional()
 
         ns = cfg.num_slices
@@ -103,6 +124,13 @@ class CodecModel(nn.Module):
             i if cfg.max_support_slices < 0 else min(i, cfg.max_support_slices)
             for i in range(ns)
         ]
+        if cfg.swatten:
+            def swatten(i):
+                c = N + sc * n_sup[i]
+                return SWAtten(c, c, 16, cfg.swatten_window, inter_dim=128, generator=g)
+
+            self.atten_mean = nn.ModuleList(swatten(i) for i in range(ns))
+            self.atten_scale = nn.ModuleList(swatten(i) for i in range(ns))
         self.cc_mean_transforms = nn.ModuleList(
             _CharmSliceStack(N + sc * n_sup[i], sc, g) for i in range(ns)
         )
@@ -136,11 +164,10 @@ class CodecModel(nn.Module):
         num_pixels = b * h * w
 
         z3 = self.g_a(x)
-        z = self.h_a(z3)
+        z = self.hyper_encode(z3)
         _, z_lik = self.entropy_bottleneck(z)
         z_hat = quantize_ste_offset(z, self.eb_medians()[None, :, None, None])
-        latent_scales = self.h_scale_s(z_hat)
-        latent_means = self.h_mean_s(z_hat)
+        latent_scales, latent_means = self.hyper_decode(z_hat)
         syntax_rounded = self.syntax_from_latent(z3)
 
         y_hat_slices, y_liks, mus, sigmas = [], [], [], []
@@ -183,7 +210,9 @@ class CodecModel(nn.Module):
         return self.g_a(x)
 
     def hyper_encode(self, z3: torch.Tensor) -> torch.Tensor:
-        return self.h_a(z3)
+        """z3 → z; the U-Net hyper's skips are not part of the message."""
+        z = self.h_a(z3)
+        return z[0] if self.cfg.hyper == "unet_dec" else z
 
     def eb_medians(self) -> torch.Tensor:
         return self.entropy_bottleneck.medians
@@ -193,6 +222,8 @@ class CodecModel(nn.Module):
 
     def hyper_decode(self, z_hat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """z_hat → (latent_scales, latent_means)."""
+        if self.cfg.hyper == "unet_dec":
+            return self.h_s(z_hat)
         return self.h_scale_s(z_hat), self.h_mean_s(z_hat)
 
     def syntax_from_latent(self, z3: torch.Tensor) -> torch.Tensor:
@@ -200,11 +231,16 @@ class CodecModel(nn.Module):
         return bypass_round(self.syntax_model(z3[:, : self.cfg.M]))
 
     def charm_entropy_params(self, latent_means, latent_scales, support, i: int):
-        """(μ, σ, mean_support) for slice ``i`` given decoded ``support``."""
+        """(μ, σ, mean_support) for slice ``i`` given decoded ``support``;
+        with SWAtten, ``mean_support`` is the attended one, which LRP reads."""
         yh, yw = latent_means.shape[2], latent_means.shape[3]
         mean_support = torch.cat([latent_means] + list(support), dim=1)
+        if self.cfg.swatten:
+            mean_support = self.atten_mean[i](mean_support)
         mu = self.cc_mean_transforms[i](mean_support)[:, :, :yh, :yw]
         scale_support = torch.cat([latent_scales] + list(support), dim=1)
+        if self.cfg.swatten:
+            scale_support = self.atten_scale[i](scale_support)
         sigma = self.cc_scale_transforms[i](scale_support)[:, :, :yh, :yw]
         return mu, sigma, mean_support
 

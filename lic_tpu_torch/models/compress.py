@@ -1,4 +1,6 @@
-"""Real bitstream encode/decode for the charm codecs (``source_net``).
+"""Real bitstream encode/decode for the charm codecs with a decodable hyper
+(``classic_dual``, ``elic``, ``unet_dec``: ``source_net``,
+``source_net_wam``, ``net_ga``, ``net_unet_ha_hs_dec``).
 
 Counterpart of the ``ChannelCoder`` charm branch of
 ``lic_tpu/models/compress.py``: ``compress``/``decompress``, their batched
@@ -58,6 +60,8 @@ MAGIC = b"LTC2"
 Z_RANGE = 128  # factorized-prior symbol support: [-128, 127] rel. medians
 _SYM_CLIP = 32000  # int16-safe symbol range (escapes code |s| > radius)
 CHARM_LANES = 128
+# hypers whose decoder reads nothing but coded data
+_DECODABLE = ("classic_dual", "elic", "unet_dec")
 
 
 def set_numerics_flags() -> None:
@@ -86,12 +90,20 @@ def _nhwc_flat(t: torch.Tensor) -> torch.Tensor:
 
 
 class ChannelCoder:
-    """Real-bitstream coder for one charm ``CodecModel`` (classic dual
-    hyper), on the model's device."""
+    """Real-bitstream coder for one charm ``CodecModel`` with a decodable
+    hyper, on the model's device."""
 
     def __init__(self, model: CodecModel, name: str = ""):
-        set_numerics_flags()
         cfg = model.cfg
+        if cfg.hyper not in _DECODABLE:
+            raise ValueError(
+                f"hyper path '{cfg.hyper}' is not decodable: the "
+                "reference feeds encoder-side activations into its hyper "
+                "decoder (see lic_tpu.models.compress docstring); use a "
+                "'classic_dual', 'elic' or 'unet_dec' preset for real bitstreams (or "
+                "the neural_syntax family's wavefront coder)"
+            )
+        set_numerics_flags()
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.name = name or f"{cfg.family}.{cfg.transform}.{cfg.hyper}.{cfg.context}"

@@ -1,7 +1,20 @@
-"""Classic hyper-prior path (counterpart of ``lic_tpu/models/hyper.py:56-88``).
+"""Hyper-prior paths (counterpart of ``lic_tpu/models/hyper.py:56-241``), NCHW.
 
-* h_a: |x| → conv3 s1 → ReLU → conv5 s2 → ReLU → conv5 s2 (N ch, /4)
-* h_s: deconv5 s2 → ReLU → deconv5 s2 → ReLU → conv3 s1 (N ch, ×4)
+* classic — h_a: |x| → conv3 s1 → ReLU → conv5 s2 → ReLU → conv5 s2 (N ch,
+  /4); h_s: deconv5 s2 → ReLU → deconv5 s2 → ReLU → conv3 s1 (N ch, ×4).
+* elic (``net_ga``) — h_a: GELU conv3 stack N → 320 → 288 → 256 (s2) → 224
+  → 192 (s2); h_s: conv3 → subpel ↑2 → conv3 → subpel ↑2 → conv3 head.
+* unet_dec (``net_unet_ha_hs_dec``) — ``UnetHyperAnalysis`` splits the
+  channels into a conv half and a ``WinBasedAttention`` half at each scale
+  and returns the 512-channel middle at /4 as z (and the skips, which the
+  decodable decoder does not read); ``DecodableUnetHyperSynthesis``
+  re-synthesizes the skip pyramid from ẑ alone and runs
+  ``UnetHyperSynthesis`` with two output heads, (scales, means).
+
+The U-Net hyper's attention runs at window 4 with head widths N/16 and 16
+and at window 2 with 64, 32 and 16, none of which B4 is built for; every
+such map is under 4096 tokens, so the card runs them on the plain route
+(``layers.win_attention``), as the JAX package runs them through XLA.
 """
 
 from __future__ import annotations
@@ -11,7 +24,17 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..layers import Conv2d, ConvTranspose2d
+from ..layers import (
+    Conv2d,
+    ConvTranspose2d,
+    ResidualBlock3_5,
+    ResidualBlock3x3,
+    ResidualBlock5x5,
+    ResidualBottleneck,
+    SubpelConv2d,
+    WinBasedAttention,
+    gelu,
+)
 
 
 class ClassicHyperAnalysis(nn.Module):
@@ -38,3 +61,134 @@ class ClassicHyperSynthesis(nn.Module):
         x = torch.relu(self.d0(x))
         x = torch.relu(self.d1(x))
         return self.c2(x)
+
+
+class ElicHyperAnalysis(nn.Module):
+    """N → 320 → 288 → 256 (s2) → 224 → 192 (s2), GELU between."""
+
+    DIMS = ((320, 1), (288, 1), (256, 2), (224, 1), (192, 2))
+
+    def __init__(self, N: int, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cin = N
+        for i, (f, s) in enumerate(self.DIMS):
+            self.add_module(f"c{i}", Conv2d(cin, f, 3, s, 1, generator=generator))
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        convs = list(self.children())
+        for conv in convs[:-1]:
+            x = gelu(conv(x))
+        return convs[-1](x)
+
+
+class ElicHyperSynthesis(nn.Module):
+    """192 → conv3 → subpel(224)↑2 → conv3(256) → subpel(288)↑2 → conv3(out)."""
+
+    def __init__(self, out_channels: int, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.c0 = Conv2d(192, 192, 3, 1, 1, generator=g)
+        self.up0 = SubpelConv2d(192, 224, 2, generator=g)
+        self.c1 = Conv2d(224, 256, 3, 1, 1, generator=g)
+        self.up1 = SubpelConv2d(256, 288, 2, generator=g)
+        self.c2 = Conv2d(288, out_channels, 3, 1, 1, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in (self.c0, self.up0, self.c1, self.up1):
+            x = gelu(layer(x))
+        return self.c2(x)
+
+
+def _cat(*ts: torch.Tensor) -> torch.Tensor:
+    return torch.cat(ts, dim=1)
+
+
+class UnetHyperAnalysis(nn.Module):
+    """``Unet_ha_new``: → (z, middle, skip1, inp); z is the 512-channel
+    middle at /4 of the latent."""
+
+    def __init__(self, in_channels: int, num_heads: int = 8, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, c = generator, in_channels
+        half = c // 2
+        self.attn0 = WinBasedAttention(half, num_heads, 4, 2, generator=g)
+        self.conv1 = ResidualBlock3_5(c - half, generator=g)
+        self.down0 = Conv2d(c, c, 1, generator=g)
+        self.down1 = Conv2d(c, 256, 3, 2, 1, generator=g)
+        self.conv2 = ResidualBlock5x5(128, generator=g)
+        self.attn1 = WinBasedAttention(128, num_heads, 4, 2, generator=g)
+        self.down3 = Conv2d(256, 256, 1, generator=g)
+        self.down2 = Conv2d(256, 512, 3, 2, 1, generator=g)
+        self.mid0 = ResidualBottleneck(512, generator=g)
+        self.mid_attn = WinBasedAttention(512, num_heads, 2, 1, generator=g)
+        self.mid1 = ResidualBottleneck(512, generator=g)
+
+    def forward(self, x: torch.Tensor):
+        half = x.shape[1] // 2
+        trans_x = self.attn0(x[:, :half])
+        conv_x = self.conv1(x[:, half:])
+        d1 = self.down0(_cat(conv_x, trans_x)) + x
+        d1 = gelu(self.down1(d1))
+        conv_y = self.conv2(d1[:, 128:])
+        trans_y = self.attn1(d1[:, :128])
+        d2 = self.down3(_cat(conv_y, trans_y)) + d1
+        d2 = gelu(self.down2(d2))
+        m = self.mid1(self.mid_attn(self.mid0(d2)))
+        return m, m, d1, x
+
+
+class UnetHyperSynthesis(nn.Module):
+    """``Unet_hs_new`` with its skips (``inp`` has ``inp_channels``);
+    ``two_heads`` adds the second output projection ``up4b``, so one pass
+    gives (scales, means)."""
+
+    def __init__(self, out_channels: int, inp_channels: int, num_heads: int = 8,
+                 two_heads: bool = False, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.conv3 = ResidualBlock3x3(256, generator=g)
+        self.attn3 = WinBasedAttention(256, num_heads, 2, 1, generator=g)
+        self.up0 = Conv2d(512, 512, 1, generator=g)
+        self.up1 = ConvTranspose2d(512, 256, 5, 2, 2, 1, generator=g)
+        self.up3 = Conv2d(512, 256, 1, generator=g)
+        self.conv4 = ResidualBlock3x3(128, generator=g)
+        self.attn2 = WinBasedAttention(128, num_heads, 2, 1, generator=g)
+        self.up5 = Conv2d(256, 256, 1, generator=g)
+        self.up2 = ConvTranspose2d(256, 192, 5, 2, 2, 1, generator=g)
+        self.up4 = ConvTranspose2d(192 + inp_channels, out_channels, 1, 1, 0, 0, generator=g)
+        self.up4b = (ConvTranspose2d(192 + inp_channels, out_channels, 1, 1, 0, 0, generator=g)
+                     if two_heads else None)
+
+    def forward(self, z_hat, middle, skip1, inp):
+        conv_u = self.conv3(middle[:, 256:])
+        trans_u = self.attn3(middle[:, :256])
+        u1 = self.up0(_cat(conv_u, trans_u)) + middle
+        u1 = gelu(self.up1(u1))
+        u1 = gelu(self.up3(_cat(u1, skip1)))
+        conv_v = self.conv4(u1[:, 128:])
+        trans_v = self.attn2(u1[:, :128])
+        u2 = self.up5(_cat(conv_v, trans_v)) + u1
+        u2 = gelu(self.up2(u2))
+        u2 = _cat(u2, inp)
+        out = self.up4(u2)
+        return out if self.up4b is None else (out, self.up4b(u2))
+
+
+class DecodableUnetHyperSynthesis(nn.Module):
+    """The skip pyramid re-synthesized from ẑ (two deconv stages), then
+    ``UnetHyperSynthesis`` as ``body``."""
+
+    def __init__(self, out_channels: int, num_heads: int = 8, two_heads: bool = False, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.skip_up1 = ConvTranspose2d(512, 256, 5, 2, 2, 1, generator=g)
+        self.skip_up2 = ConvTranspose2d(256, 192, 5, 2, 2, 1, generator=g)
+        self.body = UnetHyperSynthesis(out_channels, 192, num_heads, two_heads, generator=g)
+
+    def forward(self, z_hat: torch.Tensor):
+        skip1 = gelu(self.skip_up1(z_hat))
+        inp = gelu(self.skip_up2(skip1))
+        return self.body(z_hat, z_hat, skip1, inp)

@@ -1,5 +1,6 @@
-"""Preset table of the port: the ``source_net`` and ``source_net_wam`` rows,
-built from the port's ``config.CodecConfig``.
+"""Preset table of the port: the ``source_net``, ``source_net_wam``,
+``net_ga`` and ``net_unet_ha_hs_dec`` rows, built from the port's
+``config.CodecConfig``.
 
 Each row must equal ``lic_tpu.models.presets.PRESETS[name]``; a test holds
 it to that.  Every other preset of the JAX package raises
@@ -34,15 +35,31 @@ PRESETS: Dict[str, CodecConfig] = {
         swatten=False,
         syntax="basic",
     ),
+    # model/net_ga.py — rich transforms + ELIC conv hyper + SWAtten (the
+    # reference eval entry point)
+    "net_ga": CodecConfig(
+        family="charm",
+        transform="rich",
+        hyper="elic",
+        swatten=True,
+        syntax="wam",
+    ),
+    # the decodable flagship: net_unet_ha_hs with the U-Net hyper's skip
+    # pyramid re-synthesized from the coded z only
+    "net_unet_ha_hs_dec": CodecConfig(
+        family="charm",
+        transform="rich",
+        hyper="unet_dec",
+        swatten=True,
+        syntax="wam",
+    ),
 }
 
 # the JAX package's other presets → the ROADMAP item that ports each
 NOT_YET_PORTED: Dict[str, str] = {
     "neural_syntax": "A15",
-    "net_ga": "A10-A11",
     "net_ha": "A16",
     "net_unet_ha_hs": "A16",
-    "net_unet_ha_hs_dec": "A10-A11",
     "net_unet_ha_hs_1": "A16",
     "net_unet": "A16",
     "net_unet_1": "A16",

@@ -1,8 +1,10 @@
-"""Neural-syntax machinery, basic variant (counterpart of
-``lic_tpu/models/syntax.py:46-125``).
+"""Neural-syntax machinery (counterpart of ``lic_tpu/models/syntax.py:30-125``).
 
 * ``SyntaxModel`` — pooling pyramid over the first M latent channels →
-  M-dim syntax vector (B, M, 1, 1).
+  M-dim syntax vector (B, M, 1, 1).  ``basic``: two strided 3×3 convs;
+  ``wam``: three, each after a ``DepthwiseSeparableConv`` (depthwise 3×3 +
+  pointwise 1×1), with a ``WinNoShiftAttention`` gate (C 64, ws 4, shift
+  2: kernel B4 at head width 8) after the second.
 * ``ConvGenerator`` — MLP M→128→256→3·M giving each image the weights of
   the decoder's final 1x1 conv, with the JAX package's head init.
 * ``batch_conv`` — the per-image generated 1x1 conv, one batched einsum
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import Conv2d, Linear
+from ..layers import Conv2d, DepthwiseConv2d, Linear, WinNoShiftAttention
 
 
 def _gap(x: torch.Tensor) -> torch.Tensor:
@@ -25,22 +27,54 @@ def _gap(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3), keepdim=True)
 
 
+class DepthwiseSeparableConv(nn.Module):
+    """Depthwise 3×3 + pointwise 1×1."""
+
+    def __init__(self, in_dim: int, out_dim: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.depthwise = DepthwiseConv2d(in_dim, generator=generator)
+        self.pointwise = Conv2d(in_dim, out_dim, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))
+
+
 class SyntaxModel(nn.Module):
-    """Pyramid: pool(x) ∥ pool(down0) ∥ pool(down1) → 1x1 conv."""
+    """Pyramid: pool(x) ∥ pool(each stage) → 1x1 conv."""
 
     def __init__(
-        self, in_dim: int, out_dim: int, *,
+        self, in_dim: int, out_dim: int, variant: str = "basic", *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.down0 = Conv2d(in_dim, 32, 3, 2, 1, generator=generator)
-        self.down1 = Conv2d(32, 64, 3, 2, 1, generator=generator)
-        self.out_conv = Conv2d(in_dim + 96, out_dim, 1, generator=generator)
+        g = generator
+        if variant not in ("basic", "wam"):
+            raise ValueError(f"unknown syntax variant {variant!r}")
+        self.wam_variant = variant == "wam"
+        if self.wam_variant:
+            self.dw0 = DepthwiseSeparableConv(in_dim, in_dim, generator=g)
+        self.down0 = Conv2d(in_dim, 32, 3, 2, 1, generator=g)
+        if self.wam_variant:
+            self.dw1 = DepthwiseSeparableConv(32, 32, generator=g)
+        self.down1 = Conv2d(32, 64, 3, 2, 1, generator=g)
+        if self.wam_variant:
+            self.wam = WinNoShiftAttention(64, 8, 4, 2, generator=g)
+            self.dw2 = DepthwiseSeparableConv(64, 64, generator=g)
+            self.down2 = Conv2d(64, 128, 3, 2, 1, generator=g)
+        pooled = in_dim + 96 + (128 if self.wam_variant else 0)
+        self.out_conv = Conv2d(pooled, out_dim, 1, generator=g)
 
     def forward(self, syntax: torch.Tensor) -> torch.Tensor:
-        d0 = torch.relu(self.down0(syntax))
-        d1 = torch.relu(self.down1(d0))
-        out = torch.cat([_gap(syntax), _gap(d0), _gap(d1)], dim=1)
+        if not self.wam_variant:
+            d0 = torch.relu(self.down0(syntax))
+            d1 = torch.relu(self.down1(d0))
+            out = torch.cat([_gap(syntax), _gap(d0), _gap(d1)], dim=1)
+            return self.out_conv(out)
+        d0 = torch.relu(self.down0(self.dw0(syntax)))
+        d1 = self.wam(torch.relu(self.down1(self.dw1(d0))))
+        d2 = torch.relu(self.down2(self.dw2(d1)))
+        out = torch.cat([_gap(syntax), _gap(d0), _gap(d1), _gap(d2)], dim=1)
         return self.out_conv(out)
 
 

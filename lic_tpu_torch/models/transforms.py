@@ -1,15 +1,19 @@
-"""Analysis / synthesis transforms (g_a / g_s), ``plain`` and ``plain_wam``
-variants, NCHW.
+"""Analysis / synthesis transforms (g_a / g_s), ``plain``, ``plain_wam``
+and ``rich`` variants, NCHW.
 
-Counterpart of ``lic_tpu/models/transforms.py:42-67,107-122,161-182``:
+Counterpart of ``lic_tpu/models/transforms.py:42-158,161-182``:
 4× (ZeroPad2d(1,2,1,2) + conv5 s2) with GDN after the first three, and
 4× (ZeroPad2d(1,0,1,0) + deconv5 s2 p3 op1) each followed by IGDN.
 ``plain_wam`` adds the ``WinNoShiftAttention`` gates of
 ``model/source_net_WAM.py``: in g_a after the 2nd GDN (ws 8, shift 4, at
 /4) and at the output (ws 4, shift 2, at /16); in g_s at the input (ws 4,
-shift 2) and after the 2nd IGDN (ws 8, shift 4).  The layers are children
-in the order they run.  g_a maps (H, W) → (H/16, W/16) and g_s inverts it
-exactly.
+shift 2) and after the 2nd IGDN (ws 8, shift 4).  ``rich``
+(``net_unet_ha_hs.py``): g_a replaces ``down0`` with three
+``ResidualBottleneck``s on the image and a ``ResidualBlockWithStride``, and
+``down2`` with three ``ResidualBottleneck``s and a second
+``ResidualBlockWithStride``; g_s is ``plain_wam``'s but its ``wam1``
+shifts by 2 at ws 8.  The layers are children in the order they run.  g_a
+maps (H, W) → (H/16, W/16) and g_s inverts it exactly.
 """
 
 from __future__ import annotations
@@ -20,7 +24,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import GDN, IGDN, Conv2d, ConvTranspose2d, WinNoShiftAttention
+from ..layers import (
+    GDN,
+    IGDN,
+    Conv2d,
+    ConvTranspose2d,
+    ResidualBlockWithStride,
+    ResidualBottleneck,
+    WinNoShiftAttention,
+)
+
+VARIANTS = ("plain", "plain_wam", "rich")
 
 # torch ZeroPad2d((1, 2, 1, 2)) + Conv2d(5, 2, 0): (left, right, top, bottom)
 _DOWN_PAD = (1, 2, 1, 2)
@@ -46,18 +60,31 @@ class AnalysisTransform(nn.Module):
     """g_a: 3 → N channels, /16 spatial."""
 
     def __init__(
-        self, N: int, wam: bool = False, *,
+        self, N: int, variant: str = "plain", *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown transform variant {variant!r}")
         g = generator
-        self.down0 = _down5(3, N, g)
+        wam, rich = variant != "plain", variant == "rich"
+        if rich:
+            for i in range(3):
+                self.add_module(f"rb0_{i}", ResidualBottleneck(3, generator=g))
+            self.rbs0 = ResidualBlockWithStride(3, N, 2, generator=g)
+        else:
+            self.down0 = _down5(3, N, g)
         self.gdn0 = GDN(N)
         self.down1 = _down5(N, N, g)
         self.gdn1 = GDN(N)
         if wam:
             self.wam0 = WinNoShiftAttention(N, 8, 8, 4, generator=g)
-        self.down2 = _down5(N, N, g)
+        if rich:
+            for i in range(3):
+                self.add_module(f"rb1_{i}", ResidualBottleneck(N, generator=g))
+            self.rbs1 = ResidualBlockWithStride(N, N, 2, generator=g)
+        else:
+            self.down2 = _down5(N, N, g)
         self.gdn2 = GDN(N)
         self.down3 = _down5(N, N, g)
         if wam:
@@ -73,11 +100,14 @@ class SynthesisTransform(nn.Module):
     """g_s: N → ``out_channels``, ×16 spatial."""
 
     def __init__(
-        self, N: int, out_channels: int, wam: bool = False, *,
+        self, N: int, out_channels: int, variant: str = "plain", *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown transform variant {variant!r}")
         g = generator
+        wam = variant != "plain"
         if wam:
             self.wam0 = WinNoShiftAttention(N, 8, 4, 2, generator=g)
         filters = [N, N, N, out_channels]
@@ -86,7 +116,8 @@ class SynthesisTransform(nn.Module):
             self.add_module(f"up{i}", _Up5(cin, f, g))
             self.add_module(f"igdn{i}", IGDN(f))
             if wam and i == 1:
-                self.wam1 = WinNoShiftAttention(f, 8, 8, 4, generator=g)
+                shift = 2 if variant == "rich" else 4
+                self.wam1 = WinNoShiftAttention(f, 8, 8, shift, generator=g)
             cin = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,24 @@
 """Where the time of the port's main path goes, on one GPU.
 
-    python -m lic_tpu_torch.tools.profile_path [--preset source_net_wam] [--out build/profile]
+    python -m lic_tpu_torch.tools.profile_path [--preset net_unet_ha_hs_dec] [--out build/profile]
 
-``--preset`` (``source_net`` or ``source_net_wam``) at full width, random
-weights from ``--seed``, a batch of
+``--preset`` (``source_net``, ``source_net_wam``, ``net_ga`` or
+``net_unet_ha_hs_dec``) at full width, random weights from ``--seed``, a
+batch of
 ``--batch`` smooth synthetic images of ``--height`` × ``--width``, fp32
 with the coder's numerics flags.  It prints:
 
 * the card: name, power limit and maximum SM clock from ``nvidia-smi``;
 * ``STAGE`` / ``LAYER`` lines: CUDA-event milliseconds of each stage of the
-  eval forward and of each layer of g_a and g_s (a ``WinNoShiftAttention``
-  gate is one layer);
+  eval forward (g_a, the hyper analysis and synthesis, the syntax model,
+  g_s) and of each layer of g_a and g_s (a ``WinNoShiftAttention`` gate is
+  one layer);
+* ``SLICE`` lines, read inside the eval forward itself by CUDA events that
+  forward pre- and post-hooks record: the 4-slice ChARM chain from its
+  first module to its last LRP stack, and per slice each SWAtten stack
+  (where the preset has them), each ChARM conv stack and the LRP stack;
+* ``LAUNCHES``: each kernel's launches, and each plain route's calls, in
+  one eval forward;
 * for the eval forward and for the roundtrip ``compress_batch`` →
   ``decompress_batch``, each under ``torch.profiler``: the kernels with the
   most device time, and the device busy share — the union of the intervals
@@ -92,6 +100,48 @@ def _cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _hooked_ms(model, x, spans: Dict[str, Tuple[torch.nn.Module, torch.nn.Module]],
+               reps: int = 5) -> Dict[str, float]:
+    """CUDA-event milliseconds of each span (first module's forward pre-hook
+    to last module's forward hook) within ``model(x)``, the mean over
+    ``reps`` forwards after a warm-up."""
+    marks = defaultdict(list)
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[name].append(ev)
+
+    hooks = []
+    for name, (first, last) in spans.items():
+        hooks.append(first.register_forward_pre_hook(lambda m, a, n=name: mark(n)))
+        hooks.append(last.register_forward_hook(lambda m, a, o, n=name: mark(n)))
+    try:
+        model(x)
+        _sync()
+        marks.clear()
+        for _ in range(reps):
+            model(x)
+        _sync()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {name: sum(ev[i].elapsed_time(ev[i + 1]) for i in range(0, len(ev), 2)) / reps
+            for name, ev in marks.items()}
+
+
+def _slice_spans(model) -> Dict[str, Tuple[torch.nn.Module, torch.nn.Module]]:
+    """The ChARM chain and each slice's stacks, as (first, last) modules."""
+    names = (["atten_mean", "atten_scale"] if model.cfg.swatten else []) + [
+        "cc_mean_transforms", "cc_scale_transforms", "lrp_transforms"]
+    spans = {"chain": (getattr(model, names[0])[0], model.lrp_transforms[-1])}
+    for i in range(model.cfg.num_slices):
+        for name in names:
+            mod = getattr(model, name)[i]
+            spans[f"{i} {name.replace('_transforms', '')}"] = (mod, mod)
+    return spans
+
+
 def _profiled(label: str, fn, iters: int, out_dir: str, top: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,9 +166,22 @@ def _profiled(label: str, fn, iters: int, out_dir: str, top: int) -> None:
               f"x{n // iters:<4d} {name[:100]}")
 
 
+def _counters() -> dict:
+    """Each kernel wrapper and plain route of the forward, by name."""
+    from ..coding import drain
+    from ..layers import conv_direct, gdn, win_attention, window_attn
+
+    return {"gdn": gdn.gdn_fused, "gdn_plain_route": gdn.gdn_plain_route,
+            "conv5s2": conv_direct.conv5s2, "convk_s1": conv_direct.convk_s1,
+            "wba": window_attn.window_attention,
+            "wba_proj": window_attn.window_attention_proj,
+            "wba_plain_route": win_attention.wba_plain_route, "drain": drain.rans_drain}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="source_net", choices=("source_net", "source_net_wam"))
+    ap.add_argument("--preset", default="source_net",
+                    choices=("source_net", "source_net_wam", "net_ga", "net_unet_ha_hs_dec"))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--width", type=int, default=768)
@@ -162,11 +225,23 @@ def main() -> None:
             "g_a": lambda: model.analyze(x),
             "h_a": lambda: model.hyper_encode(z3),
             "h_s (both)": lambda: model.hyper_decode(z_hat),
+            "syntax": lambda: model.syntax_from_latent(z3),
             "g_s": lambda: model.g_s(y_hat),
             "synthesize": lambda: model.synthesize(y_hat, syn),
         }
         for name, fn in stages.items():
             print(f"STAGE {name:12s} {_cuda_ms(fn):9.3f} ms")
+        sl = _hooked_ms(model, x, _slice_spans(model))
+        print(f"SLICE chain {sl.pop('chain'):.3f} ms (inside the forward)")
+        for i in range(model.cfg.num_slices):
+            print(f"SLICE {i} " + " ".join(f"{k.split()[1]}={v:.3f}" for k, v in sl.items()
+                                          if k.startswith(f"{i} ")) + " ms")
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        model(x)
+        _sync()
+        print("LAUNCHES per forward", json.dumps({k: fn.launches for k, fn in counters.items()}))
         for tname, inp in (("g_a", x), ("g_s", y_hat)):
             h = inp
             for cname, child in getattr(model, tname).named_children():

@@ -96,9 +96,10 @@ class CudaLibrary:
 
 
 def check_cuda_inputs(name: str, x, *others) -> None:
-    """What a forward-only fp32 kernel takes: ``x`` on a CUDA device, every
-    other tensor (None skipped) fp32 on the same device, and no tensor that
-    autograd would have to differentiate through the kernel."""
+    """What a forward-only fp32 kernel's wrapper takes: ``x`` on a CUDA
+    device, every other tensor (None skipped) fp32 or bf16 on the same
+    device (a wrapper widens bf16 to fp32 at the kernel boundary), and no
+    tensor that autograd would have to differentiate through the kernel."""
     import torch
 
     if x.device.type != "cuda":
@@ -110,8 +111,9 @@ def check_cuda_inputs(name: str, x, *others) -> None:
             "training, ROADMAP A12); run it under torch.no_grad()"
         )
     for t in ts:
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise TypeError(f"{name}: fp32 tensors on {x.device} only, got {t.dtype} on {t.device}")
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.device != x.device:
+            raise TypeError(f"{name}: fp32 or bf16 tensors on {x.device} only, got "
+                            f"{t.dtype} on {t.device}")
 
 
 def check_launch(err: int, name: str) -> None:

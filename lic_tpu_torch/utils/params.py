@@ -5,17 +5,22 @@ dicts of numpy arrays, as ``model.init(...)["params"]`` or a checkpoint
 gives it) and returns a state dict for the port's ``CodecModel``.  It
 applies the inverse of the layout rules of ``tools/import_torch.py``:
 
-* conv kernels HWIO → OIHW;
+* conv kernels HWIO → OIHW (``SubpelConv2d``'s too; the depthwise
+  (3, 3, 1, C) kernel so becomes torch's grouped (C, 1, 3, 3));
 * transposed-conv kernels: ``W_t[in, out, a, b] = kernel[k-1-a, k-1-b,
   in, out]`` (``lic_tpu/layers/conv.py:514-517``);
 * ``nn.Dense`` kernels transposed to torch's ``(out, in)`` (the window
-  attention's ``qkv`` and ``proj`` too);
+  attention's ``qkv`` and ``proj``, WMSA's ``embedding_layer`` and
+  ``linear``, the Swin MLP's ``mlp_fc1``/``mlp_fc2``);
+* ``nn.LayerNorm``'s ``scale`` to torch's ``weight``;
 * every other leaf (GDN β/Γ, entropy-bottleneck tensors, biases, the
   ``relative_position_bias_table``, which keeps the reference's
-  ((2ws-1)², nh) layout) as is.
+  ((2ws-1)², nh) layout, and WMSA's (2ws-1, 2ws-1, nh)
+  ``relative_position_params``) as is.
 
-Module names follow the flax tree, except ``ResidualBlock``'s convs: flax
-names them ``Conv2d_0`` / ``Conv2d_1``, the port ``conv1`` / ``conv2``.
+Module names follow the flax tree; where a port module names a child
+otherwise (``ResidualBlock``'s ``conv1`` for flax's ``Conv2d_0``), its
+class maps the names in ``FLAX_NAMES``.
 
 Which rule a leaf takes is read off the port's own module types, on a
 skeleton built on the meta device.  Every state-dict key must be filled
@@ -33,12 +38,11 @@ import torch
 from torch import nn
 
 from ..config import CodecConfig
-from ..layers import Conv2d, ConvTranspose2d, Linear, ResidualBlock
+from ..layers import Conv2d, ConvTranspose2d, Linear, SubpelConv2d
 from ..models.codec import CodecModel
 from ..models.presets import PRESETS
 
 SKIPPED_PREFIX = "prediction_model_syntax/"
-_RESBLOCK_NAMES = {"conv1": "Conv2d_0", "conv2": "Conv2d_1"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -51,24 +55,27 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _flax_path(module_name: str) -> str:
+def _flax_path(module_name: str, modules: Optional[Mapping[str, nn.Module]] = None) -> str:
     """``cc_mean_transforms.0.c1`` → ``cc_mean_transforms_0/c1`` (flax
-    names list submodules ``name_i``)."""
-    parts = []
-    for p in module_name.split("."):
+    names list submodules ``name_i``); a child that its parent's class
+    lists in ``FLAX_NAMES`` takes the name given there."""
+    parts, prefix = [], []
+    for p in module_name.split(".") if module_name else []:
+        parent = (modules or {}).get(".".join(prefix))
+        prefix.append(p)
         if p.isdigit():
             parts[-1] = f"{parts[-1]}_{p}"
         else:
-            parts.append(p)
+            parts.append(getattr(parent, "FLAX_NAMES", {}).get(p, p))
     return "/".join(parts)
 
 
 def params_from_flax(
     tree: Mapping, cfg: Optional[CodecConfig] = None
 ) -> Dict[str, torch.Tensor]:
-    """flax params of a ``source_net``-family model → the port's state dict.
-    ``cfg`` (default ``source_net``) only selects the module types (widths
-    do not matter)."""
+    """flax params of a charm model → the port's state dict.  ``cfg``
+    (default ``source_net``) selects the module types; the widths are read
+    off the tree."""
     with torch.device("meta"):
         skeleton = CodecModel(cfg or PRESETS["source_net"])
     return state_from_flax(tree, skeleton)
@@ -84,28 +91,29 @@ def state_from_flax(tree: Mapping, skeleton: nn.Module) -> Dict[str, torch.Tenso
         own = dict(module.named_parameters(recurse=False))
         if not own:
             continue
-        parent, _, leaf = mname.rpartition(".")
-        path = _flax_path(mname)
-        if isinstance(modules.get(parent), ResidualBlock):
-            path = f"{_flax_path(parent)}/{_RESBLOCK_NAMES[leaf]}"
+        path = _flax_path(mname, modules)
         base = path + "/" if mname else ""
         for pname in own:
-            if isinstance(module, (Conv2d, ConvTranspose2d, Linear)):
+            if isinstance(module, (Conv2d, ConvTranspose2d, Linear, SubpelConv2d)):
                 key = base + ("kernel" if pname == "weight" else pname)
+            elif isinstance(module, nn.LayerNorm):
+                key = base + ("scale" if pname == "weight" else pname)
             else:
                 key = base + pname
             if key not in flat:
                 raise KeyError(f"flax tree has no leaf {key!r} for {mname}.{pname}")
             a = flat[key]
             used.add(key)
-            if pname == "weight" and isinstance(module, Conv2d):
+            if pname == "weight" and isinstance(module, (Conv2d, SubpelConv2d)):
                 a = a.transpose(3, 2, 0, 1)  # HWIO → OIHW
             elif pname == "weight" and isinstance(module, ConvTranspose2d):
                 a = a[::-1, ::-1].transpose(2, 3, 0, 1)  # → (in, out, k, k)
             elif pname == "weight" and isinstance(module, Linear):
                 a = a.T
+            # a fresh C-ordered copy: a flipped 1×1 kernel counts as
+            # contiguous to numpy but keeps its negative strides
             state[f"{mname}.{pname}" if mname else pname] = torch.from_numpy(
-                np.ascontiguousarray(a, np.float32)
+                np.array(a, np.float32, order="C")
             )
     unused = sorted(
         k for k in flat if k not in used and not k.startswith(SKIPPED_PREFIX)

@@ -490,3 +490,130 @@ def test_default_build_lands_on_cuda(cuda_device):
     """``build_model`` with no device builds on the card."""
     model = build_model("source_net", n_override=32)
     assert {p.device.type for p in model.parameters()} == {"cuda"}
+
+
+# ------------------------------------------------- bf16 and the plain routes
+
+# one bf16 rounding of the output (half an ulp: 2**-9 of the value) over
+# the fp32 kernel's own error
+BF16_RTOL, BF16_ATOL = 2 ** -8, 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["conv5s2", "convk_s1", "wba", "wba_proj"])
+def test_kernels_take_bf16(cuda_device, kernel):
+    """B3-B6 on bf16 tensors: widened to fp32 at the kernel, the output
+    rounded back to bf16 (bf16 operands, an fp32 sum, a bf16 result),
+    against the plain version run in float64 on the same bf16 values (the
+    plain version in bf16 rounds every intermediate, and is the less exact
+    side); one launch counted."""
+    g = torch.Generator().manual_seed(21)
+    bf = lambda t: t.bfloat16()
+    if kernel == "conv5s2":
+        fn, plain = conv5s2, conv5s2_plain
+        args = (bf(_cl(_randn(g, 2, 192, 16, 24), cuda_device)),
+                bf(_randn(g, 192, 192, 5, 5, scale=(192 * 25) ** -0.5).to(cuda_device)),
+                bf(_randn(g, 192).to(cuda_device)))
+    elif kernel == "convk_s1":
+        fn, plain = convk_s1, convk_s1_plain
+        args = (bf(_cl(_randn(g, 2, 192, 12, 20), cuda_device)),
+                bf(_randn(g, 192, 192, 3, 3, scale=(192 * 9) ** -0.5).to(cuda_device)),
+                bf(_randn(g, 192).to(cuda_device)), "leaky_relu",
+                bf(_cl(_randn(g, 2, 192, 12, 20), cuda_device)))
+    else:
+        rel, mask = _attn_case(g, cuda_device, 16, 24, 8, 8, 4, 0)
+        if kernel == "wba":
+            fn, plain = window_attention, wba_plain
+            args = (bf(_randn(g, 2, 16, 24, 3 * 192).to(cuda_device)), bf(rel), mask, 8, 8)
+        else:
+            fn, plain = window_attention_proj, wba_proj_plain
+            w = [bf(t) for t in _proj_weights(g, cuda_device, 192)]
+            args = (bf(_randn(g, 2, 16, 24, 192).to(cuda_device)), bf(rel), *w, mask, 8, 8)
+    with torch.no_grad():
+        before = fn.launches
+        y = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and y.dtype == torch.bfloat16
+        torch.testing.assert_close(y.double(), plain(*map(_f64, args)), atol=BF16_ATOL,
+                                   rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("c,route", [(192, "kernel"), (16, "kernel"), (384, "plain"),
+                                     (18, "plain")])
+def test_gdn_module_takes_the_plain_route_where_gated(cuda_device, c, route):
+    """``GDN`` runs B2 where ``b2_takes(C)``, else ``gdn_plain_route``."""
+    from lic_tpu_torch.layers import GDN
+    from lic_tpu_torch.layers.gdn import gdn_plain_route
+
+    m = GDN(c).to(cuda_device)
+    g = torch.Generator().manual_seed(c)
+    x = _cl(_randn(g, 2, c, 6, 10), cuda_device)
+    with torch.no_grad():
+        k0, p0 = gdn_fused.launches, gdn_plain_route.launches
+        y = m(x)
+        torch.cuda.synchronize()
+        assert (gdn_fused.launches - k0, gdn_plain_route.launches - p0) == (
+            (1, 0) if route == "kernel" else (0, 1))
+        ref = gdn_plain(x.permute(0, 2, 3, 1).reshape(-1, c), m._gamma_rp(m.gamma),
+                        m._beta_rp(m.beta), False).view(2, 6, 10, c).permute(0, 3, 1, 2)
+        torch.testing.assert_close(y, ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("c,ws,h,w,fuse,route", [
+    (192, 8, 16, 24, False, "wba"),
+    (192, 4, 8, 12, True, "wba_proj"),
+    (64, 4, 8, 12, True, "wba"),        # B5 lacks (64, 8): B4 between the Linears
+    (64, 4, 64, 64, True, "raises"),    # ... at 4096 tokens: B5 raises
+    (96, 4, 32, 48, False, "plain"),    # hd 12
+    (512, 2, 8, 12, True, "plain"),     # hd 64
+    (384, 8, 64, 64, False, "raises"),  # hd 48 at 4096 tokens
+])
+def test_window_attention_takes_the_plain_route_where_gated(cuda_device, c, ws, h, w, fuse,
+                                                            route):
+    """``WinBasedAttention`` on the card: B5, B4 or ``wba_plain_route`` by
+    the gate, each counted once; the output equals the CPU module's."""
+    from lic_tpu_torch.layers import WinBasedAttention
+    from lic_tpu_torch.layers.win_attention import wba_plain_route
+
+    gen = torch.Generator().manual_seed(c + ws)
+    m = WinBasedAttention(c, 8, ws, ws // 2, generator=gen)
+    torch.nn.init.normal_(m.attn.proj.weight, 0.0, c ** -0.5, generator=gen)
+    m.attn.fuse_proj = fuse
+    x = _randn(gen, 1, c, h, w).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        ref = m(x)
+        m = m.to(cuda_device)
+        xc = x.to(cuda_device)
+        if route == "raises":
+            with pytest.raises(ValueError, match="head width"):
+                m(xc)
+            return
+        counts = lambda: (window_attention.launches, window_attention_proj.launches,
+                          wba_plain_route.launches)
+        before = counts()
+        y = m(xc)
+        torch.cuda.synchronize()
+        grew = tuple(a - b for a, b in zip(counts(), before))
+        assert grew == {"wba": (1, 0, 0), "wba_proj": (0, 1, 0), "plain": (0, 0, 1)}[route]
+        torch.testing.assert_close(y.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_conv_with_cin_not_multiple_of_4_takes_cudnn(cuda_device):
+    """``Conv2d`` keeps C_in 130 out of both kernel slots: no launch, the
+    cuDNN result."""
+    from lic_tpu_torch.layers import Conv2d
+
+    g = torch.Generator().manual_seed(130)
+    for m, x in ((Conv2d(130, 192, 3, 1, 1, generator=g), _randn(g, 1, 130, 8, 12)),
+                 (Conv2d(130, 192, 5, 2, (1, 2, 1, 2), generator=g), _randn(g, 1, 130, 8, 12))):
+        m = m.to(cuda_device).to(memory_format=torch.channels_last)
+        x = _cl(x, cuda_device)
+        with torch.no_grad():
+            before = (conv5s2.launches, convk_s1.launches)
+            y = m(x)
+            torch.cuda.synchronize()
+            assert (conv5s2.launches, convk_s1.launches) == before
+            pad = m.padding
+            xp = torch.nn.functional.pad(x, pad) if isinstance(pad, tuple) else x
+            ref = torch.nn.functional.conv2d(xp, m.weight, m.bias, m.stride,
+                                             0 if isinstance(pad, tuple) else pad)
+            torch.testing.assert_close(y, ref, atol=TOL, rtol=TOL)

@@ -132,3 +132,51 @@ def test_every_key_filled_and_every_leaf_used_wam():
         sd["g_a.wam1.rb3.conv1.bias"].numpy(), tree["g_a"]["wam1"]["rb3"]["Conv2d_0"]["bias"]
     )
 
+
+
+@pytest.mark.parametrize("name", ["net_ga", "net_unet_ha_hs_dec"])
+def test_flagship_rows_and_every_leaf_used(name):
+    """The flagship rows equal the JAX package's, and their trees map whole:
+    ``LayerNorm`` scale → weight, the depthwise (3, 3, 1, C) kernel → (C, 1,
+    3, 3), WMSA's (2ws-1, 2ws-1, nh) table as it is, ``SubpelConv2d`` and
+    the Swin MLP's ``Dense`` kernels, the blocks' ``Conv2d_i`` names."""
+    assert dataclasses.asdict(PRESETS[name]) == dataclasses.asdict(JPRESETS[name])
+    jm = JCodecModel(jget_config(name, n_override=32))
+    shapes = jax.eval_shape(
+        lambda k: jm.init({"params": k, "noise": jax.random.PRNGKey(1)},
+                          jnp.zeros((1, 64, 64, 3)), training=True),
+        jax.random.PRNGKey(0),
+    )["params"]
+    rng = np.random.default_rng(1)
+    tree = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    sd = params_from_flax(tree, PRESETS[name])
+    model = build_model(name, device="cpu", n_override=32)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    assert len(sd) == len(_flatten(tree))
+    blk = tree["atten_mean_2"]["non_local_block"]["block_2"]
+    pre = "atten_mean.2.non_local_block.block_2."
+    np.testing.assert_array_equal(sd[pre + "ln1.weight"].numpy(), blk["ln1"]["scale"])
+    np.testing.assert_array_equal(sd[pre + "mlp_fc2.weight"].numpy(), blk["mlp_fc2"]["kernel"].T)
+    np.testing.assert_array_equal(sd[pre + "msa.relative_position_params"].numpy(),
+                                  blk["msa"]["relative_position_params"])
+    np.testing.assert_array_equal(sd[pre + "msa.embedding_layer.weight"].numpy(),
+                                  blk["msa"]["embedding_layer"]["kernel"].T)
+    dw = tree["syntax_model"]["dw1"]["depthwise"]["kernel"]  # (3, 3, 1, 32)
+    np.testing.assert_array_equal(sd["syntax_model.dw1.depthwise.weight"].numpy(),
+                                  dw.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["atten_scale.0.gate.ru4.conv2.weight"].numpy(),
+                                  tree["atten_scale_0"]["gate"]["ResidualUnit_4"]["Conv2d_1"]
+                                  ["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["g_a.rbs1.gdn.gamma"].numpy(),
+                                  tree["g_a"]["rbs1"]["GDN_0"]["gamma"])
+    if name == "net_ga":
+        np.testing.assert_array_equal(sd["h_mean_s.up1.weight"].numpy(),
+                                      tree["h_mean_s"]["up1"]["kernel"].transpose(3, 2, 0, 1))
+    else:
+        up4 = tree["h_s"]["body"]["up4b"]["kernel"]  # a 1×1 transposed conv
+        np.testing.assert_array_equal(sd["h_s.body.up4b.weight"].numpy(),
+                                      up4.transpose(2, 3, 0, 1))
+        np.testing.assert_array_equal(sd["h_a.conv2.conv.weight"].numpy(),
+                                      tree["h_a"]["conv2"]["Conv2d_0"]["kernel"]
+                                      .transpose(3, 2, 0, 1))
