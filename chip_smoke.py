@@ -17,7 +17,11 @@ a batch of 8 synthetic 512×768 images, and checks them:
 * ``net_unet_ha_hs_dec`` — the same with the decodable U-Net hyper, whose
   window attention (head widths 12, 16, 32, 64) takes the plain route;
 
-then one ``source_net`` forward in bf16 and one at ``is_high`` (N = 384).
+then one ``source_net`` forward in bf16 and one at ``is_high`` (N = 384),
+``source_net_wam`` at ``is_high`` (head width 48: B4/B5's hd-48
+instantiations), and the training step of ``source_net`` and of
+``source_net_wam`` (B = 8 crops of 256×256), whose kernels' gradients it
+then checks.
 
 Each phase prints one line:
 
@@ -78,6 +82,30 @@ Each phase prints one line:
    time beside the fp32 call's (what widening to fp32 and rounding back
    cost) and cuDNN's bf16 time; then the conv
    kernel's shared memory per CTA, CTAs per SM and ``ptxas`` line.
+
+8. [c3]: B4 and B5 at head width 48 (C 384, 8 heads) against their plain
+   versions at both gate sizes, as in 3; ``source_net_wam`` at ``is_high``:
+   its stages at 128×128 against its CPU run, then one B=8 512×768 forward
+   with B4 and one with ``fuse_proj`` (B5), exact launches, the two within
+   1e-4 of each other;
+9. [train]: ``source_net`` at full width, 6 steps of the port's
+   ``train_step`` (``TrainConfig``'s defaults) on B = 8 random 256×256
+   crops of seeded ``smooth_images`` (no dataset ships with the
+   repository): the first step's launches and backwards against
+   ``EXPECTED``, every loss finite and no step skipped, after the last step
+   each B3/B6 slot's kernel output against the plain version with the
+   updated weights (float64, ``TOL``) and away from the old weights' by
+   more than 10·``TOL``, ms per step (median of steps 2-6; forward /
+   backward / optimizer by CUDA events), images/s, peak memory, and the top
+   kernels of one more step under ``torch.profiler``; [train_wam]:
+   ``source_net_wam``, one step through B4 and one with ``fuse_proj`` (B5),
+   the same checks;
+10. [grad]: at every (kernel, shape) the training steps gave B2-B6, the
+   gradient of a random cotangent through the kernel's autograd.Function
+   against autograd of the plain version in float64 (B2: its closed form
+   in float64) within ``GRAD_TOL`` of each gradient's range (the conv
+   weight gradients ``WGRAD_TOL``), and against the fp32 plain gradient
+   within ``FP32_TOL``.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
 it replaces, launches on the main paths, max error, times and bound, the
@@ -144,7 +172,33 @@ EXPECTED = {
                         "wba": 0, "wba_proj": 0},
     "source_net+is_high": {"gdn": 1, "gdn_plain_route": 6, "drain": 0, "conv5s2": 3,
                            "convk_s1": 0, "wba": 0, "wba_proj": 0},
+    # [c3]: one eval forward each of source_net_wam at is_high (N = 384, 8
+    # heads: head width 48 in all 16 attentions, B4 or B5)
+    "source_net_wam+is_high": {"gdn": 1, "gdn_plain_route": 6, "conv5s2": 3, "wba": 16},
+    "source_net_wam+is_high+fuse_proj": {"gdn": 1, "gdn_plain_route": 6, "conv5s2": 3,
+                                         "wba_proj": 16},
+    # [train], [train_wam]: the forward of one training step, B = 8 at
+    # 256×256; each launch also has its backward through the kernel's
+    # autograd.Function (counted in ``backwards``, held equal to these)
+    "train:source_net": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
+    "train:source_net_wam": {"gdn": 7, "conv5s2": 3, "convk_s1": 61, "wba": 16},
+    "train:source_net_wam+fuse_proj": {"gdn": 7, "conv5s2": 3, "convk_s1": 61,
+                                       "wba_proj": 16},
 }
+TRAIN_BATCH, TRAIN_CROP, TRAIN_STEPS = 8, 256, 6
+# a gradient through a kernel's autograd.Function against autograd of the
+# plain version in float64 on the same inputs and cotangent (B2: its
+# closed form in float64): max |difference| within GRAD_TOL of the
+# reference's largest magnitude.  A conv weight gradient is one fp32 sum
+# of B·H·W = 32,768 products per element in cuDNN's backward (the plain
+# conv's own, and the JAX package's XLA VJP sums in fp32 too): on an H100
+# the 3×3 at 64×64 lands 2.46e-5 of its range off float64, so the B3/B6
+# weight gradients are held at WGRAD_TOL.  Every gradient is also held
+# within FP32_TOL of autograd of the plain version in fp32 (the same cuDNN
+# and matmul calls: the Function's backward is the plain gradient)
+GRAD_TOL = 1e-5
+WGRAD_TOL = 1e-4
+FP32_TOL = 1e-6
 PATHS = ("source_net", "source_net_wam", "net_ga", "net_unet_ha_hs_dec")
 # the bf16 forward against the fp32 one, stage by stage on the same input:
 # within this share of the fp32 stage's largest magnitude (the port's CPU
@@ -428,56 +482,10 @@ def main() -> int:
 
     # ---- 3c. B4 and B5 vs plain at both gate sizes, with the shift mask;
     # library: SDPA (B4), F.linear + SDPA + F.linear (B5) on the windows
-    c, nh = 192, 8
     occ = ("smem_per_cta", "ctas_per_sm")
-    for hp, wp, ws, ss in ((H // 4, W // 4, 8, 4), (H // 16, W // 16, 4, 2)):
-        n, hd = ws * ws, c // nh
-        nwin = BATCH * (hp // ws) * (wp // ws)
-        rel = (0.5 * torch.randn(nh, n, n, generator=g)).to(dev)
-        mask = window_attn.shift_mask(hp, wp, ws, ss, 0, 0, dev)
-        qkv = torch.randn(BATCH, hp, wp, 3 * c, generator=g).to(dev)
-        x = torch.randn(BATCH, hp, wp, c, generator=g).to(dev)
-        wqkv = (torch.randn(3 * c, c, generator=g) * c ** -0.5).to(dev)
-        wproj = (torch.randn(c, c, generator=g) * c ** -0.5).to(dev)
-        bqkv, bproj = torch.randn(3 * c, generator=g).to(dev), torch.randn(c, generator=g).to(dev)
-        amask = (rel[None, None] + mask[None, :, None]).expand(BATCH, -1, -1, -1, -1)
-        amask = amask.reshape(nwin, nh, n, n)
-        heads = lambda t: t.reshape(nwin, n, nh, hd).transpose(1, 2)
-        qkv_w = window_attn.window_partition(qkv, ws)
-        q, kk, v = (heads(qkv_w[..., i * c : (i + 1) * c]) for i in range(3))
-        x_w = window_attn.window_partition(x, ws)
-
-        def sdpa_proj():
-            t = F.linear(x_w, wqkv, bqkv)
-            o = F.scaled_dot_product_attention(
-                heads(t[..., :c]), heads(t[..., c : 2 * c]), heads(t[..., 2 * c :]),
-                attn_mask=amask)
-            return F.linear(o.transpose(1, 2).reshape(nwin, n, c), wproj, bproj)
-
-        flops = nwin * nh * 4 * n * n * hd
-        err, ms, pms, lms, err32 = _vs_plain(
-            f"wba ws{ws}", window_attn.window_attention, window_attn.wba_plain,
-            (qkv, rel, mask, ws, nh),
-            library=lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=amask),
-        )
-        nbytes = _nbytes(qkv, rel, mask) + qkv.numel() // 3 * 4
-        tally["wba"].add(err, ms, pms, lms, nbytes, flops)
-        _say("b4_wba", ws=ws, shift=ss, shape=tuple(qkv.shape), max_abs_err=f"{err:.3g}",
-             vs_fp32_plain=f"{err32:.3g}",
-             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", sdpa_ms=f"{lms:.3f}",
-             **_roofline(ms, lms, nbytes, flops), **dict(zip(occ, window_attn.occupancy(False, ws, hd, c))))
-        flops5 = flops + 2 * nwin * n * c * 4 * c
-        err, ms, pms, lms, err32 = _vs_plain(
-            f"wba_proj ws{ws}", window_attn.window_attention_proj, window_attn.wba_proj_plain,
-            (x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh), library=sdpa_proj,
-        )
-        nbytes = 2 * _nbytes(x) + _nbytes(rel, mask, wqkv, bqkv, wproj, bproj)
-        tally["wba_proj"].add(err, ms, pms, lms, nbytes, flops5)
-        _say("b5_wba_proj", ws=ws, shift=ss, shape=tuple(x.shape), max_abs_err=f"{err:.3g}",
-             vs_fp32_plain=f"{err32:.3g}",
-             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", linear_sdpa_linear_ms=f"{lms:.3f}",
-             **_roofline(ms, lms, nbytes, flops5), **dict(zip(occ, window_attn.occupancy(True, ws, hd, c))))
-        del qkv, x, q, kk, v, qkv_w, x_w, amask
+    _attn_vs_plain(192, 8, g, dev, tally, "")
+    # [c3]: the hd-48 instantiations (source_net_wam at is_high: C 384, 8 heads)
+    _attn_vs_plain(384, 8, g, dev, tally, "c3_")
     for line in window_attn.library.ptxas():
         if "wba" in line:
             _say("b4_b5_ptxas", kernel=repr(line))
@@ -505,8 +513,16 @@ def main() -> int:
             del drains, decoded
         torch.cuda.empty_cache()
 
-    # ---- 5. source_net in bf16 and at is_high, one forward each
+    # ---- 5. source_net in bf16 and at is_high, one forward each; [c3]
+    # source_net_wam at is_high, with and without fuse_proj
     launches.update(_drive_variants(dev, counted, conv_calls))
+    torch.cuda.empty_cache()
+    launches.update(_drive_c3(dev, counted, conv_calls))
+    torch.cuda.empty_cache()
+
+    # ---- [train], [train_wam]: the training step on the card
+    train_shapes = {"gdn": {}, "conv": {}, "attn": {}}
+    launches.update(_drive_train(dev, counted, train_shapes))
     torch.cuda.empty_cache()
     for run, want in EXPECTED.items():
         want = {k: want.get(k, 0) for k in counted}
@@ -605,6 +621,11 @@ def main() -> int:
         _say("b3_b6_ptxas", kernel=repr(line))
     torch.cuda.empty_cache()
 
+    # ---- [grad]: each kernel's backward at every shape the training paths
+    # gave it
+    _grad_checks(train_shapes, dev, g)
+    torch.cuda.empty_cache()
+
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lic_tpu"))
     if bad:
         raise AssertionError(f"the port imported the JAX package or jax: {bad[:5]}")
@@ -638,6 +659,507 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def _attn_vs_plain(c, nh, g, dev, tally, tag):
+    """B4 and B5 against their plain versions (float64) at both gate sizes
+    of a B=8 512×768 map of width ``c`` over ``nh`` heads, with the shift
+    mask; library: SDPA (B4), F.linear + SDPA + F.linear (B5) on the
+    windows.  Each shape's line goes out under ``tag`` + b4_wba / b5_wba_proj."""
+    import torch
+    import torch.nn.functional as F
+
+    from lic_tpu_torch.layers import window_attn
+
+    occ = ("smem_per_cta", "ctas_per_sm")
+    for hp, wp, ws, ss in ((H // 4, W // 4, 8, 4), (H // 16, W // 16, 4, 2)):
+        n, hd = ws * ws, c // nh
+        nwin = BATCH * (hp // ws) * (wp // ws)
+        rel = (0.5 * torch.randn(nh, n, n, generator=g)).to(dev)
+        mask = window_attn.shift_mask(hp, wp, ws, ss, 0, 0, dev)
+        qkv = torch.randn(BATCH, hp, wp, 3 * c, generator=g).to(dev)
+        x = torch.randn(BATCH, hp, wp, c, generator=g).to(dev)
+        wqkv = (torch.randn(3 * c, c, generator=g) * c ** -0.5).to(dev)
+        wproj = (torch.randn(c, c, generator=g) * c ** -0.5).to(dev)
+        bqkv, bproj = torch.randn(3 * c, generator=g).to(dev), torch.randn(c, generator=g).to(dev)
+        amask = (rel[None, None] + mask[None, :, None]).expand(BATCH, -1, -1, -1, -1)
+        amask = amask.reshape(nwin, nh, n, n)
+        heads = lambda t: t.reshape(nwin, n, nh, hd).transpose(1, 2)
+        qkv_w = window_attn.window_partition(qkv, ws)
+        q, kk, v = (heads(qkv_w[..., i * c : (i + 1) * c]) for i in range(3))
+        x_w = window_attn.window_partition(x, ws)
+
+        def sdpa_proj():
+            t = F.linear(x_w, wqkv, bqkv)
+            o = F.scaled_dot_product_attention(
+                heads(t[..., :c]), heads(t[..., c : 2 * c]), heads(t[..., 2 * c :]),
+                attn_mask=amask)
+            return F.linear(o.transpose(1, 2).reshape(nwin, n, c), wproj, bproj)
+
+        flops = nwin * nh * 4 * n * n * hd
+        err, ms, pms, lms, err32 = _vs_plain(
+            f"wba ws{ws} C{c}", window_attn.window_attention, window_attn.wba_plain,
+            (qkv, rel, mask, ws, nh),
+            library=lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=amask),
+        )
+        nbytes = _nbytes(qkv, rel, mask) + qkv.numel() // 3 * 4
+        tally["wba"].add(err, ms, pms, lms, nbytes, flops)
+        _say(f"{tag}b4_wba", ws=ws, shift=ss, shape=tuple(qkv.shape), head_dim=hd,
+             max_abs_err=f"{err:.3g}", vs_fp32_plain=f"{err32:.3g}",
+             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", sdpa_ms=f"{lms:.3f}",
+             **_roofline(ms, lms, nbytes, flops),
+             **dict(zip(occ, window_attn.occupancy(False, ws, hd, c))))
+        flops5 = flops + 2 * nwin * n * c * 4 * c
+        err, ms, pms, lms, err32 = _vs_plain(
+            f"wba_proj ws{ws} C{c}", window_attn.window_attention_proj,
+            window_attn.wba_proj_plain,
+            (x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh), library=sdpa_proj,
+        )
+        nbytes = 2 * _nbytes(x) + _nbytes(rel, mask, wqkv, bqkv, wproj, bproj)
+        tally["wba_proj"].add(err, ms, pms, lms, nbytes, flops5)
+        _say(f"{tag}b5_wba_proj", ws=ws, shift=ss, shape=tuple(x.shape), head_dim=hd,
+             max_abs_err=f"{err:.3g}", vs_fp32_plain=f"{err32:.3g}",
+             ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}", linear_sdpa_linear_ms=f"{lms:.3f}",
+             **_roofline(ms, lms, nbytes, flops5),
+             **dict(zip(occ, window_attn.occupancy(True, ws, hd, c))))
+        del qkv, x, q, kk, v, qkv_w, x_w, amask
+    torch.cuda.empty_cache()
+
+
+def _counted_forward(model, counters, conv_calls, run, fn):
+    """``fn()`` under no_grad with every counter zeroed just before and read
+    just after, and the model's B3/B6 calls recorded under ``run``; the
+    output checked finite and of the full shape.  → (output, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    hooks = _record_conv_slots(model, conv_calls, run)
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    counts = {k: c.launches for k, c in counters.items()}
+    _hooks_agree(run, counts, conv_calls)
+    if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
+        raise AssertionError(f"{run}: non-finite forward output")
+    if out.x_tilde.shape != (BATCH, 3, H, W):
+        raise AssertionError(f"{run}: shape {tuple(out.x_tilde.shape)}")
+    return out, counts
+
+
+def _drive_c3(dev, counters, conv_calls):
+    """[c3] ``source_net_wam`` at ``is_high`` (N = 384 over 8 heads: head
+    width 48 in every attention): its stages at 128×128 against its CPU
+    run (plain versions) within 1e-4, then one B=8 512×768 eval forward
+    with B4 and one with ``fuse_proj`` (B5), launches counted, g_a's latent
+    and the synthesis of one latent within 1e-4 of each other.  → {run:
+    launches}."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.layers import WindowAttention
+    from lic_tpu_torch.models import build_model
+
+    model = build_model("source_net_wam", device=dev, seed=SEED, is_high=True)
+    cpu_model = build_model("source_net_wam", device="cpu", seed=SEED, is_high=True)
+    woken = _wake_zero_leaves(model, cpu_model)
+    x_np = smooth_images(np.random.default_rng(SEED), BATCH, H, W)
+    x = torch.from_numpy(x_np).to(dev).contiguous(memory_format=torch.channels_last)
+    small = torch.from_numpy(x_np[:1, :, :128, :128].copy())
+    errs = _small_vs_cpu(model, cpu_model, small, dev)
+    if max(errs.values()) > RECON_TOL:
+        raise AssertionError(f"c3: GPU stages disagree with the CPU run: {errs}")
+    del cpu_model
+    attn = [m for m in model.modules() if isinstance(m, WindowAttention)]
+    runs, mp = {}, BATCH * H * W / 1e6
+    out, runs["source_net_wam+is_high"] = _counted_forward(
+        model, counters, conv_calls, "source_net_wam+is_high", lambda: model(x))
+    with torch.no_grad():
+        z3 = model.analyze(x)
+        syn = model.syntax_from_latent(z3)
+        rec = model.synthesize(out.extras["y_hat"], syn)
+        ms = _cuda_ms(lambda: model(x), 2)
+        for m in attn:
+            m.fuse_proj = True
+        out5, runs["source_net_wam+is_high+fuse_proj"] = _counted_forward(
+            model, counters, conv_calls, "source_net_wam+is_high+fuse_proj", lambda: model(x))
+        fz = {"z3": float((model.analyze(x) - z3).abs().max()),
+              "synthesis": float((model.synthesize(out.extras["y_hat"], syn) - rec).abs().max())}
+        ms5 = _cuda_ms(lambda: model(x), 2)
+    if max(fz.values()) > RECON_TOL:
+        raise AssertionError(f"c3: the fuse_proj forward differs: {fz}")
+    _say("c3_forward", preset="source_net_wam", is_high=True, N=model.cfg.N, head_dim=48,
+         leaves_woken=woken, small_vs_cpu_max_err=f"{max(errs.values()):.3g}",
+         fuse_proj_vs_b4=json.dumps({k: float(f"{v:.3g}") for k, v in fz.items()}),
+         launches=runs["source_net_wam+is_high"],
+         launches_fuse_proj=runs["source_net_wam+is_high+fuse_proj"],
+         bpp_est=f"{float(out.bpp):.4f}", forward_ms=f"{ms:.2f}", forward_mps=f"{mp / ms * 1e3:.2f}",
+         forward_fuse_proj_ms=f"{ms5:.2f}", batch=BATCH, shape=f"{H}x{W}", weights="UNTRAINED")
+    return runs
+
+
+def _small_vs_cpu(model, cpu_model, small, dev):
+    """z3, μ0, σ0 and the reconstruction of ``model`` (on the card) against
+    ``cpu_model`` on the same 1-image input and the same decoded values.
+    → {stage: max abs difference}."""
+    import torch
+
+    with torch.no_grad():
+        ref = cpu_model(small)
+        z3c = cpu_model.analyze(small)
+        z3g = model.analyze(small.to(dev).contiguous(memory_format=torch.channels_last))
+        med = cpu_model.eb_medians()[None, :, None, None]
+        z_hat = torch.round(cpu_model.hyper_encode(z3c) - med) + med
+        s_c, m_c = cpu_model.hyper_decode(z_hat)
+        s_g, m_g = model.hyper_decode(z_hat.to(dev).contiguous(memory_format=torch.channels_last))
+        mu_c, sg_c, _ = cpu_model.charm_entropy_params(m_c, s_c, [], 0)
+        mu_g, sg_g, _ = model.charm_entropy_params(m_g, s_g, [], 0)
+        syn = cpu_model.syntax_from_latent(z3c)
+        rec_g = model.synthesize(ref.extras["y_hat"].to(dev), syn.to(dev))
+        errs = {"z3": (z3g.cpu() - z3c), "mu0": (mu_g.cpu() - mu_c),
+                "sigma0": (sg_g.cpu() - sg_c), "rec": (rec_g.cpu() - ref.x_tilde)}
+    return {k: float(v.abs().max()) for k, v in errs.items()}
+
+
+def _train_batch(dev):
+    """B = 8 random 256×256 crops of seeded ``smooth_images`` (512×768), NCHW
+    channels_last on ``dev``: no dataset ships with the repository."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+
+    rng = np.random.default_rng(SEED + 3)
+    imgs = smooth_images(rng, TRAIN_BATCH, H, W)
+    crops = []
+    for im in imgs:
+        top, left = int(rng.integers(0, H - TRAIN_CROP + 1)), int(rng.integers(0, W - TRAIN_CROP + 1))
+        crops.append(im[:, top : top + TRAIN_CROP, left : left + TRAIN_CROP])
+    return torch.from_numpy(np.stack(crops)).to(dev).contiguous(memory_format=torch.channels_last)
+
+
+def _record_train_shapes(model, shapes):
+    """Pre-hooks recording every GDN call B2 takes (rows, C, inverse) and
+    every window attention (route, NHWC shape, ws, heads, masked) into
+    ``shapes``, with its count; the B3/B6 calls go through
+    ``_record_conv_slots``.  → handles."""
+    from lic_tpu_torch.layers import GDN, WindowAttention
+    from lic_tpu_torch.layers.gdn import b2_takes
+
+    def bump(d, key):
+        d[key] = d.get(key, 0) + 1
+
+    def gdn_hook(m, args):
+        b, c, h, w = args[0].shape
+        if b2_takes(c):
+            bump(shapes["gdn"], (b * h * w, c, m.inverse))
+
+    def attn_hook(m, args):
+        x, mask = args
+        bump(shapes["attn"], (m.route(x), tuple(x.shape), m.window_size, m.num_heads,
+                              mask is not None))
+
+    return ([m.register_forward_pre_hook(gdn_hook) for m in model.modules()
+             if isinstance(m, GDN)]
+            + [m.register_forward_pre_hook(attn_hook) for m in model.modules()
+               if isinstance(m, WindowAttention)])
+
+
+def _drive_train(dev, counters, shapes):
+    """[train]: ``source_net`` at full width, ``TRAIN_STEPS`` steps of the
+    port's ``train_step`` (``TrainConfig``'s defaults: λ 0.0025, Adam 1e-4
+    after a clip at 1.0, aux Adam 1e-3) on B = 8 256×256 crops.
+    [train_wam]: ``source_net_wam``, one step through B4 and one with
+    ``fuse_proj`` (B5).  Each run: the first step's kernel launches (and
+    backwards, equal to them) against ``EXPECTED``, its kernel shapes
+    recorded for [grad]; every loss finite and no step skipped; after the
+    last step each B3/B6 slot's kernel output equals the plain version
+    with the updated weights (float64, ``TOL``) and differs from the one
+    with the weights before that step.  ``source_net`` also reports ms
+    per step (median of steps 2-6; forward / backward / optimizer by CUDA
+    events), images/s, peak memory, and the top kernels of a profiled
+    extra step.  → {run: launches}."""
+    import torch
+
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.layers import WindowAttention, conv_direct
+    from lic_tpu_torch.layers.conv import Conv2d
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    batch = _train_batch(dev)
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    runs = {}
+    for preset, routes in (("source_net", [False] * TRAIN_STEPS),
+                           ("source_net_wam", [False, True])):
+        model = build_model(preset, device=dev, seed=SEED).train()
+        tc = TrainConfig()
+        opt = make_optimizer(model, tc, steps_per_epoch=1000)
+        state = create_state(model, opt, tc.seed)
+        step_fn = make_train_step(model, tc, opt)
+        attn = [m for m in model.modules() if isinstance(m, WindowAttention)]
+        slots = {}  # Conv2d module → an input shape it took a kernel slot with
+
+        def slot_hook(m, args, kwargs):
+            if m.kernel_slot(args[0]) is not None:
+                slots[m] = tuple(args[0].shape)
+
+        times, losses = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i, fuse in enumerate(routes):
+            for m in attn:
+                m.fuse_proj = fuse
+            run = f"train:{preset}" + ("+fuse_proj" if fuse else "")
+            first = run not in runs
+            if i == len(routes) - 1:
+                before = {m: m.weight.detach().clone() for m in slots}
+            hooks = []
+            if first:
+                hooks = (_record_conv_slots(model, shapes["conv"], run)
+                         + _record_train_shapes(model, shapes)
+                         + [m.register_forward_pre_hook(slot_hook, with_kwargs=True)
+                            for m in model.modules() if isinstance(m, Conv2d)])
+            torch.cuda.synchronize()
+            for k, c in counters.items():
+                c.launches = 0
+                if hasattr(c, "backwards"):
+                    c.backwards = 0
+            ev = {}
+
+            def mark(name):
+                ev[name] = torch.cuda.Event(enable_timing=True)
+                ev[name].record()
+
+            metrics = step_fn(state, batch, on_phase=mark)
+            torch.cuda.synchronize()
+            for h in hooks:
+                h.remove()
+            if first:
+                runs[run] = {k: c.launches for k, c in counters.items()}
+                back = {k: counters[k].backwards for k in kernels}
+                if back != {k: runs[run][k] for k in kernels}:
+                    raise AssertionError(f"{run}: backwards {back} != launches {runs[run]}")
+            loss = float(metrics["loss"])
+            if not (torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["aux"])) \
+                    or float(metrics["skipped"]):
+                raise AssertionError(f"{run} step {i + 1}: loss {loss}, "
+                                     f"skipped {float(metrics['skipped'])}")
+            losses.append(loss)
+            phases = ("start", "forward", "backward", "optimizer")
+            times.append([ev[a].elapsed_time(ev[b]) for a, b in zip(phases, phases[1:])])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the weight cache: B3/B6 read the weights the last step wrote
+        worst_new, least_old = 0.0, float("inf")
+        with torch.no_grad():
+            for m, xs in slots.items():
+                gen = torch.Generator().manual_seed(len(xs) + xs[1])
+                x = torch.randn(xs, generator=gen).to(dev).contiguous(
+                    memory_format=torch.channels_last)
+                y = m(x)
+                slot = m.kernel_slot(x)
+                plain = getattr(conv_direct, f"{slot}_plain")
+                extra = (m.fused_act,) if slot == "convk_s1" else ()
+                b64 = None if m.bias is None else m.bias.double()
+                ref = plain(x.double(), m.weight.double(), b64, *extra)
+                old = plain(x.double(), before[m].double(), b64, *extra)
+                torch.testing.assert_close(y.double(), ref, atol=TOL, rtol=TOL,
+                                           msg=lambda s: f"{preset} {slot} after the step: {s}")
+                worst_new = max(worst_new, float((y.double() - ref).abs().max()))
+                least_old = min(least_old, float((y.double() - old).abs().max()))
+        if not least_old > 10 * TOL:
+            raise AssertionError(f"{preset}: a B3/B6 output did not move with its weights "
+                                 f"({least_old:.3g})")
+        line = dict(preset=preset, batch=TRAIN_BATCH, crop=TRAIN_CROP, steps=len(routes),
+                    losses=json.dumps([round(v, 4) for v in losses]), skipped=0,
+                    launches={r: n for r, n in runs.items() if r.startswith(f"train:{preset}")},
+                    b3_b6_slots_checked=len(slots),
+                    b3_b6_after_step_max_err=f"{worst_new:.3g}",
+                    b3_b6_vs_old_weights_min_diff=f"{least_old:.3g}",
+                    peak_mem_gib=f"{peak:.2f}")
+        if preset == "source_net":
+            med = sorted(times[1:], key=sum)[len(times[1:]) // 2]
+            step_ms = sum(med)
+            line.update(step_ms=f"{step_ms:.2f}", forward_ms=f"{med[0]:.2f}",
+                        backward_ms=f"{med[1]:.2f}", optimizer_ms=f"{med[2]:.2f}",
+                        images_per_s=f"{TRAIN_BATCH / step_ms * 1e3:.1f}",
+                        all_step_ms=json.dumps([round(sum(t), 2) for t in times]))
+            _say("train", **line)
+            _profile_step(step_fn, state, batch, step_ms)
+        else:
+            line.update(step_ms=json.dumps([round(sum(t), 2) for t in times]),
+                        routes=json.dumps(["b4", "b5"]))
+            _say("train_wam", **line)
+        del model, opt, state, step_fn
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _profile_step(step_fn, state, batch, step_ms, top=6):
+    """One more step under ``torch.profiler``: its device time by phase
+    (forward, backward, optimizer: each kernel counted in the phase whose
+    host interval launched it, between ``record_function`` marks at the
+    phase ends), the device's busy share of an unprofiled step (device time
+    over ``step_ms``, the median step; the profiler slows the host), and
+    each phase's ``top``
+    kernels by device time, labelled with the op that launched them (a
+    transposed conv's gradient as ``convolution_backward[transposed]``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def mark(name):
+        with record_function(f"mark:{name}"):
+            pass
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step_fn(state, batch, on_phase=mark)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    at = {e.name[5:]: e.time_range.start for e in events if e.name.startswith("mark:")}
+    phases = ("forward", "backward", "optimizer")
+    ends = [at[p] for p in phases]
+    agg, by_phase = {}, dict.fromkeys(phases, 0.0)
+    for e in events:
+        if not getattr(e, "kernels", None) or e.name.startswith("mark:"):
+            continue
+        if not at["start"] <= e.time_range.start <= ends[-1]:
+            continue
+        phase = next(p for p, end in zip(phases, ends) if e.time_range.start <= end)
+        op = e.name
+        args = getattr(e, "concrete_inputs", None) or []
+        if op == "aten::convolution_backward" and len(args) > 7 and args[7] is True:
+            op += "[transposed]"
+        for k in e.kernels:
+            key = (phase, op, k.name)
+            t, n = agg.get(key, (0.0, 0))
+            agg[key] = (t + k.duration / 1e3, n + 1)
+            by_phase[phase] += k.duration / 1e3
+    busy = sum(by_phase.values())
+    if busy == 0.0:
+        raise AssertionError("the profiler saw no device time in the training step")
+    _say("train_profile", device_ms=f"{busy:.2f}", wall_ms_profiled=f"{wall_ms:.2f}",
+         busy_share_of_median_step=f"{busy / step_ms:.3f}",
+         **{f"{p}_device_ms": f"{t:.2f}" for p, t in by_phase.items()},
+         note="an extra (7th) step, profiled")
+    for phase in phases:
+        rows = sorted(((k, v) for k, v in agg.items() if k[0] == phase), key=lambda kv: -kv[1][0])
+        for (_, op, name), (t, n) in rows[:top]:
+            _say("train_profile_kernel", step_phase=phase, ms=f"{t:.3f}", calls=n,
+                 share_of_phase=f"{t / max(by_phase[phase], 1e-9):.3f}", op=op,
+                 kernel=repr(name[:90]))
+
+
+def _grad_checks(shapes, dev, g):
+    """[grad]: at every (kernel, shape) the training steps recorded, the
+    gradient of a random cotangent through the kernel's autograd.Function
+    against autograd of its plain version in float64 (B2: its closed form
+    in float64), within ``GRAD_TOL`` of the reference's largest magnitude,
+    for every input; each call runs one backward (``backwards``)."""
+    import torch
+
+    from lic_tpu_torch.layers import conv_direct, gdn as gdn_mod, window_attn
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    def share(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-300))
+
+    def case(name, counter, fn, plain, tensors, closed=None, weight_at=None, **info):
+        ins = [t.detach().requires_grad_() for t in tensors]
+        b0 = counter.backwards
+        y = fn(*ins)
+        cot = torch.randn(y.shape, generator=g).to(dev)
+        got = torch.autograd.grad(y, ins, cot)
+        torch.cuda.synchronize()
+        if counter.backwards != b0 + 1:
+            raise AssertionError(f"{name}: {counter.backwards - b0} backwards, expected 1")
+        if closed is not None:
+            ref32 = closed(cot, *[t.detach() for t in tensors])
+            ref = closed(cot.double(), *[t.detach().double() for t in tensors])
+        else:
+            ins32 = [t.detach().requires_grad_() for t in tensors]
+            ref32 = torch.autograd.grad(plain(*ins32), ins32, cot)
+            ins64 = [t.detach().double().requires_grad_() for t in tensors]
+            ref = torch.autograd.grad(plain(*ins64), ins64, cot.double())
+        errs = [share(a, b) for a, b in zip(got, ref)]
+        errs32 = [share(a, b) for a, b in zip(got, ref32)]
+        tols = [WGRAD_TOL if i == weight_at else GRAD_TOL for i in range(len(errs))]
+        if any(e > t for e, t in zip(errs, tols)) or max(errs32) > FP32_TOL:
+            raise AssertionError(f"{name} {info}: gradients off float64 by {errs}, off the "
+                                 f"fp32 plain gradient by {errs32} (shares of their range)")
+        _say("grad", kernel=name, **info, inputs=len(ins),
+             err_share_vs_f64=json.dumps([float(f"{e:.3g}") for e in errs]),
+             err_share_vs_fp32_plain=f"{max(errs32):.3g}",
+             identical_to_fp32_plain=all(torch.equal(a, b) for a, b in zip(got, ref32)),
+             backwards=1)
+        return max(e for i, e in enumerate(errs) if i != weight_at)
+
+    worst = {}
+    for (rows, c, inv), n in sorted(shapes["gdn"].items()):
+        gamma = 0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=g)
+        e = case("gdn", gdn_mod.gdn_fused, lambda x, gm, bt: gdn_mod.gdn_fused(x, gm, bt, inv),
+                 None, [randn(rows, c), gamma.to(dev), (1.0 + torch.rand(c, generator=g)).to(dev)],
+                 closed=lambda cot, x, gm, bt: gdn_mod.gdn_plain_backward(cot, x, gm, bt, inv),
+                 rows=rows, C=c, inverse=inv, train_calls=n)
+        worst["gdn"] = max(worst.get("gdn", 0.0), e)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+    for (slot, xs, ws_, has_bias, act, has_res), by_run in sorted(
+            shapes["conv"].items(), key=lambda kv: str(kv[0])):
+        b, cin, hh, ww = xs
+        cout, _, k, _ = ws_
+        ts = [cl(randn(*xs)), cl(randn(*ws_, scale=(cin * k * k) ** -0.5))]
+        if has_bias:
+            ts.append(randn(cout))
+        if slot == "conv5s2":
+            fn = lambda x, w, *bb: conv_direct.conv5s2(x, w, *bb)
+            plain = lambda x, w, *bb: conv_direct.conv5s2_plain(x, w, *bb)
+        else:
+            if has_res:
+                ts.append(cl(randn(b, cout, hh, ww)))
+
+            def split(t):
+                bias = t[2] if has_bias else None
+                res = t[-1] if has_res else None
+                return t[0], t[1], bias, act, res
+
+            fn = lambda *t: conv_direct.convk_s1(*split(t))
+            plain = lambda *t: conv_direct.convk_s1_plain(*split(t))
+        e = case(slot, getattr(conv_direct, slot), fn, plain, ts, weight_at=1, shape=xs,
+                 c_out=cout, k=k, bias=has_bias, act=act, residual=has_res, train_calls=by_run)
+        worst[slot] = max(worst.get(slot, 0.0), e)
+    for (route, xs, ws, nh, masked), n in sorted(shapes["attn"].items(), key=str):
+        b, hp, wp, c = xs
+        nn_ = ws * ws
+        mask = window_attn.shift_mask(hp, wp, ws, ws // 2, 0, 0, dev) if masked else None
+        rel = randn(nh, nn_, nn_, scale=0.5)
+        if route == "wba":
+            e = case("wba", window_attn.window_attention,
+                     lambda q, r: window_attn.window_attention(q, r, mask, ws, nh),
+                     lambda q, r: window_attn.wba_plain(q, r, mask, ws, nh),
+                     [randn(b, hp, wp, 3 * c), rel], shape=(b, hp, wp, 3 * c), ws=ws, heads=nh,
+                     masked=masked, train_calls=n)
+        elif route == "wba_proj":
+            ts = [randn(*xs), rel, randn(3 * c, c, scale=c ** -0.5), randn(3 * c),
+                  randn(c, c, scale=c ** -0.5), randn(c)]
+            e = case("wba_proj", window_attn.window_attention_proj,
+                     lambda *t: window_attn.window_attention_proj(*t, mask, ws, nh),
+                     lambda *t: window_attn.wba_proj_plain(*t, mask, ws, nh),
+                     ts, shape=xs, ws=ws, heads=nh, masked=masked, train_calls=n)
+        else:
+            raise AssertionError(f"a training attention took the {route} route")
+        worst[route] = max(worst.get(route, 0.0), e)
+    if set(worst) != {"gdn", "conv5s2", "convk_s1", "wba", "wba_proj"}:
+        raise AssertionError(f"[grad] covered only {sorted(worst)}")
+    _say("grad_summary", **{k: f"{v:.3g}" for k, v in worst.items()}, tol=GRAD_TOL,
+         note="worst share of range off float64, conv weight gradients aside")
 
 
 def _wake_zero_leaves(*models):
@@ -687,21 +1209,7 @@ def _drive_variants(dev, counters, conv_calls):
     runs, mp = {}, BATCH * H * W / 1e6
 
     def counted(run, fn):
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        hooks = _record_conv_slots(model, conv_calls, run)
-        with torch.no_grad():
-            out = fn()
-        torch.cuda.synchronize()
-        for h in hooks:
-            h.remove()
-        runs[run] = {k: c.launches for k, c in counters.items()}
-        _hooks_agree(run, runs[run], conv_calls)
-        if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
-            raise AssertionError(f"{run}: non-finite forward output")
-        if out.x_tilde.shape != (BATCH, 3, H, W):
-            raise AssertionError(f"{run}: shape {tuple(out.x_tilde.shape)}")
+        out, runs[run] = _counted_forward(model, counters, conv_calls, run, fn)
         return out
 
     # bf16: the whole model and its input cast, as the JAX bf16_params run
@@ -730,25 +1238,10 @@ def _drive_variants(dev, counters, conv_calls):
     # is_high: N = 384; its GDNs take the plain route, B3 runs at C_in 384
     model = build_model("source_net", device=dev, seed=SEED, is_high=True)
     cpu_model = build_model("source_net", device="cpu", seed=SEED, is_high=True)
-    small = torch.from_numpy(x_np[:1, :, :128, :128].copy())
+    errs = _small_vs_cpu(model, cpu_model, torch.from_numpy(x_np[:1, :, :128, :128].copy()), dev)
+    if max(errs.values()) > RECON_TOL:
+        raise AssertionError(f"is_high: GPU stages disagree with the CPU run: {errs}")
     with torch.no_grad():
-        ref = cpu_model(small)
-        z3c = cpu_model.analyze(small)
-        gpu_small = small.to(dev).contiguous(memory_format=torch.channels_last)
-        z3g = model.analyze(gpu_small)
-        med = cpu_model.eb_medians()[None, :, None, None]
-        z_hat = torch.round(cpu_model.hyper_encode(z3c) - med) + med
-        s_c, m_c = cpu_model.hyper_decode(z_hat)
-        s_g, m_g = model.hyper_decode(z_hat.to(dev).contiguous(memory_format=torch.channels_last))
-        mu_c, sg_c, _ = cpu_model.charm_entropy_params(m_c, s_c, [], 0)
-        mu_g, sg_g, _ = model.charm_entropy_params(m_g, s_g, [], 0)
-        syn = cpu_model.syntax_from_latent(z3c)
-        rec_g = model.synthesize(ref.extras["y_hat"].to(dev), syn.to(dev))
-        errs = {"z3": (z3g.cpu() - z3c), "mu0": (mu_g.cpu() - mu_c),
-                "sigma0": (sg_g.cpu() - sg_c), "rec": (rec_g.cpu() - ref.x_tilde)}
-        errs = {k: float(v.abs().max()) for k, v in errs.items()}
-        if max(errs.values()) > RECON_TOL:
-            raise AssertionError(f"is_high: GPU stages disagree with the CPU run: {errs}")
         out = counted("source_net+is_high", lambda: model(x))
         ms = _cuda_ms(lambda: model(x), 3)
     _say("forward", preset="source_net", is_high=True, N=model.cfg.N, finite=True,

@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, which stays the reference every
 module here is tested against.  It covers the serving paths of the
-``source_net`` and ``source_net_wam`` presets: the eval-mode forward and
-the real bitstream roundtrip (``models.compress.ChannelCoder``).  The
-kernels on those paths are written by hand for Hopper and built from this
-package's sources at first use:
+``source_net``, ``source_net_wam``, ``net_ga`` and ``net_unet_ha_hs_dec``
+presets (the eval-mode forward and the real bitstream roundtrip,
+``models.compress.ChannelCoder``) and their training (``training``,
+``cli.train``).  The kernels on those paths are written by hand for Hopper
+and built from this package's sources at first use:
 
 * B1, the interleaved rANS drain, CUDA C++ (``csrc/rans_drain.cu``, wrapper
   ``coding.drain``);
@@ -19,7 +20,9 @@ package's sources at first use:
 
 Each kernel has a plain PyTorch version beside it; a wrapper takes the
 plain version only for tensors on the CPU and launches the kernel (or
-raises) for CUDA tensors.  The host rANS coder is the port's own copy of
+raises) for CUDA tensors.  Under autograd, B2-B6 run through a
+``torch.autograd.Function`` each: the kernel forward, the plain gradient
+backward.  The host rANS coder is the port's own copy of
 the C++ coder (``csrc/rans.cpp``), built with ``g++``.
 
 Layout: modules take NCHW tensors in ``channels_last`` memory, the same

@@ -1,15 +1,17 @@
-"""Typed configuration of the codecs: the port's copy of ``CodecConfig``.
+"""Typed configuration: the port's copies of ``CodecConfig`` and
+``TrainConfig``.
 
-A copy of ``lic_tpu/config.py:17-134`` (plain dataclasses), kept here so
+Copies of ``lic_tpu/config.py:17-165`` (plain dataclasses), kept here so
 that the port imports nothing of the JAX package.  Tests hold every field
-of the port's presets equal to the JAX package's rows.
+of the port's presets, and ``TrainConfig``'s defaults, equal to the JAX
+package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -130,3 +132,31 @@ class CodecConfig:
 
     def replace(self, **kw) -> "CodecConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (reference defaults from
+    ``train_net_unet.py:125-134,273-290``)."""
+
+    lmbda: float = 0.0025
+    lr: float = 1e-4
+    batch_size: int = 8
+    crop_size: int = 256
+    epochs: int = 5000
+    lr_milestones: Tuple[int, ...] = (1500, 2500, 3500, 4000)
+    lr_gamma: float = 0.5
+    grad_clip_norm: float = 1.0
+    # post-processing-only phase (AdamW): train_net_unet.py:125-130
+    pp_epochs: int = 1500
+    pp_milestones: Tuple[int, ...] = (1200, 1350)
+    loss_type: str = "mse"        # 'mse' | 'msssim' (train_net_unet.py:83-85)
+    seed: int = 0
+    ckpt_every_epochs: int = 100
+    aux_lr: float = 1e-3          # factorized-prior quantiles (aux loss)
+    # decoupled weight decay for the base phase (0 = reference-parity
+    # plain Adam)
+    weight_decay: float = 0.0
+    # multi-rate training for gain-unit models: one λ per gain unit.
+    # Empty = single-rate (every reference-parity run).
+    lmbda_list: Tuple[float, ...] = ()

@@ -42,7 +42,8 @@
 // neighbouring threads on neighbouring addresses, while the round before
 // computes (two stages); the outputs go through shared memory, so that
 // each token's head slice leaves as whole 16-byte vectors.  About 98 KB of
-// shared memory: two CTAs per SM.
+// shared memory at hd 24: two CTAs per SM; 182 KB at hd 48 (source_net_wam
+// at is_high, N = 384 over 8 heads): one.
 //
 // B5: a CTA of 256 threads takes 64 tokens and runs the heads one after
 // another.  Per head, K-chunks of 32 input channels of x and of the head's
@@ -57,7 +58,11 @@
 // columns a thread) over K-chunks of W_proj.  An output accumulator held in
 // registers across the heads does not fit: with the attention's live
 // values it needs more than the 128 registers a thread has at two CTAs per
-// SM, and ptxas spilled it.  About 109 KB of shared memory: two CTAs per SM.
+// SM, and ptxas spilled it.  About 109 KB of shared memory at C = 192: two
+// CTAs per SM.  At C = 384 (hd 48) o alone takes 99 KB and the whole CTA
+// 205 KB: one CTA per SM, and the launch bounds then let a thread keep 255
+// registers (min_blocks).  There K-group 1's 4 x 18 qkv sums no longer fit
+// in one stage, so it hands them over in two passes of 9 columns.
 //
 // The shift/pad mask is additive (-100, not -inf, as the reference's) and
 // the softmax takes each head's own row max, so no head's row underflows.
@@ -74,6 +79,11 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NT = 256;  // threads per CTA, both kernels
 constexpr int M = 64;    // tokens per CTA, both kernels
+
+// CTAs per SM that the launch bounds ask registers for: two where two CTAs'
+// shared memory (and the 1 KB the runtime reserves for each) fits in the
+// SM's 228 KB, else one (hd 48, where a CTA takes 180-210 KB)
+constexpr int min_blocks(size_t smem) { return 2 * (smem + 1024) <= 228 * 1024 ? 2 : 1; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -266,10 +276,11 @@ struct Wba {
   static constexpr int RPT = HD == 8 ? 2 : 4, T = N / RPT * 8, TEAMS = NT / T, WPC = M / N;
   static constexpr int S = HD + 4, TILE = 3 * N * S, STAGE = TEAMS * TILE;
   static constexpr size_t SMEM = (2 * STAGE + TEAMS * N * S) * sizeof(float) + M * sizeof(int);
+  static constexpr int MINB = min_blocks(SMEM);
 };
 
 template <int N, int HD>
-__global__ void __launch_bounds__(NT, 2) wba_kernel(
+__global__ void __launch_bounds__(NT, Wba<N, HD>::MINB) wba_kernel(
     const float* __restrict__ qkv, const float* __restrict__ rel,
     const float* __restrict__ mask, float* __restrict__ out, int nwin, int nW, int Hp,
     int Wp, int nh, int ws, float scale) {
@@ -353,13 +364,17 @@ struct WbaProj {
   static constexpr int AREA = 2 * STAGE + 3 * M * S > 2 * PSTAGE ? 2 * STAGE + 3 * M * S
                                                                 : 2 * PSTAGE;
   static constexpr size_t SMEM = sizeof(float) * ((size_t)M * OS + AREA) + M * sizeof(int);
+  static constexpr int MINB = min_blocks(SMEM);
+  // K-group 1 hands its 4 x QC sums to K-group 0 through one stage, in HP
+  // passes of QH columns where they do not fit in one (hd 48)
+  static constexpr int HP = 128 * 4 * QC <= STAGE ? 1 : 2, QH = QC / HP;
   static_assert(C % KC == 0 && KC % 8 == 0 && C % 16 == 0 && Q3 % 8 == 0 && N * 8 % T == 0 &&
-                    128 * 4 * QC <= STAGE,
+                    QC % HP == 0 && 128 * 4 * QH <= STAGE,
                 "tile shape");
 };
 
 template <int N, int HD, int C>
-__global__ void __launch_bounds__(NT, 2) wba_proj_kernel(
+__global__ void __launch_bounds__(NT, WbaProj<N, HD, C>::MINB) wba_proj_kernel(
     const float* __restrict__ x, const float* __restrict__ rel,
     const float* __restrict__ mask, const float* __restrict__ wqkv,
     const float* __restrict__ bqkv, const float* __restrict__ wproj,
@@ -445,30 +460,35 @@ __global__ void __launch_bounds__(NT, 2) wba_proj_kernel(
       __syncthreads();  // the stage is refilled next
     }
     // K-group 1 hands its sums to K-group 0 through the stage that is not
-    // being filled, and K-group 0 adds them, then the bias, and stores q | k | v
+    // being filled (columns m0 .. m0 + QH per pass), and K-group 0 adds
+    // them, then the bias, and stores q | k | v
     float* part1 = area + ((step + 1) & 1) * K::STAGE + (tid & 127);
-    if (kg) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int m0 = 0; m0 < K::QC; m0 += K::QH) {
+      if (kg) {
 #pragma unroll
-        for (int m = 0; m < K::QC; ++m) part1[(r * K::QC + m) * 128] = pa[r][m];
-    }
-    __syncthreads();
-    if (!kg) {
+        for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = prow + r, kv_row = (i / N) * N + key_slot<N>(i % N);
+          for (int m = 0; m < K::QH; ++m) part1[(r * K::QH + m) * 128] = pa[r][m0 + m];
+      }
+      __syncthreads();
+      if (!kg) {
 #pragma unroll
-        for (int m = 0; m < K::QC; ++m) {
-          // column pcol + 8 m of the head's q | k | v: part m / (HD / 8)
-          constexpr int QD = HD / 8;
-          const int part = m / QD, d = pcol + 8 * (m % QD);
-          const float sum = pa[r][m] + part1[(r * K::QC + m) * 128];
-          qs[(part * M + (part ? kv_row : i)) * S + d] = sum + __ldg(bqkv + part * C + h * HD + d);
+        for (int r = 0; r < 4; ++r) {
+          const int i = prow + r, kv_row = (i / N) * N + key_slot<N>(i % N);
+#pragma unroll
+          for (int m = 0; m < K::QH; ++m) {
+            // column pcol + 8 (m0 + m) of the head's q | k | v: part (m0 + m) / (HD / 8)
+            constexpr int QD = HD / 8;
+            const int part = (m0 + m) / QD, d = pcol + 8 * ((m0 + m) % QD);
+            const float sum = pa[r][m0 + m] + part1[(r * K::QH + m) * 128];
+            qs[(part * M + (part ? kv_row : i)) * S + d] =
+                sum + __ldg(bqkv + part * C + h * HD + d);
+          }
         }
       }
+      __syncthreads();  // part1 is rewritten by the next pass
     }
-    __syncthreads();
 
     // attention, one team per window, into columns h HD .. of o (q, k, v
     // are rewritten only after the next head's chunk loop has synchronised)
@@ -557,13 +577,15 @@ int wba_proj_run(const float* x, const float* rel, const float* mask, const floa
 }  // namespace
 
 // B4.  qkv (B, Hp, Wp, 3C) NHWC, 16-byte aligned; rel: (nh, n, n); mask:
-// (nW, n, n) or null, nW windows per image.  hd = C / nh in {8, 24}.
+// (nW, n, n) or null, nW windows per image.  hd = C / nh in {8, 24, 48}.
 extern "C" int wba_launch(const float* qkv, const float* rel, const float* mask,
                           float* out, int B, int Hp, int Wp, int C, int nh, int ws,
                           float scale, void* stream) {
   if (bad_grid(B, Hp, Wp, ws) || nh <= 0 || C % nh) return (int)cudaErrorInvalidValue;
   const int nW = (Hp / ws) * (Wp / ws), nwin = B * nW, hd = C / nh;
   cudaStream_t s = (cudaStream_t)stream;
+  if (ws == 8 && hd == 48) return wba_run<64, 48>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
+  if (ws == 4 && hd == 48) return wba_run<16, 48>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
   if (ws == 8 && hd == 24) return wba_run<64, 24>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
   if (ws == 4 && hd == 24) return wba_run<16, 24>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
   if (ws == 8 && hd == 8) return wba_run<64, 8>(qkv, rel, mask, out, nwin, nW, Hp, Wp, nh, ws, scale, s);
@@ -573,7 +595,7 @@ extern "C" int wba_launch(const float* qkv, const float* rel, const float* mask,
 
 // B5.  x (B, Hp, Wp, C) NHWC; wqkv (3C, C) and wproj (C, C) in torch's
 // Linear layout (out, in); biases (3C,), (C,); all 16-byte aligned.
-// (C, nh) in {(192, 8), (16, 2)}: hd 24 and 8.
+// (C, nh) in {(192, 8), (16, 2), (384, 8)}: hd 24, 8 and 48.
 extern "C" int wba_proj_launch(const float* x, const float* rel, const float* mask,
                                const float* wqkv, const float* bqkv,
                                const float* wproj, const float* bproj, float* out,
@@ -586,6 +608,7 @@ extern "C" int wba_proj_launch(const float* x, const float* rel, const float* ma
   wba_proj_run<n, hd, c>(x, rel, mask, wqkv, bqkv, wproj, bproj, out, nwin, nW, Hp, Wp, ws, scale, s)
   if (C == 192 && nh == 8) return ws == 8 ? WBA_PROJ(64, 24, 192) : WBA_PROJ(16, 24, 192);
   if (C == 16 && nh == 2) return ws == 8 ? WBA_PROJ(64, 8, 16) : WBA_PROJ(16, 8, 16);
+  if (C == 384 && nh == 8) return ws == 8 ? WBA_PROJ(64, 48, 384) : WBA_PROJ(16, 48, 384);
 #undef WBA_PROJ
   return (int)cudaErrorInvalidValue;
 }
@@ -617,11 +640,14 @@ extern "C" int wba_occupancy(int proj, int ws, int hd, int C, int* smem_bytes,
                              int* ctas_per_sm) {
   int *sb = smem_bytes, *cs = ctas_per_sm;
   const bool w8 = ws == 8;
+  if (!proj && hd == 48) return w8 ? occupancy_b4<64, 48>(sb, cs) : occupancy_b4<16, 48>(sb, cs);
   if (!proj && hd == 24) return w8 ? occupancy_b4<64, 24>(sb, cs) : occupancy_b4<16, 24>(sb, cs);
   if (!proj && hd == 8) return w8 ? occupancy_b4<64, 8>(sb, cs) : occupancy_b4<16, 8>(sb, cs);
   if (proj && C == 192 && hd == 24)
     return w8 ? occupancy_b5<64, 24, 192>(sb, cs) : occupancy_b5<16, 24, 192>(sb, cs);
   if (proj && C == 16 && hd == 8)
     return w8 ? occupancy_b5<64, 8, 16>(sb, cs) : occupancy_b5<16, 8, 16>(sb, cs);
+  if (proj && C == 384 && hd == 48)
+    return w8 ? occupancy_b5<64, 48, 384>(sb, cs) : occupancy_b5<16, 48, 384>(sb, cs);
   return (int)cudaErrorInvalidValue;
 }

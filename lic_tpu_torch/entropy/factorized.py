@@ -1,10 +1,10 @@
-"""Fully-factorized learned entropy model (EntropyBottleneck), eval side.
+"""Fully-factorized learned entropy model (EntropyBottleneck).
 
 Counterpart of ``lic_tpu/entropy/factorized.py:32-163``: the per-channel
 monotone MLP (softplus matrices, tanh factors), the eval-mode
-medians-offset rounding and likelihood, ``medians`` and ``pmf_table``.
-The noise quantization and the aux loss come with training.  Parameter
-names, shapes and inits are the JAX module's.
+medians-offset rounding, the train-time U(-½, ½) noise, the likelihood,
+``medians``, ``aux_loss`` and ``pmf_table``.  Parameter names, shapes and
+inits are the JAX module's.
 """
 
 from __future__ import annotations
@@ -17,10 +17,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bounds import lower_bound
+from ..ops.rounding import NoiseFn
 
 _FILTERS = (3, 3, 3, 3)
 _INIT_SCALE = 10.0
 _LIKELIHOOD_BOUND = 1e-9
+_TAIL_MASS = 1e-9
 
 
 class EntropyBottleneck(nn.Module):
@@ -48,15 +50,16 @@ class EntropyBottleneck(nn.Module):
         q = torch.tensor([-_INIT_SCALE, 0.0, _INIT_SCALE])
         self.quantiles = nn.Parameter(q.repeat(c, 1, 1))  # (C, 1, 3)
 
-    def _logits_cumulative(self, inputs: torch.Tensor) -> torch.Tensor:
-        """inputs: (C, 1, N) → logits (C, 1, N)."""
+    def _logits_cumulative(self, inputs: torch.Tensor, detach: bool = False) -> torch.Tensor:
+        """inputs: (C, 1, N) → logits (C, 1, N); ``detach`` stops the
+        gradient into the density MLP (the aux loss trains ``quantiles``
+        only)."""
+        p = lambda name: getattr(self, name).detach() if detach else getattr(self, name)
         logits = inputs
         for i in range(self.n_layers):
-            matrix = F.softplus(getattr(self, f"matrix_{i}"))
-            logits = torch.matmul(matrix, logits) + getattr(self, f"bias_{i}")
+            logits = torch.matmul(F.softplus(p(f"matrix_{i}")), logits) + p(f"bias_{i}")
             if i < self.n_layers - 1:
-                factor = torch.tanh(getattr(self, f"factor_{i}"))
-                logits = logits + factor * torch.tanh(logits)
+                logits = logits + torch.tanh(p(f"factor_{i}")) * torch.tanh(logits)
         return logits
 
     @property
@@ -70,18 +73,35 @@ class EntropyBottleneck(nn.Module):
         sign = -torch.sign(v0 + v1)
         return torch.abs(torch.sigmoid(sign * v1) - torch.sigmoid(sign * v0))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Eval mode.  x: (B, C, H, W) → (outputs, likelihood), both NCHW."""
+    def forward(
+        self, x: torch.Tensor, training: bool = False, noise_fn: Optional[NoiseFn] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, C, H, W) → (outputs, likelihood), both NCHW.  Eval: the
+        medians-offset rounding; training: x + U(-½, ½), the noise drawn
+        by ``noise_fn`` in the channel-major (C, 1, B·H·W) layout."""
         b, c, h, w = x.shape
         perm = x.permute(1, 0, 2, 3).reshape(c, 1, -1)  # channel-major
-        medians = self.quantiles[:, :, 1:2]
-        outputs = torch.round(perm - medians) + medians
+        if training:
+            if noise_fn is None:
+                raise ValueError("EntropyBottleneck(training=True) needs a noise_fn")
+            outputs = perm + noise_fn(perm.shape, perm.dtype, perm.device)
+        else:
+            medians = self.quantiles[:, :, 1:2].detach()
+            outputs = torch.round(perm - medians) + medians
         lik = lower_bound(self._likelihood(outputs), _LIKELIHOOD_BOUND)
 
         def back(t):
             return t.reshape(c, b, h, w).permute(1, 0, 2, 3)
 
         return back(outputs), back(lik)
+
+    def aux_loss(self) -> torch.Tensor:
+        """Σ |logits(quantiles) − (−t, 0, t)|, t = log(2 / tail_mass − 1):
+        trains the tail quantiles, with the density MLP detached."""
+        logits = self._logits_cumulative(self.quantiles, detach=True)
+        t = float(np.log(2.0 / _TAIL_MASS - 1.0))
+        target = torch.tensor([-t, 0.0, t], dtype=logits.dtype, device=logits.device)
+        return torch.sum(torch.abs(logits - target))
 
     def pmf_table(self, min_sym: int, max_sym: int) -> torch.Tensor:
         """Per-channel PMF over integer symbols ``[min_sym, max_sym]``

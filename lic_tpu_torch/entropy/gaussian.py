@@ -9,17 +9,19 @@ Counterpart of ``lic_tpu/entropy/gaussian.py:29-116``:
   likelihood lower-bounded at 1e-9.
 
 Both are pure functions of (inputs, scales, means), with no parameters.
-The train-time noise quantization comes with training.
+In training ``GaussianConditional`` adds U(-½, ½) noise (the ``"noise"``
+quantize mode) drawn by a ``noise_fn``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..ops.bounds import lower_bound
+from ..ops.rounding import NoiseFn, additive_noise
 
 _SQRT2 = math.sqrt(2.0)
 _SCALE_BOUND = 0.11
@@ -57,10 +59,17 @@ class GaussianConditional:
         return upper - lower
 
     def __call__(
-        self, inputs: torch.Tensor, scales: torch.Tensor, means: torch.Tensor
+        self, inputs: torch.Tensor, scales: torch.Tensor, means: torch.Tensor,
+        training: bool = False, noise_fn: Optional[NoiseFn] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """→ (mean-offset-rounded outputs, likelihood)."""
-        outputs = torch.round(inputs - means) + means
+        """→ (outputs, likelihood): eval rounds mean-offset, training adds
+        U(-½, ½) noise from ``noise_fn``."""
+        if training:
+            if noise_fn is None:
+                raise ValueError("GaussianConditional(training=True) needs a noise_fn")
+            outputs = additive_noise(inputs, noise_fn)
+        else:
+            outputs = torch.round(inputs - means) + means
         lik = lower_bound(
             self.likelihood(outputs, scales, means), _LIKELIHOOD_BOUND
         )

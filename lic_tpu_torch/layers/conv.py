@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv_direct import LEAKY_SLOPE, conv5s2, convk_s1
+from .conv_direct import conv5s2, convk_s1, leaky_relu
 
 Pad = Union[int, Tuple[int, int, int, int]]
 
@@ -131,7 +131,7 @@ class Conv2d(nn.Module):
             y = F.conv2d(F.pad(x, self.padding), self.weight, self.bias, self.stride,
                          groups=self.groups)
         if self.fused_act == "leaky_relu":
-            y = F.leaky_relu(y, LEAKY_SLOPE)
+            y = leaky_relu(y)
         return y if residual is None else y + residual
 
 

@@ -15,29 +15,42 @@ operands, an fp32 sum, a bf16 result, as the JAX package's bf16 convs.  CPU
 tensors take the plain version; CUDA tensors launch the kernel, built at
 first use; any other device, another memory format or dtype raises, and so
 does a C_in that is no multiple of 4 (the kernel's TMA loads need 16-byte
-rows; ``Conv2d`` keeps such convs out of the slots).  The kernels are
-forward only: a CUDA call that autograd would have to differentiate raises.
-``Conv2d`` sends its B3 and B6 slots here, under the JAX package's gates.
+rows; ``Conv2d`` keeps such convs out of the slots).  ``Conv2d`` sends its
+B3 and B6 slots here, under the JAX package's gates.
+
+Under autograd each wrapper runs its ``torch.autograd.Function``: the
+forward is the kernel (the plain version on the CPU), the backward is the
+plain conv's own gradient (``conv5s2_backward``, ``convk_s1_backward``:
+``aten.convolution_backward``, which autograd of ``F.conv2d`` calls), as
+the JAX package's ``custom_vjp``s take ``jax.vjp`` of the XLA conv
+(``lic_tpu/layers/conv.py:326-329,353-356,385-388``).  Each backward
+counts one in the wrapper's ``backwards``.
 
 The kernel runs 3xTF32 on the tensor cores: each fp32 operand is split into
 ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` (``tf32_split``), and a·b is
 summed as hi·lo + lo·hi + hi·hi.  The weight's split is made here, once per
 weight: ``prepacked`` keeps an OHWI ``(w_hi, w_lo)`` pair on the weight
 tensor and rebuilds it when the weight changes in place (its version
-counter) or moves (its ``data_ptr``).  An update through ``weight.data``
-bypasses the version counter; update the parameter itself, as optimizers
-and ``load_state_dict`` do.
+counter) or moves (its ``data_ptr``).  Two updates leave the counter
+where it was: a write through ``weight.data``, and a fused optimizer
+(``torch.optim.Adam(fused=True)`` writes the parameters in its own kernel).
+So the first split also registers a ``torch.optim`` step post-hook that
+drops the cache of every parameter an optimizer steps (``drop_prepacked``),
+whatever the optimizer; after a write through ``.data``, call
+``drop_prepacked`` yourself.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
-from ..utils.build import CudaLibrary, check_cuda_inputs, check_launch
+from ..utils.build import CudaLibrary, check_cuda_inputs, check_launch, needs_grad
 
 LEAKY_SLOPE = 0.01
 
@@ -55,6 +68,16 @@ library = CudaLibrary("conv_direct.cu", _bind)
 
 _EXP = 0x7F800000
 _LOW13 = 0x1FFF  # the fp32 mantissa bits that TF32 drops
+
+
+def leaky_relu(x: torch.Tensor, slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, slope·x)``, whose gradient
+    at 0 is 1 (torch's ``F.leaky_relu`` takes ``slope`` there; a zero-init
+    conv feeds it exact zeros).  Without autograd, ``F.leaky_relu`` (the
+    same values)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.where(x >= 0, x, x * slope)
+    return F.leaky_relu(x, slope)
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -89,13 +112,34 @@ def pack_weight(weight: torch.Tensor):
 
 def prepacked(weight: torch.Tensor):
     """``pack_weight(weight)``, cached on the weight tensor; rebuilt when
-    the weight changes in place or its storage, device or shape changes."""
+    the weight changes in place or its storage, device or shape changes,
+    and after any ``torch.optim`` step over it."""
     key = (weight._version, weight.data_ptr(), weight.device, tuple(weight.shape))
     cached = getattr(weight, "_tf32_prepack", None)
     if cached is None or cached[0] != key:
+        _drop_after_optimizer_steps()
         cached = (key, *pack_weight(weight))
         weight._tf32_prepack = cached
     return cached[1], cached[2]
+
+
+def drop_prepacked(tensors) -> None:
+    """Forget the cached split of each tensor given, so that the next
+    kernel call packs the weight as it is then."""
+    for t in tensors:
+        t.__dict__.pop("_tf32_prepack", None)
+
+
+@functools.lru_cache(maxsize=None)
+def _drop_after_optimizer_steps() -> None:
+    """Register, once per process, a post-hook on every ``torch.optim``
+    optimizer's step that drops the split of the parameters it stepped."""
+
+    def hook(optimizer, args, kwargs):
+        for group in optimizer.param_groups:
+            drop_prepacked(group["params"])
+
+    register_optimizer_step_post_hook(hook)
 
 
 def occupancy() -> tuple:
@@ -117,10 +161,45 @@ def convk_s1_plain(x, weight, bias=None, act=None, residual=None):
     residual (the order of ``_convk_s1_kernel``)."""
     y = F.conv2d(x, weight, bias, padding=weight.shape[-1] // 2)
     if act == "leaky_relu":
-        y = F.leaky_relu(y, LEAKY_SLOPE)
+        y = leaky_relu(y)
     elif act is not None:
         raise ValueError(f"unknown act {act!r}")
     return y if residual is None else y + residual
+
+
+def _conv_grads(g, x, weight, has_bias, stride, pad, needs):
+    """``aten.convolution_backward`` of ``F.conv2d(x, weight, bias, stride,
+    pad)`` for the cotangent ``g`` → (dx, dw, db), None where ``needs``
+    (x, weight, bias) says no gradient is wanted."""
+    mask = [bool(needs[0]), bool(needs[1]), bool(has_bias and needs[2])]
+    dx, dw, db = torch.ops.aten.convolution_backward(
+        g.to(x.dtype), x, weight, [weight.shape[0]] if has_bias else None,
+        [stride, stride], [pad, pad], [1, 1], False, [0, 0], 1, mask)
+    return (dx if mask[0] else None, dw if mask[1] else None, db if mask[2] else None)
+
+
+def conv5s2_backward(g, x, weight, bias, needs=(True, True, True)):
+    """The gradient of ``conv5s2_plain`` → (dx, dW, db)."""
+    xp = F.pad(x, (1, 2, 1, 2))
+    dxp, dw, db = _conv_grads(g, xp, weight, bias is not None, 2, 0, needs)
+    h, w = x.shape[-2:]
+    return (None if dxp is None else dxp[:, :, 1 : 1 + h, 1 : 1 + w], dw, db)
+
+
+def convk_s1_backward(g, x, weight, bias, act, has_residual, needs=(True,) * 4):
+    """The gradient of ``convk_s1_plain`` → (dx, dW, db, d residual), the
+    last None without a residual.  With
+    the LeakyReLU the pre-activation is recomputed with the plain conv, as
+    the JAX package's VJP recomputes its XLA conv; its gradient is 1 at 0,
+    as ``jax.nn.leaky_relu``'s."""
+    if act == "leaky_relu":
+        z = F.conv2d(x, weight, bias, padding=weight.shape[-1] // 2)
+        gz = torch.where(z >= 0, g, g * LEAKY_SLOPE)
+    else:
+        gz = g
+    dx, dw, db = _conv_grads(gz, x, weight, bias is not None, 1, weight.shape[-1] // 2,
+                             needs[:3])
+    return dx, dw, db, (g if has_residual and needs[3] else None)
 
 
 def _channels_last(name: str, t: torch.Tensor) -> None:
@@ -162,9 +241,7 @@ def _launch(name, x, weight, bias, residual, stride, pad_t, pad_l, ho, wo, leaky
     return y.to(dtype)
 
 
-def conv5s2(x: torch.Tensor, weight: torch.Tensor,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """B3: ``ZeroPad2d(1, 2, 1, 2)`` + 5×5 stride-2 conv (+ bias), even H, W."""
+def _conv5s2_forward(x, weight, bias):
     if x.device.type == "cpu":
         return conv5s2_plain(x, weight, bias)
     h, w = x.shape[-2:]
@@ -176,14 +253,7 @@ def conv5s2(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-conv5s2.launches = 0
-
-
-def convk_s1(x: torch.Tensor, weight: torch.Tensor,
-             bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
-             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """B6: stride-1 "same" k×k conv (k odd), then + bias, LeakyReLU if
-    ``act == 'leaky_relu'``, then + ``residual``."""
+def _convk_s1_forward(x, weight, bias, act, residual):
     if x.device.type == "cpu":
         return convk_s1_plain(x, weight, bias, act, residual)
     if act not in (None, "leaky_relu"):
@@ -198,4 +268,55 @@ def convk_s1(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
+class _Conv5s2Fn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight, bias)
+        return _conv5s2_forward(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        conv5s2.backwards += 1
+        return conv5s2_backward(g, *ctx.saved_tensors, ctx.needs_input_grad)
+
+
+class _ConvkS1Fn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, act, residual):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.act, ctx.has_residual = act, residual is not None
+        return _convk_s1_forward(x, weight, bias, act, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        convk_s1.backwards += 1
+        n = ctx.needs_input_grad
+        dx, dw, db, dres = convk_s1_backward(
+            g, *ctx.saved_tensors, ctx.act, ctx.has_residual, (n[0], n[1], n[2], n[4]))
+        return dx, dw, db, None, dres
+
+
+def conv5s2(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B3: ``ZeroPad2d(1, 2, 1, 2)`` + 5×5 stride-2 conv (+ bias), even H, W."""
+    if needs_grad(x, weight, bias):
+        return _Conv5s2Fn.apply(x, weight, bias)
+    return _conv5s2_forward(x, weight, bias)
+
+
+conv5s2.launches = 0
+conv5s2.backwards = 0
+
+
+def convk_s1(x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B6: stride-1 "same" k×k conv (k odd), then + bias, LeakyReLU if
+    ``act == 'leaky_relu'``, then + ``residual``."""
+    if needs_grad(x, weight, bias, residual):
+        return _ConvkS1Fn.apply(x, weight, bias, act, residual)
+    return _convk_s1_forward(x, weight, bias, act, residual)
+
+
 convk_s1.launches = 0
+convk_s1.backwards = 0

@@ -19,8 +19,13 @@ launch the kernel, anything else raises.  The ``GDN`` module sends a
 tensor whose width B2 does not take (``b2_takes``: C > 192, or 16 < C with
 C % 4 ≠ 0) to ``gdn_plain_route``, the plain version, counted like a
 kernel: the JAX package's default GDN is its XLA path at every
-width (``lic_tpu/layers/gdn.py:34,85``).  The backward comes with
-training; a backward through the CUDA path raises.
+width (``lic_tpu/layers/gdn.py:34,85``).
+
+The gradient of ``gdn_fused`` is ``_GdnFn``, a ``torch.autograd.Function``
+whose forward is the kernel (the plain version on the CPU) and whose
+backward is ``gdn_plain_backward``: the closed-form VJP of the JAX
+package's ``_gdn_fused_bwd`` (``lic_tpu/layers/pallas_gdn.py:80-108``) in
+plain torch, fp32.  Each backward counts one in ``gdn_fused.backwards``.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.bounds import NonNegativeParametrizer
-from ..utils.build import CudaLibrary, check_launch
+from ..utils.build import CudaLibrary, check_launch, needs_grad
 
 _BETA_MIN = 1e-6
 _GAMMA_INIT = 0.1
@@ -111,17 +116,48 @@ def _launch(x, gamma, beta, inverse):
     return y.to(x.dtype)
 
 
-class _GdnKernel(torch.autograd.Function):
+def gdn_plain_backward(g, x, gamma, beta, inverse):
+    """The closed-form VJP of GDN/IGDN on (rows, C), in fp32:
+    n = x²Γᵀ + β; t = −½·g·x·n^{−3/2} (GDN) or ½·g·x·n^{−½} (IGDN);
+    dx = g·n^{∓½} + 2x·(tΓ), dΓ = tᵀx², dβ = Σ_rows t.  → (dx, dΓ, dβ) in
+    the dtypes of x, Γ and β (float64 inputs: all in float64)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf, gf, gam = x.to(ct), g.to(ct), gamma.to(ct)
+    xsq = xf * xf
+    n = xsq @ gam.t() + beta.to(ct)
+    if inverse:
+        sq = torch.sqrt(n)
+        t = 0.5 * gf * xf / sq
+        dx = gf * sq + 2.0 * xf * (t @ gam)
+    else:
+        rsq = torch.rsqrt(n)
+        t = -0.5 * gf * xf * rsq / n
+        dx = gf * rsq + 2.0 * xf * (t @ gam)
+    return dx.to(x.dtype), (t.t() @ xsq).to(gamma.dtype), t.sum(0).to(beta.dtype)
+
+
+def _forward(x, gamma, beta, inverse):
+    if x.device.type == "cpu":
+        return gdn_plain(x, gamma, beta, inverse)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"gdn_fused: no kernel for device {x.device}")
+    return _launch(x, gamma, beta, inverse)
+
+
+class _GdnFn(torch.autograd.Function):
+    """Forward: kernel B2 (the plain version on the CPU); backward:
+    ``gdn_plain_backward`` on the saved inputs."""
+
     @staticmethod
     def forward(ctx, x, gamma, beta, inverse):
-        return _launch(x, gamma, beta, inverse)
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.inverse = inverse
+        return _forward(x, gamma, beta, inverse)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the GDN backward on CUDA lands with training (ROADMAP A12); "
-            "run the forward under torch.no_grad()"
-        )
+        gdn_fused.backwards += 1
+        return (*gdn_plain_backward(g, *ctx.saved_tensors, ctx.inverse), None)
 
 
 def gdn_fused(
@@ -130,15 +166,15 @@ def gdn_fused(
     """GDN/IGDN on (rows, C) — the counterpart of ``pallas_gdn.gdn_fused``.
 
     gamma: (C_out, C_in); beta: (C,).  CPU tensors take ``gdn_plain``;
-    CUDA tensors launch kernel B2; any other device raises."""
-    if x.device.type == "cpu":
-        return gdn_plain(x, gamma, beta, inverse)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"gdn_fused: no kernel for device {x.device}")
-    return _GdnKernel.apply(x, gamma, beta, inverse)
+    CUDA tensors launch kernel B2; any other device raises.  Under
+    autograd the call goes through ``_GdnFn``."""
+    if needs_grad(x, gamma, beta):
+        return _GdnFn.apply(x, gamma, beta, inverse)
+    return _forward(x, gamma, beta, inverse)
 
 
 gdn_fused.launches = 0
+gdn_fused.backwards = 0
 
 
 class GDN(nn.Module):
@@ -170,4 +206,5 @@ def IGDN(num_features: int) -> GDN:
     return GDN(num_features, inverse=True)
 
 
-__all__ = ["GDN", "IGDN", "b2_takes", "gdn_fused", "gdn_plain", "gdn_plain_route"]
+__all__ = ["GDN", "IGDN", "b2_takes", "gdn_fused", "gdn_plain", "gdn_plain_backward",
+           "gdn_plain_route"]

@@ -16,11 +16,19 @@ and the roll stay outside the kernels, the windowing happens inside.
 mask of one image's nW windows, or None.  Projection weights are in
 torch's ``Linear`` layout (out, in), which B5 reads as it is.  CPU tensors
 take the plain versions; CUDA tensors launch the kernels (ws ∈ {4, 8},
-head width hd ∈ {8, 24}, B5 at (C, hd) ∈ {(192, 24), (16, 8)}: ``b4_takes``
-and ``b5_takes``), built at first use; anything else raises.  The kernels
+head width hd ∈ {8, 24, 48}, B5 at (C, hd) ∈ {(192, 24), (16, 8), (384,
+48)}: ``b4_takes`` and ``b5_takes``), built at first use; anything else
+raises.  The kernels
 compute in fp32: bf16 tensors are widened at the kernel boundary and the
 output is rounded back to bf16 (bf16 operands, an fp32 sum, a bf16 result).
-The kernels are forward only.
+
+Under autograd each wrapper runs its ``torch.autograd.Function``: the
+forward is the kernel (the plain version on the CPU), the backward is
+autograd of ``wba_plain`` / ``wba_proj_plain`` recomputed from the saved
+inputs, as the JAX package's VJPs take ``jax.vjp`` of ``_wba_reference``
+and ``_wba_proj_reference`` (``lic_tpu/layers/pallas_attn.py:471-476,
+502-510``).  The mask gets no gradient.  Each backward counts one in the
+wrapper's ``backwards``.
 
 Also here, as in ``lic_tpu/layers/win_attention.py:55-119``:
 ``window_partition``, ``window_reverse``, ``relative_position_index`` and
@@ -37,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.build import CudaLibrary, check_cuda_inputs, check_launch
+from ..utils.build import CudaLibrary, check_cuda_inputs, check_launch, needs_grad
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -149,8 +157,8 @@ library = CudaLibrary("window_attn.cu", _bind)
 
 # head widths the kernels are built for (template constants), and B5's
 # (C, head width) pairs: its output accumulator is sized by C
-B4_HEAD_DIMS = (8, 24)
-B5_WIDTHS = ((192, 24), (16, 8))
+B4_HEAD_DIMS = (8, 24, 48)
+B5_WIDTHS = ((192, 24), (16, 8), (384, 48))
 
 
 def b4_takes(ws: int, hd: int) -> bool:
@@ -193,9 +201,32 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
-    """B4: qkv (B, Hp, Wp, 3C) NHWC → (B, Hp, Wp, C).  Each launch counts
-    one in ``launches`` and in ``calls[(qkv shape, ws, nh, masked)]``."""
+def _plain_vjp(plain, g, tensors, needs, *rest):
+    """Gradients of ``plain(*tensors, *rest)`` for the cotangent ``g``,
+    recomputed with autograd: one per tensor, None where ``needs`` is
+    false."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(tensors, needs)]
+        y = plain(*ins, *rest)
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+    return [next(got) if t.requires_grad else None for t in ins]
+
+
+def wba_backward(g, qkv, rel, mask, ws: int, nh: int, needs=(True, True)):
+    """The gradient of ``wba_plain`` → (d qkv, d rel)."""
+    return tuple(_plain_vjp(lambda q, r: wba_plain(q, r, mask, ws, nh), g, (qkv, rel), needs))
+
+
+def wba_proj_backward(g, x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: int,
+                      needs=(True,) * 6):
+    """The gradient of ``wba_proj_plain`` → (dx, d rel, dW_qkv, db_qkv,
+    dW_proj, db_proj)."""
+    fn = lambda *t: wba_proj_plain(*t, mask, ws, nh)
+    return tuple(_plain_vjp(fn, g, (x, rel, wqkv, bqkv, wproj, bproj), needs))
+
+
+def _wba_forward(qkv, rel, mask, ws, nh):
     if qkv.device.type == "cpu":
         return wba_plain(qkv, rel, mask, ws, nh)
     b, hp, wp, c3 = qkv.shape
@@ -219,12 +250,7 @@ def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
     return out.to(dtype)
 
 
-window_attention.launches = 0
-window_attention.calls = {}
-
-
-def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: int):
-    """B5: x (B, Hp, Wp, C) NHWC → (B, Hp, Wp, C), both projections inside."""
+def _wba_proj_forward(x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh):
     if x.device.type == "cpu":
         return wba_proj_plain(x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh)
     b, hp, wp, c = x.shape
@@ -252,7 +278,58 @@ def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: i
     return out.to(dtype)
 
 
+class _WbaFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, rel, mask, ws, nh):
+        ctx.save_for_backward(qkv, rel, mask)
+        ctx.ws, ctx.nh = ws, nh
+        return _wba_forward(qkv, rel, mask, ws, nh)
+
+    @staticmethod
+    def backward(ctx, g):
+        window_attention.backwards += 1
+        qkv, rel, mask = ctx.saved_tensors
+        dq, dr = wba_backward(g, qkv, rel, mask, ctx.ws, ctx.nh, ctx.needs_input_grad[:2])
+        return dq, dr, None, None, None
+
+
+class _WbaProjFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh):
+        ctx.save_for_backward(x, rel, wqkv, bqkv, wproj, bproj, mask)
+        ctx.ws, ctx.nh = ws, nh
+        return _wba_proj_forward(x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh)
+
+    @staticmethod
+    def backward(ctx, g):
+        window_attention_proj.backwards += 1
+        *ts, mask = ctx.saved_tensors
+        grads = wba_proj_backward(g, *ts, mask, ctx.ws, ctx.nh, ctx.needs_input_grad[:6])
+        return (*grads, None, None, None)
+
+
+def window_attention(qkv, rel, mask, ws: int, nh: int) -> torch.Tensor:
+    """B4: qkv (B, Hp, Wp, 3C) NHWC → (B, Hp, Wp, C).  Each launch counts
+    one in ``launches`` and in ``calls[(qkv shape, ws, nh, masked)]``."""
+    if needs_grad(qkv, rel):
+        return _WbaFn.apply(qkv, rel, mask, ws, nh)
+    return _wba_forward(qkv, rel, mask, ws, nh)
+
+
+window_attention.launches = 0
+window_attention.backwards = 0
+window_attention.calls = {}
+
+
+def window_attention_proj(x, rel, wqkv, bqkv, wproj, bproj, mask, ws: int, nh: int):
+    """B5: x (B, Hp, Wp, C) NHWC → (B, Hp, Wp, C), both projections inside."""
+    if needs_grad(x, rel, wqkv, bqkv, wproj, bproj):
+        return _WbaProjFn.apply(x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh)
+    return _wba_proj_forward(x, rel, wqkv, bqkv, wproj, bproj, mask, ws, nh)
+
+
 window_attention_proj.launches = 0
+window_attention_proj.backwards = 0
 
 
 def occupancy(proj: bool, ws: int, hd: int, c: int) -> tuple:

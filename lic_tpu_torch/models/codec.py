@@ -4,14 +4,22 @@ hyper (``net_unet_ha_hs_dec``), with or without the SWAtten slice stacks.
 
 Counterpart of ``lic_tpu/models/codec.py``: ``_CharmSliceStack``
 (``:73-85``), the hyper branches (``:141-162``, ``_hyper_forward``
-``:437-479``), the eval-mode ``_forward_charm`` (``:481-575``) and the
-sub-passes ``ChannelCoder`` calls (``:589-649``).  NCHW throughout.
+``:437-479``), ``_forward_charm`` in eval and training mode
+(``:481-575``), ``entropy_aux_loss`` (``:752-758``) and the sub-passes
+``ChannelCoder`` calls (``:589-649``).  NCHW throughout.
+
+The training forward is the eval one with U(-½, ½) noise in the
+likelihoods of z and of each y slice (the STE-rounded values still feed
+the decoders, as in the JAX package).  Every noise tensor is drawn through
+one ``noise_fn(shape, dtype, device)``, five per charm forward: z, then
+slices 0-3.
 
 The charm configs also build a ``PredictionModelSyntax`` that no charm
-forward calls (``config.py:88``, ``codec.py:115-119``); it is not ported,
-and ``utils.params`` skips its subtree.  Training-mode forwards, the other
-hypers and families, gain units and the HAN tail raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+forward calls (``config.py:88``, ``codec.py:115-119``); it is not part of
+the model, ``utils.params`` skips its subtree, and ``utils.checkpoint``
+carries it in the ``.npz`` files.  The other hypers and families, gain
+units, ``stop_base_grad`` and the HAN tail raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from torch import nn
 from ..config import CodecConfig
 from ..entropy import EntropyBottleneck, GaussianConditional
 from ..layers import Conv2d, SWAtten, gelu
-from ..ops import bypass_round, quantize_ste_offset, ste_round
+from ..ops import bypass_round, quantize_ste_offset, ste_round, uniform_noise
+from ..ops.rounding import NoiseFn
 from .hyper import (
     ClassicHyperAnalysis,
     ClassicHyperSynthesis,
@@ -153,19 +162,25 @@ class CodecModel(nn.Module):
 
     # ------------------------------------------------------------ forward
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> CodecOutput:
-        """Eval-mode forward of the charm family on NCHW ``x`` in [-1, 1]."""
-        if training:
+    def forward(
+        self, x: torch.Tensor, training: bool = False, *,
+        noise_fn: Optional[NoiseFn] = None, stop_base_grad: bool = False,
+    ) -> CodecOutput:
+        """The charm forward on NCHW ``x`` in [-1, 1]: eval mode, or
+        ``training`` with the likelihoods' noise drawn by ``noise_fn``
+        (default: ``uniform_noise()``, torch's default generator)."""
+        if stop_base_grad:
             raise NotImplementedError(
-                "the training-mode forward lands with training (ROADMAP A12)"
-            )
+                "stop_base_grad trains the HAN tail only, which is not ported (ROADMAP A16)")
+        if training and noise_fn is None:
+            noise_fn = uniform_noise()
         cfg = self.cfg
         b, _, h, w = x.shape
         num_pixels = b * h * w
 
         z3 = self.g_a(x)
         z = self.hyper_encode(z3)
-        _, z_lik = self.entropy_bottleneck(z)
+        _, z_lik = self.entropy_bottleneck(z, training, noise_fn)
         z_hat = quantize_ste_offset(z, self.eb_medians()[None, :, None, None])
         latent_scales, latent_means = self.hyper_decode(z_hat)
         syntax_rounded = self.syntax_from_latent(z3)
@@ -175,7 +190,7 @@ class CodecModel(nn.Module):
             mu, scale, mean_support = self.charm_entropy_params(
                 latent_means, latent_scales, self.support(y_hat_slices), i
             )
-            _, y_lik = self.gaussian_conditional(y_slice, scale, mu)
+            _, y_lik = self.gaussian_conditional(y_slice, scale, mu, training, noise_fn)
             y_liks.append(y_lik)
             mus.append(mu)
             sigmas.append(scale)
@@ -203,6 +218,11 @@ class CodecModel(nn.Module):
                 "scales": torch.cat(sigmas, dim=1),
             },
         )
+
+    def entropy_aux_loss(self) -> torch.Tensor:
+        """The EntropyBottleneck's quantile loss (every hyper this port
+        carries has one)."""
+        return self.entropy_bottleneck.aux_loss()
 
     # ------------------------------------------------ bitstream sub-passes
 

@@ -9,6 +9,10 @@
   the decoder's final 1x1 conv, with the JAX package's head init.
 * ``batch_conv`` — the per-image generated 1x1 conv, one batched einsum
   (the JAX package, too, computes it outside any Pallas kernel).
+* ``PredictionModelSyntax`` — the parameters of the JAX module
+  (``lic_tpu/models/syntax.py:128-156``), which the charm configs build but
+  no charm forward calls; the port's ``CodecModel`` leaves it out, and
+  ``utils.checkpoint`` uses it only for that subtree of the ``.npz`` files.
 """
 
 from __future__ import annotations
@@ -16,10 +20,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..layers import Conv2d, DepthwiseConv2d, Linear, WinNoShiftAttention
+from ..layers.conv_direct import leaky_relu
 
 
 def _gap(x: torch.Tensor) -> torch.Tensor:
@@ -99,11 +103,30 @@ class ConvGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
-        x = F.leaky_relu(self.fc0(x.reshape(b, -1)), 0.2)
-        x = F.leaky_relu(self.fc1(x), 0.2)
+        x = leaky_relu(self.fc0(x.reshape(b, -1)), 0.2)
+        x = leaky_relu(self.fc1(x), 0.2)
         return self.fc2(x).reshape(b, 3, self.out_dim)
 
 
 def batch_conv(weights: torch.Tensor, inputs: torch.Tensor) -> torch.Tensor:
     """weights: (B, C_out, C_in); inputs: (B, C_in, H, W) → (B, C_out, H, W)."""
     return torch.einsum("bchw,boc->bohw", inputs, weights)
+
+
+class PredictionModelSyntax(nn.Module):
+    """The parameters of the JAX package's ``PredictionModelSyntax``
+    (``down0``, ``down1``, the ``'wam'`` gate, ``fc``; flax names and
+    inits).  No charm forward calls it, so it has no forward here:
+    ``utils.checkpoint`` writes its init where a model loaded no such
+    subtree, so that every ``.npz`` the port writes loads into the JAX
+    package strictly."""
+
+    def __init__(self, dim: int, outdim: int, variant: str = "basic", *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.down0 = Conv2d(dim, dim, 3, 2, 1, generator=g)
+        self.down1 = Conv2d(dim, dim, 3, 2, 1, generator=g)
+        if variant == "wam":
+            self.wam = WinNoShiftAttention(dim, 8, 4, 2, generator=g)
+        self.fc = Linear(3 * dim, outdim, generator=g)

@@ -96,24 +96,27 @@ class CudaLibrary:
 
 
 def check_cuda_inputs(name: str, x, *others) -> None:
-    """What a forward-only fp32 kernel's wrapper takes: ``x`` on a CUDA
-    device, every other tensor (None skipped) fp32 or bf16 on the same
-    device (a wrapper widens bf16 to fp32 at the kernel boundary), and no
-    tensor that autograd would have to differentiate through the kernel."""
+    """What an fp32 kernel's wrapper takes: ``x`` on a CUDA device, and
+    every other tensor (None skipped) fp32 or bf16 on the same device (a
+    wrapper widens bf16 to fp32 at the kernel boundary).  The gradient is
+    each wrapper's ``torch.autograd.Function``."""
     import torch
 
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {x.device}")
     ts = [x, *[t for t in others if t is not None]]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only (its backward lands with "
-            "training, ROADMAP A12); run it under torch.no_grad()"
-        )
     for t in ts:
         if t.dtype not in (torch.float32, torch.bfloat16) or t.device != x.device:
             raise TypeError(f"{name}: fp32 or bf16 tensors on {x.device} only, got "
                             f"{t.dtype} on {t.device}")
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd has to differentiate a call on these tensors (None
+    skipped): grad mode is on and one of them requires grad."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
 
 def check_launch(err: int, name: str) -> None:

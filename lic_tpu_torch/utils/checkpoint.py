@@ -1,0 +1,121 @@
+"""Checkpoints: the JAX package's params-only ``.npz`` and the trainer's
+torch state.
+
+* ``save_params`` / ``load_params`` read and write the flat ``.npz`` of
+  ``lic_tpu/utils/checkpoint.py:61-110``: one array per flax leaf, keyed by
+  its path (``"g_a/c0/kernel"``), in the flax layout, so that a file
+  written by either package loads into the other.  ``load_params`` is
+  strict by default (every leaf present with its shape, as the
+  reference's strict ``load_state_dict``).  The ``PredictionModelSyntax``
+  subtree that the JAX charm models carry and no charm forward reads is
+  kept from the file loaded, or, for a model that loaded none, written
+  from a seeded init of the port's ``PredictionModelSyntax``, so that the
+  JAX package's strict load takes every file this one writes.
+* ``CheckpointManager`` keeps the trainer's state per epoch with
+  ``torch.save``: the model's state dict, both optimizers' state, the
+  schedule's count, the step and the noise generator's state.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .params import SKIPPED_PREFIX, flax_from_state, flax_leaves, to_torch_layout
+
+
+def _syntax_subtree(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The ``prediction_model_syntax/*`` leaves: those ``load_params``
+    kept, else a seeded init where the config builds the module."""
+    kept = getattr(model, "flax_extra", None)
+    if kept:
+        return dict(kept)
+    cfg = getattr(model, "cfg", None)
+    if cfg is None or cfg.syntax == "none" or not cfg.code_syntax:
+        return {}
+    from ..models.syntax import PredictionModelSyntax
+
+    pms = PredictionModelSyntax(cfg.M, 2 * cfg.M, "wam" if cfg.syntax == "wam" else "basic",
+                                generator=torch.Generator().manual_seed(0))
+    return flax_from_state(pms, SKIPPED_PREFIX)
+
+
+def save_params(path: str, model: nn.Module) -> None:
+    """The model's parameters as a flat flax-keyed ``.npz``."""
+    arrays = flax_from_state(model)
+    arrays.update(_syntax_subtree(model))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def load_params(path: str, model: nn.Module, strict: bool = True) -> nn.Module:
+    """Load a ``save_params`` file (of either package) into ``model`` in
+    place.  ``strict``: every leaf must be present with the right shape
+    (KeyError / ValueError otherwise); without it a missing or
+    mismatched leaf keeps the model's own value."""
+    state = model.state_dict()
+    expected = flax_from_state(model)
+    skipped = []
+    with np.load(path) as data:
+        for skey, key, module, pname in flax_leaves(model):
+            want = expected[key].shape
+            if key not in data.files:
+                if strict:
+                    raise KeyError(f"checkpoint missing parameter {key}")
+                skipped.append(key)
+                continue
+            arr = data[key]
+            if arr.shape != want:
+                if strict:
+                    raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs model {want}")
+                skipped.append(key)
+                continue
+            state[skey] = to_torch_layout(module, pname, arr)
+        model.flax_extra = {k: data[k] for k in data.files if k.startswith(SKIPPED_PREFIX)}
+    model.load_state_dict(state)
+    if skipped:
+        print(f"load_params: kept the model's own value for {len(skipped)} leaves "
+              f"(e.g. {skipped[0]})")
+    return model
+
+
+class CheckpointManager:
+    """Per-epoch trainer state under ``directory/<epoch:06d>.pt``."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step:06d}.pt")
+
+    def save(self, state, step: int) -> None:
+        model = getattr(state.model, "module", state.model)
+        payload = {"model": model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                   "step": state.step, "generator": state.generator.get_state()}
+        tmp = self._path(step) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self._path(step))
+
+    def latest_step(self) -> Optional[int]:
+        steps = [int(f[:-3]) for f in os.listdir(self.directory)
+                 if f.endswith(".pt") and f[:-3].isdigit()]
+        return max(steps) if steps else None
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load the checkpoint of ``step`` (default: the latest) into the
+        ``TrainState`` given, in place; → the state."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        getattr(state.model, "module", state.model).load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        state.generator.set_state(payload["generator"])
+        return state

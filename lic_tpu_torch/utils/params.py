@@ -1,9 +1,12 @@
-"""flax parameter tree → the port's state dict.
+"""flax parameter tree ↔ the port's state dict.
 
 ``params_from_flax(tree)`` takes the JAX package's parameter tree (nested
 dicts of numpy arrays, as ``model.init(...)["params"]`` or a checkpoint
-gives it) and returns a state dict for the port's ``CodecModel``.  It
-applies the inverse of the layout rules of ``tools/import_torch.py``:
+gives it) and returns a state dict for the port's ``CodecModel``;
+``flax_from_state(module)`` goes the other way, to the flat
+``"g_a/c0/kernel"`` keys of the JAX package's ``.npz`` checkpoints.  The
+conversion applies the inverse of the layout rules of
+``tools/import_torch.py``:
 
 * conv kernels HWIO → OIHW (``SubpelConv2d``'s too; the depthwise
   (3, 3, 1, C) kernel so becomes torch's grouped (C, 1, 3, 3));
@@ -81,43 +84,70 @@ def params_from_flax(
     return state_from_flax(tree, skeleton)
 
 
-def state_from_flax(tree: Mapping, skeleton: nn.Module) -> Dict[str, torch.Tensor]:
-    """flax params → the state dict of ``skeleton``, a port module whose
-    submodules mirror the tree (any device, ``meta`` included)."""
-    flat = _flatten(tree)
+def flax_leaves(skeleton: nn.Module):
+    """(state key, flax key, module, parameter name) of every parameter of
+    ``skeleton``, in ``named_modules`` order."""
     modules = dict(skeleton.named_modules())
-    used, state = set(), {}
     for mname, module in modules.items():
-        own = dict(module.named_parameters(recurse=False))
-        if not own:
-            continue
         path = _flax_path(mname, modules)
         base = path + "/" if mname else ""
-        for pname in own:
+        for pname, _ in module.named_parameters(recurse=False):
             if isinstance(module, (Conv2d, ConvTranspose2d, Linear, SubpelConv2d)):
                 key = base + ("kernel" if pname == "weight" else pname)
             elif isinstance(module, nn.LayerNorm):
                 key = base + ("scale" if pname == "weight" else pname)
             else:
                 key = base + pname
-            if key not in flat:
-                raise KeyError(f"flax tree has no leaf {key!r} for {mname}.{pname}")
-            a = flat[key]
-            used.add(key)
-            if pname == "weight" and isinstance(module, (Conv2d, SubpelConv2d)):
-                a = a.transpose(3, 2, 0, 1)  # HWIO → OIHW
-            elif pname == "weight" and isinstance(module, ConvTranspose2d):
-                a = a[::-1, ::-1].transpose(2, 3, 0, 1)  # → (in, out, k, k)
-            elif pname == "weight" and isinstance(module, Linear):
-                a = a.T
-            # a fresh C-ordered copy: a flipped 1×1 kernel counts as
-            # contiguous to numpy but keeps its negative strides
-            state[f"{mname}.{pname}" if mname else pname] = torch.from_numpy(
-                np.array(a, np.float32, order="C")
-            )
+            yield (f"{mname}.{pname}" if mname else pname), key, module, pname
+
+
+def to_torch_layout(module: nn.Module, pname: str, a: np.ndarray) -> torch.Tensor:
+    """A flax leaf of ``module.<pname>`` in the port's layout."""
+    if pname == "weight" and isinstance(module, (Conv2d, SubpelConv2d)):
+        a = a.transpose(3, 2, 0, 1)  # HWIO → OIHW
+    elif pname == "weight" and isinstance(module, ConvTranspose2d):
+        a = a[::-1, ::-1].transpose(2, 3, 0, 1)  # → (in, out, k, k)
+    elif pname == "weight" and isinstance(module, Linear):
+        a = a.T
+    # a fresh C-ordered copy: a flipped 1×1 kernel counts as contiguous to
+    # numpy but keeps its negative strides
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+
+def to_flax_layout(module: nn.Module, pname: str, t: torch.Tensor) -> np.ndarray:
+    """``module.<pname>`` in the flax layout (the inverse of
+    ``to_torch_layout``), as a C-ordered float32 array."""
+    a = t.detach().float().cpu().numpy()
+    if pname == "weight" and isinstance(module, (Conv2d, SubpelConv2d)):
+        a = a.transpose(2, 3, 1, 0)  # OIHW → HWIO
+    elif pname == "weight" and isinstance(module, ConvTranspose2d):
+        a = a.transpose(2, 3, 0, 1)[::-1, ::-1]  # (in, out, k, k) → flipped HWIO
+    elif pname == "weight" and isinstance(module, Linear):
+        a = a.T
+    return np.array(a, np.float32, order="C")
+
+
+def state_from_flax(tree: Mapping, skeleton: nn.Module) -> Dict[str, torch.Tensor]:
+    """flax params → the state dict of ``skeleton``, a port module whose
+    submodules mirror the tree (any device, ``meta`` included)."""
+    flat = _flatten(tree)
+    used, state = set(), {}
+    for skey, key, module, pname in flax_leaves(skeleton):
+        if key not in flat:
+            raise KeyError(f"flax tree has no leaf {key!r} for {skey}")
+        used.add(key)
+        state[skey] = to_torch_layout(module, pname, flat[key])
     unused = sorted(
         k for k in flat if k not in used and not k.startswith(SKIPPED_PREFIX)
     )
     if unused:
         raise KeyError(f"flax leaves with no counterpart in the port: {unused}")
     return state
+
+
+def flax_from_state(module: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The parameters of ``module`` as flat flax keys (``prefix`` before
+    each) → arrays in the flax layout."""
+    params = dict(module.named_parameters())
+    return {prefix + key: to_flax_layout(mod, pname, params[skey])
+            for skey, key, mod, pname in flax_leaves(module)}

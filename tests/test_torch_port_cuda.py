@@ -1,9 +1,12 @@
 """The port's hand-written kernels against their plain versions, on the
 card: B1 (rANS drain), B2 (GDN), B3 (5×5 stride-2 conv), B4/B5 (window
-attention) and B6 (stride-1 conv).  Every test here is marked ``cuda`` and
-skips without CUDA.  fp32 tolerance: atol/rtol 1e-5 (sums in another order
-than cuDNN's / cuBLAS's); a repeat call of B2-B6 is bit-identical; B1 is
-bit-exact.
+attention, head widths 8, 24 and 48) and B6 (stride-1 conv), and the
+gradients of B2-B6 through their autograd.Functions.  Every test here is
+marked ``cuda`` and skips without CUDA.  fp32 tolerance: atol/rtol 1e-5
+(sums in another order than cuDNN's / cuBLAS's); a repeat call of B2-B6 is
+bit-identical; B1 is bit-exact.  Gradients: within 1e-5 of float64 as a
+share of each gradient's range (conv weight gradients 1e-4: cuDNN's fp32
+sum over B·H·W), and within 1e-6 of autograd of the plain version in fp32.
 
 The file imports no jax, so it also runs on a GPU host without the JAX
 package (``tests/conftest.py`` imports jax; pass ``--noconftest``):
@@ -143,13 +146,6 @@ def test_gdn_kernel_rejects_unsupported_widths(cuda_device):
         x, gamma, beta = _gdn_case(8, c, 0, cuda_device)
         with torch.no_grad(), pytest.raises(ValueError, match="gdn kernel takes C"):
             gdn_fused(x, gamma, beta, False)
-
-
-def test_gdn_kernel_backward_raises(cuda_device):
-    x = torch.randn(64, 16, device=cuda_device, requires_grad=True)
-    y = gdn_fused(x, torch.eye(16, device=cuda_device), torch.ones(16, device=cuda_device), False)
-    with pytest.raises(NotImplementedError):
-        y.sum().backward()
 
 
 def _streams(b, steps, seed):
@@ -411,7 +407,7 @@ def _proj_weights(gen, dev, c):
 # image, so B4/B5's four-window CTAs at ws 4 end on a partial CTA
 @pytest.mark.parametrize("ws,hp,wp", [(8, 16, 24), (4, 8, 12), (4, 12, 12)])
 @pytest.mark.parametrize("shift,pad", [(0, 0), (2, 0), (2, 3)])
-@pytest.mark.parametrize("c,nh", [(192, 8), (16, 2)])  # hd 24 and hd 8
+@pytest.mark.parametrize("c,nh", [(192, 8), (16, 2), (384, 8)])  # hd 24, 8 and 48
 def test_window_attention_kernels_match_plain(cuda_device, ws, hp, wp, shift, pad, c, nh):
     b = 2
     g = torch.Generator().manual_seed(ws + shift + pad + c)
@@ -565,7 +561,9 @@ def test_gdn_module_takes_the_plain_route_where_gated(cuda_device, c, route):
     (64, 4, 64, 64, True, "raises"),    # ... at 4096 tokens: B5 raises
     (96, 4, 32, 48, False, "plain"),    # hd 12
     (512, 2, 8, 12, True, "plain"),     # hd 64
-    (384, 8, 64, 64, False, "raises"),  # hd 48 at 4096 tokens
+    (384, 8, 64, 64, False, "wba"),     # hd 48 at 4096 tokens: B4
+    (384, 8, 64, 64, True, "wba_proj"),  # ... and B5 at (384, 48)
+    (256, 8, 64, 64, False, "raises"),  # hd 32 at 4096 tokens
 ])
 def test_window_attention_takes_the_plain_route_where_gated(cuda_device, c, ws, h, w, fuse,
                                                             route):
@@ -617,3 +615,111 @@ def test_conv_with_cin_not_multiple_of_4_takes_cudnn(cuda_device):
             ref = torch.nn.functional.conv2d(xp, m.weight, m.bias, m.stride,
                                              0 if isinstance(pad, tuple) else pad)
             torch.testing.assert_close(y, ref, atol=TOL, rtol=TOL)
+
+
+# ------------------------------------------------------------- training
+
+
+def _share(a, b):
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def _grad_case(kernel, dev, g):
+    """(wrapper on the differentiable tensors, plain version on them, the
+    tensors, index of a conv weight or None, closed-form backward or None)."""
+    from lic_tpu_torch.layers import conv_direct, gdn as gdn_mod
+
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last).to(dev)
+    if kernel == "gdn":
+        x, gamma, beta = _gdn_case(3000, 192, 3, dev)
+        return (lambda *t: gdn_fused(*t, False), None, [x, gamma, beta], None,
+                lambda cot, *t: gdn_mod.gdn_plain_backward(cot, *t, False))
+    if kernel == "conv5s2":
+        ts = [cl(_randn(g, 2, 192, 16, 24)), cl(_randn(g, 160, 192, 5, 5, scale=4800 ** -0.5)),
+              _randn(g, 160).to(dev)]
+        return conv5s2, conv5s2_plain, ts, 1, None
+    if kernel == "convk_s1":
+        ts = [cl(_randn(g, 2, 192, 12, 20)), cl(_randn(g, 192, 192, 3, 3, scale=1728 ** -0.5)),
+              _randn(g, 192).to(dev), cl(_randn(g, 2, 192, 12, 20))]
+        fn = lambda x, w, b, r: conv_direct.convk_s1(x, w, b, "leaky_relu", r)
+        plain = lambda x, w, b, r: convk_s1_plain(x, w, b, "leaky_relu", r)
+        return fn, plain, ts, 1, None
+    c, nh, ws = 192, 8, 8
+    rel, mask = _attn_case(g, dev, 16, 24, nh, ws, 4, 0)
+    if kernel == "wba":
+        return (lambda q, r: window_attention(q, r, mask, ws, nh),
+                lambda q, r: wba_plain(q, r, mask, ws, nh),
+                [_randn(g, 2, 16, 24, 3 * c).to(dev), rel], None, None)
+    ts = [_randn(g, 2, 16, 24, c).to(dev), rel, *_proj_weights(g, dev, c)]
+    return (lambda *t: window_attention_proj(*t, mask, ws, nh),
+            lambda *t: wba_proj_plain(*t, mask, ws, nh), ts, None, None)
+
+
+@pytest.mark.parametrize("kernel", ["gdn", "conv5s2", "convk_s1", "wba", "wba_proj"])
+def test_kernel_backward_matches_plain_autograd(cuda_device, kernel):
+    """The gradient of a random cotangent through the kernel's
+    autograd.Function (forward: the kernel, counted; backward: the plain
+    gradient, counted in ``backwards``) against autograd of the plain
+    version in float64 (B2: its closed form in float64) and in fp32."""
+    from lic_tpu_torch.layers import conv_direct, gdn as gdn_mod, window_attn as wa
+
+    counter = {"gdn": gdn_mod.gdn_fused, "conv5s2": conv_direct.conv5s2,
+               "convk_s1": conv_direct.convk_s1, "wba": wa.window_attention,
+               "wba_proj": wa.window_attention_proj}[kernel]
+    g = torch.Generator().manual_seed(len(kernel))
+    fn, plain, ts, weight_at, closed = _grad_case(kernel, cuda_device, g)
+    ins = [t.detach().requires_grad_() for t in ts]
+    l0, b0 = counter.launches, counter.backwards
+    y = fn(*ins)
+    cot = _randn(g, *y.shape).to(cuda_device)
+    got = torch.autograd.grad(y, ins, cot)
+    torch.cuda.synchronize()
+    assert (counter.launches - l0, counter.backwards - b0) == (1, 1)
+    if closed is not None:
+        ref = closed(cot.double(), *[t.double() for t in ts])
+        ref32 = closed(cot, *ts)
+    else:
+        i64 = [t.detach().double().requires_grad_() for t in ts]
+        ref = torch.autograd.grad(plain(*i64), i64, cot.double())
+        i32 = [t.detach().requires_grad_() for t in ts]
+        ref32 = torch.autograd.grad(plain(*i32), i32, cot)
+    for i, (a, b, b32) in enumerate(zip(got, ref, ref32)):
+        assert _share(a, b) <= (1e-4 if i == weight_at else 1e-5), (i, _share(a, b))
+        assert _share(a, b32) <= 1e-6, (i, _share(a, b32))
+
+
+@pytest.mark.parametrize("opt", ["trainer", "torch_foreach", "torch_fused"])
+def test_conv_kernels_read_the_weights_after_an_optimizer_step(cuda_device, opt):
+    """B3/B6 cache their weights' TF32 split: after one optimizer step (the
+    trainer's, and torch's Adam foreach and fused) the kernels' output
+    equals the plain version with the new weights (float64), not the old."""
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.layers import Conv2d
+    from lic_tpu_torch.training import make_optimizer
+
+    g = torch.Generator().manual_seed(5)
+    model = torch.nn.Sequential(Conv2d(192, 192, 5, 2, (1, 2, 1, 2), generator=g),
+                                Conv2d(192, 160, 3, 1, 1, fused_act="leaky_relu", generator=g))
+    model = model.to(cuda_device).to(memory_format=torch.channels_last)
+    x = _randn(g, 2, 192, 16, 24).to(cuda_device).contiguous(memory_format=torch.channels_last)
+    assert [m.kernel_slot(t) for m, t in ((model[0], x), (model[1], model[0](x)))] == [
+        "conv5s2", "convk_s1"]
+    if opt == "trainer":
+        optimizer = make_optimizer(model, TrainConfig(lr=1e-3), steps_per_epoch=10)
+    else:
+        optimizer = torch.optim.Adam(model.parameters(), lr=1e-3,
+                                     **{"foreach" if opt == "torch_foreach" else "fused": True})
+    model(x).square().mean().backward()  # the forward packs the weights
+    before = [m.weight.detach().clone() for m in model]
+    optimizer.step()
+    with torch.no_grad():
+        h = x
+        for m, old in zip(model, before):
+            y = m(h)
+            plain = conv5s2_plain if m.stride == 2 else convk_s1_plain
+            extra = () if m.stride == 2 else ("leaky_relu",)
+            ref = plain(h.double(), m.weight.double(), m.bias.double(), *extra)
+            torch.testing.assert_close(y.double(), ref, atol=TOL, rtol=TOL)
+            assert float((y.double() - plain(h.double(), old.double(), m.bias.double(),
+                                            *extra)).abs().max()) > 10 * TOL
+            h = y

@@ -200,10 +200,10 @@ def test_win_based_attention_at_unet_head_widths_matches_jax(c, ws, shift, h, w)
     (96, 4, 32, 48, False, "plain"),        # hd 12 under 4096 tokens
     (96, 4, 32, 48, True, "plain"),
     (512, 2, 8, 12, False, "plain"),        # hd 64
-    (384, 8, 64, 64, False, "wba"),         # hd 48 at 4096 tokens: B4 raises
-    (384, 8, 56, 64, False, "plain"),       # hd 48 under 4096 tokens
-    (384, 8, 64, 64, True, "wba_proj"),     # hd 48 at 4096 tokens: B5 raises
-    (384, 8, 56, 64, True, "plain"),
+    (384, 8, 64, 64, False, "wba"),         # hd 48 at 4096 tokens: B4
+    (384, 8, 56, 64, False, "wba"),         # hd 48 under 4096 tokens: B4 too
+    (384, 8, 64, 64, True, "wba_proj"),     # hd 48 at 4096 tokens: B5 at (384, 48)
+    (384, 8, 56, 64, True, "wba_proj"),
 ])
 def test_window_attention_route_gate(c, ws, hp, wp, fuse, want):
     m = WindowAttention(c, ws, 8, fuse_proj=fuse)
