@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-It drives the port's four serving paths at full width (N=192, M=16), random
+It drives the port's four serving paths, its evaluation and codec CLI and
+content-adaptive encoding at full width (N=192, M=16), random
 weights from a seed (UNTRAINED), through the entry points a user calls, on
 a batch of 8 synthetic 512×768 images, and checks them:
 
@@ -54,8 +55,10 @@ Each phase prints one line:
    ``Conv2d`` modules, and every B4 call with its shape, as B4's wrapper
    records it; ``compress`` → ``decompress`` at B=1; the times; for
    ``source_net`` also B1 against its plain version on the streams of that
-   B=8 decode (its payload, rows and threaded lane states, recorded from a
-   second ``decompress_batch``), bit-exact, with the time and escape share.
+   B=8 decode, of the B=1 decode and of [cli]'s decode of two 480×640
+   streams (each its payload, rows and threaded lane states, recorded from
+   another decode of the same streams), bit-exact, with the time and
+   escape share.
    A path with window attention then checks that every attention branch
    outputs non-zero values and runs its forward once more with
    ``fuse_proj`` (kernel B5 where it takes the shape, else B4 between the
@@ -70,7 +73,8 @@ Each phase prints one line:
    plain route, B3 runs at C_in 384), z3 / μ0 / σ0 / reconstruction within
    1e-4 of its CPU run at 128×128, the forward finite; both timed;
 6. B4 against its plain version at every (shape, window, heads, masked)
-   the paths gave it beyond those of 3;
+   the paths gave it beyond those of 3; B2 likewise at every (rows, C,
+   inverse) that the paths and [eval], [train] and [tune] gave it;
 7. B3 and B6 against their plain versions, as in 3, at every distinct
    shape and flag set that the paths gave them in 4-5, with TFLOP/s, the
    bound at the 3xTF32 rate (495/3 TFLOP/s: the kernel runs three TF32
@@ -101,11 +105,37 @@ Each phase prints one line:
    ``source_net_wam``, one step through B4 and one with ``fuse_proj`` (B5),
    the same checks;
 10. [grad]: at every (kernel, shape) the training steps gave B2-B6, the
-   gradient of a random cotangent through the kernel's autograd.Function
-   against autograd of the plain version in float64 (B2: its closed form
-   in float64) within ``GRAD_TOL`` of each gradient's range (the conv
-   weight gradients ``WGRAD_TOL``), and against the fp32 plain gradient
-   within ``FP32_TOL``.
+   forward through the kernel's autograd.Function against the plain
+   version within ``TOL`` (float64; B2 fp32, as in 3), and the gradient
+   of a random cotangent through it against autograd of the plain
+   version in float64 (B2: its closed form in float64; B6's LeakyReLU
+   on float64's side of 0, on the kernel's where the float64
+   pre-activation is within ``TOL`` of 0, counted) within ``GRAD_TOL`` of
+   each gradient's range (the conv weight gradients ``WGRAD_TOL``), and
+   against the fp32 plain gradient within ``FP32_TOL``; the same for the
+   B = 1 shapes of [tune].
+11. [c5] (for each path, on its model and batch): each image compressed
+   alone against ``compress_batch`` (bytes); the single streams decoded in
+   one batch, alone and in chunks of 3, 3 and 2, bit-identical and equal
+   to the eval forward in the coder's passes; the σ-indexes (scale-table
+   rows) of the coder's slice chain for each image alone against the
+   batch, none differing;
+12. [eval] (``source_net``, ``net_unet_ha_hs_dec``): ``evaluate_image`` at
+   B = 1 on 512×768, 768×512 and 480×640 (padded to 512×640) images: exact
+   launches, its B3/B6 and B4 calls checked in 6-7, metrics finite, the
+   scored reconstruction, bpp and MSE against a direct eval forward, ms
+   per image;
+13. [tune] (``source_net``, ``source_net_wam``): ``content_adaptive_finetune``
+   of one 512×768 image, 10 steps (drop at 5; the reference runs 100, drop
+   at 50): launches and backwards, every parameter outside g_a
+   bit-identical and every g_a leaf moved, B3/B6 with the tuned weights
+   against float64, the tuned stream decoded by the untouched model's
+   coder, the model's own g_a unchanged, ms per step by phase;
+14. [cli] (``source_net``): the codec CLI's directory core on 3 + 2 images
+   of two sizes at ``--batch 2``, every file against the eval forward, a
+   single-file stream decoded in a directory chunk, MP/s; where PIL
+   imports, ``cli.codec.main`` and ``cli.eval.main`` on PNGs it writes
+   (``pil=`` says which).
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
 it replaces, launches on the main paths, max error, times and bound, the
@@ -144,6 +174,18 @@ PEAK_FP32 = 67e12
 PEAK_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
+# [c5]: the decode chunks the codec CLI forms from BATCH streams at --batch 3
+C5_CHUNKS = (3, 3, 2)
+# [eval]: B = 1 images, Kodak landscape and portrait and one that pads
+# (480×640 → 512×640: z maps of 8×10)
+EVAL_PRESETS = ("source_net", "net_unet_ha_hs_dec")
+EVAL_SIZES = ((512, 768), (768, 512), (480, 640))
+# [tune]: content-adaptive encoding, cut from the reference's 100 steps
+# (drop at 50) to 10 (drop at 5)
+TUNE_PRESETS = ("source_net", "source_net_wam")
+TUNE_ITERS, TUNE_DROP = 10, 5
+# [cli]: the codec CLI's directory mode on 3 + 2 images of two sizes
+CLI_SIZES, CLI_BATCH = ((512, 768),) * 3 + ((480, 640),) * 2, 2
 # exact launches of each kernel, and calls of each plain route, over forward
 # + compress_batch + decompress_batch; each WinNoShiftAttention gate runs 4
 # window attentions and 14 B6 convs (3 + 3 ResidualBlocks, the 3x3 and the
@@ -184,6 +226,17 @@ EXPECTED = {
     "train:source_net_wam": {"gdn": 7, "conv5s2": 3, "convk_s1": 61, "wba": 16},
     "train:source_net_wam+fuse_proj": {"gdn": 7, "conv5s2": 3, "convk_s1": 61,
                                        "wba_proj": 16},
+    # [eval]: one B = 1 eval forward per image, the same at every size;
+    # [tune]: TUNE_ITERS training steps at B = 1, each launch with its backward
+    **{f"eval:source_net@{h}x{w}": {"gdn": 7, "conv5s2": 3, "convk_s1": 5}
+       for h, w in EVAL_SIZES},
+    **{f"eval:net_unet_ha_hs_dec@{h}x{w}": {"gdn": 9, "conv5s2": 2, "convk_s1": 60,
+                                           "wba": 20, "wba_plain_route": 5}
+       for h, w in EVAL_SIZES},
+    "tune:source_net": {"gdn": 7 * TUNE_ITERS, "conv5s2": 3 * TUNE_ITERS,
+                        "convk_s1": 5 * TUNE_ITERS},
+    "tune:source_net_wam": {"gdn": 7 * TUNE_ITERS, "conv5s2": 3 * TUNE_ITERS,
+                            "convk_s1": 61 * TUNE_ITERS, "wba": 16 * TUNE_ITERS},
 }
 TRAIN_BATCH, TRAIN_CROP, TRAIN_STEPS = 8, 256, 6
 # a gradient through a kernel's autograd.Function against autograd of the
@@ -491,21 +544,24 @@ def main() -> int:
             _say("b4_b5_ptxas", kernel=repr(line))
     torch.cuda.empty_cache()
 
-    # ---- 4. the paths
-    launches, times, conv_calls, attn_calls = {}, {}, {}, {}
+    # ---- 4. the paths, with [c5], [eval], [tune] and [cli]
+    launches, times, conv_calls, attn_calls, gdn_calls = {}, {}, {}, {}, {}
+    train_shapes = {"gdn": {}, "conv": {}, "attn": {}}  # for [grad]
     for preset in PATHS:
-        runs, t, drains = _drive(preset, dev, counted, conv_calls, attn_calls)
+        runs, t, drain_sets = _drive(preset, dev, counted, conv_calls, attn_calls, gdn_calls,
+                                     train_shapes)
         launches.update(runs)
         times[preset] = t
-        if preset == "source_net":
-            # B1 on the streams of the real B=8 decode
+        # B1 on the streams of real decodes: B=8, one stream, a CLI chunk
+        for label, drains in drain_sets.items():
             ddev_real = drains[0][0]
             ms, pms, err, _, decoded = _drain_vs_plain(
                 [c[1:] for c in drains], ddev_real, coding)
             sym_share, chunk_share = _escape_share(
                 decoded, ddev_real.offsets.cpu().numpy(), ddev_real.nsyms)
-            real_drain_ms = ms
-            _say("b1_drain", streams=f"{preset} B={BATCH} decode", calls=len(drains),
+            if label == f"{preset} B={BATCH} decode":
+                real_drain_ms = ms
+            _say("b1_drain", streams=label, batch=drains[0][3].shape[0], calls=len(drains),
                  symbols_per_call=[c[4] for c in drains], bitexact=True,
                  escape_share_symbols=f"{sym_share:.4f}",
                  escape_share_chunks=f"{chunk_share:.4f}", ms=f"{ms:.3f}",
@@ -521,7 +577,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- [train], [train_wam]: the training step on the card
-    train_shapes = {"gdn": {}, "conv": {}, "attn": {}}
     launches.update(_drive_train(dev, counted, train_shapes))
     torch.cuda.empty_cache()
     for run, want in EXPECTED.items():
@@ -565,6 +620,26 @@ def main() -> int:
              **_roofline(ms, lms, nbytes, flops),
              **dict(zip(occ, window_attn.occupancy(False, ws, hd, c))))
         del qkv, q, kk, v, qkv_w, amask
+    torch.cuda.empty_cache()
+
+    # ---- 6b. B2 vs plain (as in 3a) at every (rows, C, inverse) that the
+    # paths, [eval], [train] and [tune] gave it beyond those of 3a
+    done = {(rows, c, inv) for _, rows, c, inv in gdn_shapes}
+    for rows, c, inv in sorted((set(gdn_calls) | set(train_shapes["gdn"])) - done):
+        x = torch.randn(rows, c, generator=g).to(dev)
+        gamma = (0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=g)).to(dev)
+        beta = (1.0 + torch.rand(c, generator=g)).to(dev)
+        err, ms, pms, _, _ = _vs_plain(f"gdn {(rows, c, inv)}", gdn_mod.gdn_fused,
+                                      gdn_mod.gdn_plain, (x, gamma, beta, inv), f64=False)
+        nbytes, flops = 2 * _nbytes(x) + _nbytes(gamma, beta), 2 * rows * c * c
+        peak = PEAK_TF32X3 if c > 16 else PEAK_FP32
+        tally["gdn"].add(err, ms, pms, None, nbytes, flops, peak)
+        rl = _roofline(ms, ms, nbytes, flops, peak)
+        _say("b2_gdn", rows=rows, C=c, inverse=inv, path_launches=gdn_calls.get((rows, c, inv)),
+             train_tune_calls=train_shapes["gdn"].get((rows, c, inv)), max_abs_err=f"{err:.3g}",
+             ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", bound_ms=rl["bound_ms"],
+             bound_by=rl["bound_by"], share_of_bound=rl["share_of_bound"])
+        del x
     torch.cuda.empty_cache()
 
     # ---- 7. B3 and B6 vs plain at every (shape, flags) the paths gave them;
@@ -1057,12 +1132,17 @@ def _profile_step(step_fn, state, batch, step_ms, top=6):
 
 
 def _grad_checks(shapes, dev, g):
-    """[grad]: at every (kernel, shape) the training steps recorded, the
-    gradient of a random cotangent through the kernel's autograd.Function
-    against autograd of its plain version in float64 (B2: its closed form
-    in float64), within ``GRAD_TOL`` of the reference's largest magnitude,
-    for every input; each call runs one backward (``backwards``)."""
+    """[grad]: at every (kernel, shape) the training and tune steps
+    recorded, the forward through the kernel's autograd.Function against
+    the plain version (float64; B2 fp32, as in 3a) within ``TOL``, and
+    the gradient of a random cotangent through it against autograd of its
+    plain version in float64 and fp32 (B2: its closed form; a LeakyReLU's
+    derivative on float64's side of 0, but within ``TOL`` of 0 on the
+    kernel's side), within ``GRAD_TOL`` of the reference's largest
+    magnitude, for every input; each call runs one backward
+    (``backwards``)."""
     import torch
+    import torch.nn.functional as F
 
     from lic_tpu_torch.layers import conv_direct, gdn as gdn_mod, window_attn
 
@@ -1072,10 +1152,17 @@ def _grad_checks(shapes, dev, g):
     def share(a, b):
         return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-300))
 
-    def case(name, counter, fn, plain, tensors, closed=None, weight_at=None, **info):
+    def case(name, counter, fn, plain, tensors, closed=None, weight_at=None, forward=None,
+             **info):
         ins = [t.detach().requires_grad_() for t in tensors]
         b0 = counter.backwards
         y = fn(*ins)
+        with torch.no_grad():
+            ref_y = (forward or (lambda *t: plain(*[a.double() for a in t])))(*tensors)
+            fwd_err = float((y.detach().to(ref_y.dtype) - ref_y).abs().max())
+            torch.testing.assert_close(y.detach().to(ref_y.dtype), ref_y, atol=TOL, rtol=TOL,
+                                       msg=lambda m: f"{name} {info}: autograd forward: {m}")
+        del ref_y
         cot = torch.randn(y.shape, generator=g).to(dev)
         got = torch.autograd.grad(y, ins, cot)
         torch.cuda.synchronize()
@@ -1095,7 +1182,7 @@ def _grad_checks(shapes, dev, g):
         if any(e > t for e, t in zip(errs, tols)) or max(errs32) > FP32_TOL:
             raise AssertionError(f"{name} {info}: gradients off float64 by {errs}, off the "
                                  f"fp32 plain gradient by {errs32} (shares of their range)")
-        _say("grad", kernel=name, **info, inputs=len(ins),
+        _say("grad", kernel=name, **info, inputs=len(ins), forward_err=f"{fwd_err:.3g}",
              err_share_vs_f64=json.dumps([float(f"{e:.3g}") for e in errs]),
              err_share_vs_fp32_plain=f"{max(errs32):.3g}",
              identical_to_fp32_plain=all(torch.equal(a, b) for a, b in zip(got, ref32)),
@@ -1108,6 +1195,7 @@ def _grad_checks(shapes, dev, g):
         e = case("gdn", gdn_mod.gdn_fused, lambda x, gm, bt: gdn_mod.gdn_fused(x, gm, bt, inv),
                  None, [randn(rows, c), gamma.to(dev), (1.0 + torch.rand(c, generator=g)).to(dev)],
                  closed=lambda cot, x, gm, bt: gdn_mod.gdn_plain_backward(cot, x, gm, bt, inv),
+                 forward=lambda x, gm, bt: gdn_mod.gdn_plain(x, gm, bt, inv),
                  rows=rows, C=c, inverse=inv, train_calls=n)
         worst["gdn"] = max(worst.get("gdn", 0.0), e)
     cl = lambda t: t.contiguous(memory_format=torch.channels_last)
@@ -1118,6 +1206,7 @@ def _grad_checks(shapes, dev, g):
         ts = [cl(randn(*xs)), cl(randn(*ws_, scale=(cin * k * k) ** -0.5))]
         if has_bias:
             ts.append(randn(cout))
+        forward, band = None, {}
         if slot == "conv5s2":
             fn = lambda x, w, *bb: conv_direct.conv5s2(x, w, *bb)
             plain = lambda x, w, *bb: conv_direct.conv5s2_plain(x, w, *bb)
@@ -1130,10 +1219,37 @@ def _grad_checks(shapes, dev, g):
                 res = t[-1] if has_res else None
                 return t[0], t[1], bias, act, res
 
+            # the LeakyReLU's side of 0 in the references: float64's own,
+            # but where the float64 pre-activation lies within TOL of 0
+            # (the forward check's tolerance, inside which the kernel may
+            # lie on the other side) the kernel's, which the backward uses
+            x0, w0, b0 = split(ts)[:3]
+            side = None
+            if act == "leaky_relu":
+                with torch.no_grad():
+                    z64 = F.conv2d(x0.double(), w0.double(),
+                                   None if b0 is None else b0.double(), padding=k // 2)
+                    near = z64.abs() <= TOL
+                    side = torch.where(near, conv_direct.convk_s1(x0, w0, b0, act) >= 0,
+                                       z64 >= 0)
+                    band = dict(within_tol_of_kink=int(near.sum()),
+                                kernel_side_differs=int((side != (z64 >= 0)).sum()))
+                del z64, near
+
+            def plain(*t, k=k, split=split, side=side):
+                x, w, bias, act_, res = split(t)
+                if side is None:
+                    return conv_direct.convk_s1_plain(x, w, bias, act_, res)
+                z = F.conv2d(x, w, bias, padding=k // 2)
+                y = torch.where(side, z, z * conv_direct.LEAKY_SLOPE)
+                return y if res is None else y + res
+
             fn = lambda *t: conv_direct.convk_s1(*split(t))
-            plain = lambda *t: conv_direct.convk_s1_plain(*split(t))
-        e = case(slot, getattr(conv_direct, slot), fn, plain, ts, weight_at=1, shape=xs,
-                 c_out=cout, k=k, bias=has_bias, act=act, residual=has_res, train_calls=by_run)
+            forward = lambda *t, split=split: conv_direct.convk_s1_plain(
+                *split([a.double() for a in t]))
+        e = case(slot, getattr(conv_direct, slot), fn, plain, ts, weight_at=1, forward=forward,
+                 shape=xs, c_out=cout, k=k, bias=has_bias, act=act, residual=has_res,
+                 train_calls=by_run, **band)
         worst[slot] = max(worst.get(slot, 0.0), e)
     for (route, xs, ws, nh, masked), n in sorted(shapes["attn"].items(), key=str):
         b, hp, wp, c = xs
@@ -1182,13 +1298,18 @@ def _wake_zero_leaves(*models):
     return woken
 
 
-def _hooks_agree(run, counts, conv_calls):
+def _hooks_agree(run, counts, conv_calls, gdn_calls=None):
     """The launches a run counted equal the calls its hooks recorded."""
     for slot in ("conv5s2", "convk_s1"):
         seen = sum(n.get(run, 0) for key, n in conv_calls.items() if key[0] == slot)
         if seen != counts[slot]:
             raise AssertionError(f"{run}: {counts[slot]} {slot} launches, "
                                  f"{seen} seen by the Conv2d hooks")
+    if gdn_calls is not None:
+        seen = sum(n.get(run, 0) for n in gdn_calls.values())
+        if seen != counts["gdn"]:
+            raise AssertionError(f"{run}: {counts['gdn']} gdn launches, "
+                                 f"{seen} seen by the GDN hooks")
 
 
 def _drive_variants(dev, counters, conv_calls):
@@ -1271,13 +1392,32 @@ def _record_conv_slots(model, calls, run):
             for m in model.modules() if isinstance(m, Conv2d)]
 
 
-def _drive(preset, dev, counters, conv_calls, attn_calls):
+def _record_gdn(model, calls, run):
+    """Forward pre-hooks on every GDN of ``model``: each call that B2 takes
+    counts one in ``calls[(rows, C, inverse)][run]``.  → handles."""
+    from lic_tpu_torch.layers import GDN
+    from lic_tpu_torch.layers.gdn import b2_takes
+
+    def hook(m, args):
+        b, c, h, w = args[0].shape
+        if b2_takes(c):
+            by_run = calls.setdefault((b * h * w, c, m.inverse), {})
+            by_run[run] = by_run.get(run, 0) + 1
+
+    return [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, GDN)]
+
+
+def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes):
     """One path: the small-input check against the CPU, the main path with
-    its launch counts and its B3/B6 and B4 calls (into ``conv_calls`` and
-    ``attn_calls``, by run), the B=1 roundtrip, the times (and for a preset with
-    window attention the ``fuse_proj`` pass).
-    → ({run: launches}, times, the drain calls of a B=8 decode of
-    ``source_net``, else [])."""
+    its launch counts and its B2, B3/B6 and B4 calls (into ``gdn_calls``,
+    ``conv_calls`` and ``attn_calls``, by run), the B=1 roundtrip, the
+    times (and for a preset with
+    window attention the ``fuse_proj`` pass); then [c5], and where the
+    preset is one of theirs [eval], [tune] (its kernel shapes into
+    ``tune_shapes``) and [cli].
+    → ({run: launches}, times, {label: the drain calls of a decode}: for
+    ``source_net`` its B=8 decode, its one-stream decode and [cli]'s
+    decode of a chunk of two 480×640 streams, else {})."""
     import numpy as np
     import torch
 
@@ -1320,35 +1460,29 @@ def _drive(preset, dev, counters, conv_calls, attn_calls):
         raise AssertionError(f"{preset}: GPU stages disagree with the CPU run: {ref_err}")
     del cpu_model, sc, sg
 
-    def zero():
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-        window_attn.window_attention.calls.clear()
-
-    def read():
-        torch.cuda.synchronize()
-        return {k: fn.launches for k, fn in counters.items()}
-
     # the main path: forward + compress_batch → decompress_batch
     coder = ChannelCoder(model, name=preset)
-    hooks = _record_conv_slots(model, conv_calls, preset)
-    zero()
+    hooks = (_record_conv_slots(model, conv_calls, preset)
+             + _record_gdn(model, gdn_calls, preset))
+    _zero(counters)
     with torch.no_grad():
         out = model(x)
     blobs = coder.compress_batch(x)
     rec = coder.decompress_batch(blobs)
-    runs = {preset: read()}
+    runs = {preset: _read(counters)}
     for h in hooks:
         h.remove()
-    _hooks_agree(preset, runs[preset], conv_calls)
+    _hooks_agree(preset, runs[preset], conv_calls, gdn_calls)
     for key, n in window_attn.window_attention.calls.items():
         attn_calls.setdefault(key, {})[preset] = n
     if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
         raise AssertionError(f"{preset}: non-finite forward output")
     if out.x_tilde.shape != (BATCH, 3, H, W) or rec.shape != out.x_tilde.shape:
         raise AssertionError(f"{preset}: shapes {tuple(out.x_tilde.shape)} / {tuple(rec.shape)}")
-    rec_err = float((rec - out.x_tilde).abs().max())
+    # the coder runs its model passes on pass_batch images (BATCH here, on
+    # the card): its reference is the forward in those passes
+    ref = _pass_forward(model, x)
+    rec_err = float((rec - ref).abs().max())
     if rec_err > RECON_TOL:
         raise AssertionError(f"{preset}: decoded recon differs from the forward: {rec_err}")
     _say("forward", preset=preset, shape=tuple(out.x_tilde.shape),
@@ -1356,16 +1490,17 @@ def _drive(preset, dev, counters, conv_calls, attn_calls):
          weights="UNTRAINED", small_vs_cpu_max_err=f"{max(ref_err.values()):.3g}")
     bpp = sum(len(b) for b in blobs) * 8 / (BATCH * H * W)
     x1 = x[:1]
-    rec1 = coder.decompress(coder.compress(x1))
-    with torch.no_grad():
-        ref1 = model(x1).x_tilde
-    rec1_err = float((rec1 - ref1).abs().max())
+    blob1 = coder.compress(x1)
+    rec1_err = float((coder.decompress(blob1) - _pass_forward(model, x1)).abs().max())
     if rec1_err > RECON_TOL:
         raise AssertionError(f"{preset}: B=1 roundtrip recon differs from its forward: {rec1_err}")
-    drains = record_drains(coder, blobs) if preset == "source_net" else []
+    drains = {}
+    if preset == "source_net":
+        drains[f"{preset} B={BATCH} decode"] = record_drains(coder, blobs)
+        drains[f"{preset} one-stream decode"] = record_drains(coder, [blob1])
     _say("roundtrip", preset=preset, streams=BATCH, bpp=f"{bpp:.4f}",
          recon_max_err=f"{rec_err:.3g}", final_state_ok=True, launches=runs[preset],
-         b1_recon_max_err=f"{rec1_err:.3g}", b1_stream_equals_batch=coder.compress(x1) == blobs[0])
+         b1_recon_max_err=f"{rec1_err:.3g}", b1_stream_equals_batch=blob1 == blobs[0])
 
     # times (UNTRAINED weights: the codec rows are not rate points)
     mp = BATCH * H * W / 1e6
@@ -1399,9 +1534,9 @@ def _drive(preset, dev, counters, conv_calls, attn_calls):
             rec_b4 = model.synthesize(out.extras["y_hat"], model.syntax_from_latent(z3))
             for m in attn:
                 m.fuse_proj = True
-            zero()
+            _zero(counters)
             out5 = model(x)
-            runs[f"{preset}+fuse_proj"] = read()
+            runs[f"{preset}+fuse_proj"] = _read(counters)
             z3_5 = model.analyze(x)
             rec_b5 = model.synthesize(out.extras["y_hat"], model.syntax_from_latent(z3))
             fwd5_ms = _cuda_ms(lambda: model(x), 3)
@@ -1416,7 +1551,394 @@ def _drive(preset, dev, counters, conv_calls, attn_calls):
              leaves_woken=woken, attn_out_min_max_abs=f"{min(attn_max):.3g}",
              z3_max_err=f"{errs['z3']:.3g}", synthesis_max_err=f"{errs['synthesis']:.3g}",
              forward_ms=f"{fwd5_ms:.2f}")
+
+    # this slice's phases on the same model: [c5], [eval], [tune], [cli]
+    _c5(preset, model, coder, x, ref)
+    if preset in EVAL_PRESETS:
+        runs.update(_eval_phase(preset, model, dev, counters, conv_calls, attn_calls,
+                                gdn_calls))
+    if preset in TUNE_PRESETS:
+        runs.update(_tune_phase(preset, model, coder, x1, dev, counters, tune_shapes))
+    if preset == "source_net":
+        drains["cli 480x640 chunk of 2"] = _cli_phase(model, coder, dev)
     return runs, times, drains
+
+
+def _c5_rows(model, coder, x):
+    """The scale-table rows (σ-indexes) of the coder's own slice chain
+    (``ChannelCoder._slices_pass``, in its passes) for each image of ``x``
+    alone against the batch: → the count that differ."""
+    import torch
+
+    from lic_tpu_torch.models.compress import _passes, pass_batch
+
+    p = pass_batch(*x.shape[2:], x.device)
+    with torch.no_grad():
+        z3 = _passes(model.analyze, p, x)
+        _, z_hat = coder._z_enc(z3, p)
+        rows_b = coder._slices_pass(z_hat, p, y=z3)[1]
+        rows_1 = torch.cat([coder._slices_pass(z_hat[i : i + 1], p, y=z3[i : i + 1])[1]
+                            for i in range(x.shape[0])])
+    return int((rows_b != rows_1).sum())
+
+
+def _c5(preset, model, coder, x, fwd):
+    """[c5] cross-batch σ-indexes: each image of ``x`` compressed alone
+    against ``compress_batch`` of all (bytes); the single streams decoded
+    in one ``decompress_batch``, each alone and in chunks of ``C5_CHUNKS``,
+    the reconstructions bit-identical and within ``RECON_TOL`` of the
+    eval forward ``fwd``; the σ-indexes of each image alone against the
+    batch (``_c5_rows``).  Raises on any difference."""
+    import torch
+
+    b = x.shape[0]
+    rows_diff = _c5_rows(model, coder, x)
+    batch_blobs = coder.compress_batch(x)
+    singles = [coder.compress(x[i : i + 1]) for i in range(b)]
+    same_bytes = sum(s == t for s, t in zip(singles, batch_blobs))
+    t0 = time.perf_counter()
+    dec_batch = coder.decompress_batch(singles)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec_alone = torch.cat([coder.decompress(s) for s in singles])
+    torch.cuda.synchronize()
+    t_alone = time.perf_counter() - t0
+    parts, i = [], 0
+    for n in C5_CHUNKS:
+        parts.append(coder.decompress_batch(singles[i : i + n]))
+        i += n
+    dec_chunks = torch.cat(parts)
+    identical = {"alone": torch.equal(dec_batch, dec_alone),
+                 "chunks": torch.equal(dec_batch, dec_chunks)}
+    rec_err = max(float((d - fwd).abs().max()) for d in (dec_batch, dec_alone, dec_chunks))
+    _say("c5", preset=preset, batch=b, single_equals_batch_bytes=f"{same_bytes}/{b}",
+         decode_bitidentical=json.dumps(identical), chunks=json.dumps(list(C5_CHUNKS)),
+         rows_differing_b1_vs_batch=rows_diff,
+         recon_max_err=f"{rec_err:.3g}", decode_batch_s=f"{t_batch:.3f}",
+         decode_one_by_one_s=f"{t_alone:.3f}")
+    if same_bytes != b or not all(identical.values()) or rows_diff or rec_err > RECON_TOL:
+        raise AssertionError(f"c5 {preset}: streams or reconstructions depend on the batch")
+
+
+def _pass_forward(model, x):
+    """The eval forward's reconstruction of each image of ``x`` (padded to
+    /64) as ``ChannelCoder`` runs its model passes: in passes of
+    ``pass_batch`` images, the last filled up with copies."""
+    import torch
+
+    from lic_tpu_torch.models.compress import _passes, pass_batch
+
+    with torch.no_grad():
+        return _passes(lambda t: model(t).x_tilde, pass_batch(*x.shape[2:], x.device), x)
+
+
+def _zero(counters):
+    import torch
+
+    from lic_tpu_torch.layers import window_attn
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "backwards"):
+            c.backwards = 0
+    window_attn.window_attention.calls.clear()
+
+
+def _read(counters):
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}
+
+
+def _eval_phase(preset, model, dev, counters, conv_calls, attn_calls, gdn_calls):
+    """[eval] ``evaluate_image`` at B = 1 on one seeded synthetic image of
+    each of ``EVAL_SIZES``: its launches (counters zeroed just before,
+    read just after) and its B2, B3/B6 and B4 calls recorded for 6-7; the
+    metrics finite; the reconstruction it scored (read by a forward hook)
+    within ``RECON_TOL`` of a direct eval forward of the image padded by
+    ``F.pad``, and its bpp and MSE recomputed from that forward; ms per
+    image (median of 3 calls after the counted one).  → {run: launches}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.evaluation import evaluate_image
+    from lic_tpu_torch.layers import window_attn
+
+    runs = {}
+    for h, w in EVAL_SIZES:
+        run = f"eval:{preset}@{h}x{w}"
+        x = torch.from_numpy(smooth_images(np.random.default_rng(SEED + h + w), 1, h, w))
+        x = x.to(dev).contiguous(memory_format=torch.channels_last)
+        seen = []
+        hooks = _record_conv_slots(model, conv_calls, run) + _record_gdn(model, gdn_calls, run) + [
+            model.register_forward_hook(lambda m, a, out: seen.append(out.x_tilde))]
+        _zero(counters)
+        r = evaluate_image(model, x)
+        runs[run] = _read(counters)
+        for hk in hooks:
+            hk.remove()
+        _hooks_agree(run, runs[run], conv_calls, gdn_calls)
+        for key, n in window_attn.window_attention.calls.items():
+            attn_calls.setdefault(key, {})[run] = n
+        if not all(np.isfinite(r[k]) for k in ("bpp", "psnr", "mse", "msssim")):
+            raise AssertionError(f"{run}: non-finite metrics {r}")
+        ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+        with torch.no_grad():
+            ref = model(F.pad(x, (0, pw - w, 0, ph - h), mode="replicate"))
+        rec_err = float((seen[0] - ref.x_tilde).abs().max())
+        gt = torch.round((x.double() + 1) * 127.5)
+        rec = torch.round(torch.clamp((ref.x_tilde[:, :, :h, :w].double().clamp(-1, 1) + 1)
+                                      * 127.5, 0, 255))
+        mse = float(((rec - gt) ** 2).mean())
+        bpp = float(ref.bpp) * ph * pw / (h * w)
+        if rec_err > RECON_TOL or abs(r["mse"] - mse) > 1e-3 * mse or abs(r["bpp"] - bpp) > 1e-6 * bpp:
+            raise AssertionError(f"{run}: evaluate_image off the direct forward: recon "
+                                 f"{rec_err}, mse {r['mse']} vs {mse}, bpp {r['bpp']} vs {bpp}")
+        secs = sorted(evaluate_image(model, x)["seconds"] for _ in range(3))
+        _say("eval", preset=preset, size=f"{h}x{w}", padded=f"{ph}x{pw}", batch=1,
+             bpp=f"{r['bpp']:.4f}", psnr=f"{r['psnr']:.3f}", msssim=f"{r['msssim']:.5f}",
+             recon_vs_forward=f"{rec_err:.3g}", launches=runs[run],
+             ms_per_image=f"{secs[1] * 1e3:.2f}", first_call_ms=f"{r['seconds'] * 1e3:.2f}",
+             weights="UNTRAINED")
+    return runs
+
+
+def _tune_phase(preset, model, coder, x1, dev, counters, shapes):
+    """[tune] ``content_adaptive_finetune`` of ``model`` on the B = 1 image
+    ``x1`` (``TUNE_ITERS`` steps, the rate drop at ``TUNE_DROP``): the
+    launches and backwards of all steps against ``EXPECTED``; the kernel
+    shapes of the steps recorded into ``shapes`` for [grad] (the steps run
+    on a copy of the model: GDN and attention calls by a global forward
+    pre-hook, B3/B6 calls by stand-ins for ``layers.conv``'s kernel
+    entry points that call the real ones); every
+    parameter outside g_a bit-identical, every g_a leaf moved; each B3/B6
+    slot of the tuned g_a against the plain version in float64 with the
+    tuned weights (``TOL``); the tuned image's stream, decoded by
+    ``coder`` (the untouched model's; the same digest), within
+    ``RECON_TOL`` of the tuned model's eval forward (``_pass_forward``);
+    ``model``'s g_a as it was; ms per step by phase (CUDA
+    events, median of steps 2 on).  → {run: launches}."""
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from lic_tpu_torch.config import EvalConfig
+    from lic_tpu_torch.evaluation import content_adaptive_finetune
+    from lic_tpu_torch.layers import GDN, WindowAttention, conv_direct
+    from lic_tpu_torch.layers import conv as conv_mod
+    from lic_tpu_torch.layers.conv import Conv2d
+    from lic_tpu_torch.layers.gdn import b2_takes
+    from lic_tpu_torch.models.compress import ChannelCoder
+
+    run = f"tune:{preset}"
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    slots = {}  # id(weight) → the input shape of its B3/B6 call
+
+    def record(m, args):
+        x = args[0]
+        if isinstance(m, GDN) and b2_takes(x.shape[1]):
+            key = (x.shape[0] * x.shape[2] * x.shape[3], x.shape[1], m.inverse)
+            shapes["gdn"][key] = shapes["gdn"].get(key, 0) + 1
+        elif isinstance(m, WindowAttention):
+            key = (m.route(x), tuple(x.shape), m.window_size, m.num_heads, args[1] is not None)
+            shapes["attn"][key] = shapes["attn"].get(key, 0) + 1
+
+    real = {k: getattr(conv_mod, k) for k in ("conv5s2", "convk_s1")}
+
+    def recording(slot):
+        def call(x, weight, bias=None, act=None, residual=None):
+            key = (slot, tuple(x.shape), tuple(weight.shape), bias is not None, act,
+                   residual is not None)
+            by_run = shapes["conv"].setdefault(key, {})
+            by_run[run] = by_run.get(run, 0) + 1
+            slots[id(weight)] = tuple(x.shape)
+            if slot == "conv5s2":
+                return real[slot](x, weight, bias)
+            return real[slot](x, weight, bias, act, residual)
+        return call
+
+    ev, steps = [], []
+
+    def mark(name):
+        if name == "start":
+            ev.append({})
+        ev[-1][name] = torch.cuda.Event(enable_timing=True)
+        ev[-1][name].record()
+
+    cfg = EvalConfig(tune_iters=TUNE_ITERS, tune_lr_drop_step=TUNE_DROP)
+    hook = register_module_forward_pre_hook(record)
+    for k in real:
+        setattr(conv_mod, k, recording(k))
+    _zero(counters)
+    try:
+        tuned = content_adaptive_finetune(model, x1, cfg, on_phase=mark)
+    finally:
+        hook.remove()
+        for k, fn in real.items():
+            setattr(conv_mod, k, fn)
+    launches = _read(counters)
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    back = {k: counters[k].backwards for k in kernels}
+    if back != {k: launches[k] for k in kernels}:
+        raise AssertionError(f"{run}: backwards {back} != launches {launches}")
+    phases = ("start", "forward", "backward", "optimizer")
+    for e in ev:
+        steps.append([e[a].elapsed_time(e[b]) for a, b in zip(phases, phases[1:])])
+    med = sorted(steps[1:], key=sum)[len(steps[1:]) // 2]
+
+    moved, worst = 0, 0.0
+    with torch.no_grad():
+        for (name, p), q in zip(tuned.named_parameters(), model.parameters()):
+            if name.startswith("g_a."):
+                moved += not torch.equal(p, q)
+            elif not torch.equal(p, q):
+                raise AssertionError(f"{run}: {name} moved outside g_a")
+        n_ga = sum(1 for n, _ in tuned.named_parameters() if n.startswith("g_a."))
+        if moved != n_ga:
+            raise AssertionError(f"{run}: {n_ga - moved} of {n_ga} g_a leaves did not move")
+        checked = 0
+        for m in tuned.g_a.modules():
+            if isinstance(m, Conv2d) and id(m.weight) in slots:
+                checked += 1
+                xs = slots[id(m.weight)]
+                xr = torch.randn(xs, generator=torch.Generator().manual_seed(xs[1]))
+                xr = xr.to(dev).contiguous(memory_format=torch.channels_last)
+                slot = m.kernel_slot(xr)
+                extra = (m.fused_act,) if slot == "convk_s1" else ()
+                b64 = None if m.bias is None else m.bias.double()
+                ref = getattr(conv_direct, f"{slot}_plain")(xr.double(), m.weight.double(), b64,
+                                                           *extra)
+                y = m(xr)
+                torch.testing.assert_close(y.double(), ref, atol=TOL, rtol=TOL,
+                                           msg=lambda t: f"{run} {slot} after tuning: {t}")
+                worst = max(worst, float((y.double() - ref).abs().max()))
+        tuned_coder = ChannelCoder(tuned, name=preset)
+        if tuned_coder.digest != coder.digest:
+            raise AssertionError(f"{run}: the tuned model's entropy tables changed")
+        blob = tuned_coder.compress(x1)
+        rec = coder.decompress(blob)
+        rec_err = float((rec - _pass_forward(tuned, x1)).abs().max())
+        untuned_blob = coder.compress(x1)
+        after = model.state_dict()
+        if not all(torch.equal(before[k], after[k]) for k in before):
+            raise AssertionError(f"{run}: the model itself changed")
+    if rec_err > RECON_TOL:
+        raise AssertionError(f"{run}: tuned stream decodes {rec_err} off the tuned forward")
+    _say("tune", preset=preset, batch=1, shape=tuple(x1.shape[2:]), steps=TUNE_ITERS,
+         drop_step=TUNE_DROP, note="cut from 100 steps (drop at 50)",
+         ga_leaves_moved=f"{moved}/{n_ga}", others_bitidentical=True,
+         b3_b6_slots_checked=checked, b3_b6_vs_f64_tuned_weights=f"{worst:.3g}",
+         tuned_stream_bytes=len(blob), untuned_stream_bytes=len(untuned_blob),
+         decoded_by_untouched_coder_max_err=f"{rec_err:.3g}", model_ga_restored=True,
+         launches_all_steps=launches,
+         step_ms=f"{sum(med):.2f}", forward_ms=f"{med[0]:.2f}", backward_ms=f"{med[1]:.2f}",
+         optimizer_ms=f"{med[2]:.2f}", all_step_ms=json.dumps([round(sum(t), 2) for t in steps]))
+    del tuned, tuned_coder
+    return {run: launches}
+
+
+def _cli_phase(model, coder, dev):
+    """[cli] the codec CLI's directory core (``cli.codec.compress_images``
+    → ``decompress_streams``) on seeded images of ``CLI_SIZES`` at
+    ``--batch CLI_BATCH``: each reconstruction within ``RECON_TOL`` of the
+    eval forward of its image (``_pass_forward``); one image compressed
+    alone then decoded in the directory's chunks (C5 through the CLI),
+    bit-identical; MP/s.  Where PIL imports, also ``cli.codec.main`` and
+    ``cli.eval.main`` on PNGs written under ``build/smoke_cli``.  → the
+    drain calls of a decode of the chunk of two 480×640 streams."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.cli import codec as cli_codec
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.data.pad import pad_to_multiple
+    from lic_tpu_torch.tools.kernel_probe import record_drains
+
+    rng = np.random.default_rng(SEED + 11)
+    items = [(f"im{i}", smooth_images(rng, 1, h, w)[0].transpose(1, 2, 0).copy())
+             for i, (h, w) in enumerate(CLI_SIZES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blobs = cli_codec.compress_images(coder, items, CLI_BATCH)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    recs = dict(cli_codec.decompress_streams(coder, blobs, CLI_BATCH))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    worst = 0.0
+    with torch.no_grad():
+        for name, img in items:
+            x = torch.from_numpy(img.transpose(2, 0, 1)[None]).to(dev)
+            xp, (h, w) = pad_to_multiple(x.contiguous(memory_format=torch.channels_last), 64)
+            ref = _pass_forward(model, xp)[0, :, :h, :w].permute(1, 2, 0).cpu().numpy()
+            worst = max(worst, float(np.abs(recs[name] - ref).max()))
+    single = [(items[0][0], coder.compress(
+        torch.from_numpy(items[0][1].transpose(2, 0, 1)[None].copy()).to(dev)))]
+    mixed = dict(cli_codec.decompress_streams(coder, single + blobs[1:], CLI_BATCH))
+    same = single[0][1] == blobs[0][1] and np.array_equal(mixed[items[0][0]], recs[items[0][0]])
+    if worst > RECON_TOL or not same:
+        raise AssertionError(f"cli: directory decode {worst} off the forward, single-file "
+                             f"stream in the chunk identical: {same}")
+    mp = sum(h * w for h, w in CLI_SIZES) / 1e6
+    try:
+        import PIL
+
+        pil = PIL.__version__
+    except ImportError:
+        pil = "absent"
+    _say("cli", preset="source_net", images=len(items), sizes=json.dumps(CLI_SIZES),
+         batch=CLI_BATCH, recon_max_err=f"{worst:.3g}", single_file_stream_in_chunk=same,
+         compress_s=f"{t1 - t0:.3f}", decompress_s=f"{t2 - t1:.3f}",
+         dir_mode_mps=f"{mp / (t2 - t0):.3f}", pil=pil)
+    if pil != "absent":
+        _cli_mains(model, items)
+    return record_drains(coder, [b for _, b in blobs[3:]])
+
+
+def _cli_mains(model, items):
+    """``cli.codec.main`` (directory compress, decompress) and
+    ``cli.eval.main`` on PNGs of ``items`` under ``build/smoke_cli``, the
+    smoke's weights saved as a ``.npz``: every file written, the decoded
+    PNGs of full size, an ``AVG:`` line."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from lic_tpu_torch.cli import codec as cli_codec, eval as cli_eval
+    from lic_tpu_torch.utils.checkpoint import save_params
+
+    root = os.path.join(ROOT, "build", "smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "png"))
+    for name, img in items:
+        Image.fromarray(np.clip((img + 1) * 127.5 + 0.5, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, "png", f"{name}.png"))
+    weights = os.path.join(root, "w.npz")
+    save_params(weights, model)
+    device = ["--device", next(model.parameters()).device.type]
+    common = ["--weight_path", weights, "--preset", "source_net", "--batch", str(CLI_BATCH),
+              *device]
+    t0 = time.perf_counter()
+    cli_codec.main(["compress", os.path.join(root, "png"), os.path.join(root, "ltc"), *common])
+    cli_codec.main(["decompress", os.path.join(root, "ltc"), os.path.join(root, "out"), *common])
+    t1 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_eval.main(["--data_path", os.path.join(root, "png"), "--weight_path", weights,
+                       "--preset", "source_net", *device])
+    avg = [l for l in out.getvalue().splitlines() if l.startswith("AVG:")]
+    sizes = [Image.open(os.path.join(root, "out", f"{n}.png")).size[::-1] for n, _ in items]
+    if sizes != [img.shape[:2] for _, img in items] or len(avg) != 1:
+        raise AssertionError(f"cli mains: decoded sizes {sizes}, AVG lines {avg}")
+    _say("cli_main", codec_compress_decompress_s=f"{t1 - t0:.3f}", files=len(items),
+         eval_avg=repr(avg[0]))
 
 
 if __name__ == "__main__":

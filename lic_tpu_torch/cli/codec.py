@@ -1,0 +1,188 @@
+"""Compress / decompress CLI — real bitstreams to and from ``.ltc`` files
+(counterpart of ``lic_tpu/cli/codec.py``; the files are the JAX
+package's, byte for byte).
+
+    python -m lic_tpu_torch.cli.codec compress img.png out.ltc \\
+        --weight_path ckpt/final.npz --preset net_ga
+    python -m lic_tpu_torch.cli.codec decompress out.ltc rec.png \\
+        --weight_path ckpt/final.npz --preset net_ga
+
+Directory batch mode (input AND output are directories): images are
+grouped by size and coded in chunks of at most ``--batch`` through
+``compress_batch`` / ``decompress_batch`` (one image alone through
+``compress`` / ``decompress``).  A stream decodes in any chunk, whatever
+the batch it was encoded in.
+
+It runs on the card unless ``--device cpu`` is given.  ``--progressive``,
+``--truncate_planes``, ``--rate``, ``--target_bpp`` and
+``--post_processing`` raise ``NotImplementedError``: trit-plane streams,
+gain units and the HAN tail are not ported (ROADMAP A16).  PIL reads and
+writes the files; ``compress_images`` and ``decompress_streams``, the
+directory mode's core, take arrays and blobs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from collections import defaultdict
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm")
+_A16_FLAGS = ("progressive", "truncate_planes", "rate", "target_bpp", "post_processing")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="lic_tpu_torch bitstream codec")
+    p.add_argument("command", choices=("compress", "decompress"))
+    p.add_argument("input", help="image/.ltc file, or a directory of them")
+    p.add_argument("output", help="output file, or a directory (batch mode)")
+    p.add_argument("--weight_path", required=True)
+    p.add_argument("--preset", default="net_ga")
+    p.add_argument("--high", action="store_true")
+    p.add_argument("--post_processing", action="store_true",
+                   help="the HAN tail (not ported: ROADMAP A16)")
+    p.add_argument("--batch", type=int, default=8,
+                   help="max images per device batch in directory mode")
+    p.add_argument("--rate", type=float, default=None,
+                   help="gain-unit rate index (not ported: ROADMAP A16)")
+    p.add_argument("--target_bpp", type=float, default=None,
+                   help="rate control through gain units (not ported: ROADMAP A16)")
+    p.add_argument("--progressive", action="store_true",
+                   help="trit-plane streams (not ported: ROADMAP A16)")
+    p.add_argument("--truncate_planes", type=int, default=None,
+                   help="trit-plane truncation (not ported: ROADMAP A16)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="run on the card (default) or on the CPU")
+    return p
+
+
+def to_uint8(rec: np.ndarray) -> np.ndarray:
+    """A [−1, 1] reconstruction → uint8 (the JAX CLI's conversion)."""
+    return np.clip((rec + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+
+def _chunks(items: list, batch: int):
+    n = max(1, batch)
+    for i in range(0, len(items), n):
+        yield items[i : i + n]
+
+
+def compress_images(coder, items: Sequence[Tuple[str, np.ndarray]],
+                    batch: int) -> List[Tuple[str, bytes]]:
+    """Directory compress: ``items`` [(name, (H, W, 3) float32 in [−1, 1])]
+    → [(name, blob)], grouped by size in order of first appearance, each
+    group in chunks of at most ``batch``."""
+    from ..data.datasets import to_batch
+
+    buckets = defaultdict(list)
+    for name, img in items:
+        buckets[img.shape[:2]].append((name, img))
+    out = []
+    for group in buckets.values():
+        for chunk in _chunks(group, batch):
+            xs = to_batch(np.stack([img for _, img in chunk]), coder.device)
+            if len(chunk) > 1:
+                blobs = coder.compress_batch(xs)
+            else:
+                blobs = [coder.compress(xs)]
+            out += [(name, blob) for (name, _), blob in zip(chunk, blobs)]
+    return out
+
+
+def decompress_streams(coder, items: Sequence[Tuple[str, bytes]],
+                       batch: int) -> List[Tuple[str, np.ndarray]]:
+    """Directory decompress: ``items`` [(name, blob)] → [(name, (H, W, 3)
+    float32 reconstruction)], grouped by the size in each header, each
+    group in chunks of at most ``batch``."""
+    buckets = defaultdict(list)
+    for name, blob in items:
+        _, h, w, _ = coder._parse_header(blob)
+        buckets[(h, w)].append((name, blob))
+    out = []
+    for group in buckets.values():
+        for chunk in _chunks(group, batch):
+            blobs = [blob for _, blob in chunk]
+            recs = coder.decompress_batch(blobs) if len(chunk) > 1 else coder.decompress(blobs[0])
+            recs = recs.permute(0, 2, 3, 1).cpu().numpy()
+            out += [(name, rec) for (name, _), rec in zip(chunk, recs)]
+    return out
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    for flag in _A16_FLAGS:
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(
+                f"--{flag}: trit-plane streams, gain units and the HAN tail are not "
+                "ported (ROADMAP A16)")
+
+    from ..data.datasets import load_image_uint8, normalize_pm1, to_batch
+    from ..models import build_model
+    from ..models.compress import ChannelCoder
+    from ..utils.checkpoint import load_params
+
+    model = build_model(args.preset, device=args.device, is_high=args.high)
+    load_params(args.weight_path, model)
+    coder = ChannelCoder(model, name=args.preset)
+
+    if os.path.isdir(args.input):
+        _run_dir(args, coder)
+        return
+    if args.command == "compress":
+        img = normalize_pm1(load_image_uint8(args.input))
+        blob = coder.compress(to_batch(img[None], coder.device))  # pads to /64 inside
+        with open(args.output, "wb") as fd:
+            fd.write(blob)
+        h, w = img.shape[:2]
+        print(f"{args.input} → {args.output}: {len(blob)} bytes "
+              f"({len(blob) * 8 / (h * w):.4f} bpp)")
+    else:
+        from PIL import Image
+
+        with open(args.input, "rb") as fd:
+            blob = fd.read()
+        img = to_uint8(coder.decompress(blob)[0].permute(1, 2, 0).cpu().numpy())
+        Image.fromarray(img).save(args.output)
+        print(f"{args.input} → {args.output}: {img.shape[1]}x{img.shape[0]}")
+
+
+def _run_dir(args, coder) -> None:
+    """Directory batch mode: files in, files out."""
+    from ..data.datasets import load_image_uint8, normalize_pm1
+
+    os.makedirs(args.output, exist_ok=True)
+    if args.command == "compress":
+        names = sorted(n for n in os.listdir(args.input) if n.lower().endswith(IMAGE_EXTS))
+        items = [(n, normalize_pm1(load_image_uint8(os.path.join(args.input, n))))
+                 for n in names]
+        sizes = {n: img.shape[0] * img.shape[1] for n, img in items}
+        total_bits = total_px = 0
+        for n, blob in compress_images(coder, items, args.batch):
+            out = os.path.join(args.output, os.path.splitext(n)[0] + ".ltc")
+            with open(out, "wb") as fd:
+                fd.write(blob)
+            total_bits += len(blob) * 8
+            total_px += sizes[n]
+            print(f"{n} → {out}: {len(blob)} bytes ({len(blob) * 8 / sizes[n]:.4f} bpp)")
+        if total_px:
+            print(f"avg: {total_bits / total_px:.4f} bpp over {len(names)} files")
+    else:
+        from PIL import Image
+
+        names = sorted(n for n in os.listdir(args.input) if n.lower().endswith(".ltc"))
+        items = []
+        for n in names:
+            with open(os.path.join(args.input, n), "rb") as fd:
+                items.append((n, fd.read()))
+        for n, rec in decompress_streams(coder, items, args.batch):
+            img = to_uint8(rec)
+            out = os.path.join(args.output, os.path.splitext(n)[0] + ".png")
+            Image.fromarray(img).save(out)
+            print(f"{n} → {out}: {img.shape[1]}x{img.shape[0]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,10 @@
-"""Typed configuration: the port's copies of ``CodecConfig`` and
-``TrainConfig``.
+"""Typed configuration: the port's copies of ``CodecConfig``,
+``TrainConfig`` and ``EvalConfig``.
 
-Copies of ``lic_tpu/config.py:17-165`` (plain dataclasses), kept here so
+Copies of ``lic_tpu/config.py:17-189`` (plain dataclasses), kept here so
 that the port imports nothing of the JAX package.  Tests hold every field
-of the port's presets, and ``TrainConfig``'s defaults, equal to the JAX
-package's.
+of the port's presets, and ``TrainConfig``'s and ``EvalConfig``'s
+defaults, equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -160,3 +160,23 @@ class TrainConfig:
     # multi-rate training for gain-unit models: one λ per gain unit.
     # Empty = single-rate (every reference-parity run).
     lmbda_list: Tuple[float, ...] = ()
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation settings (``eval_net.py`` semantics, defects fixed)."""
+
+    lmbda: float = 0.0067
+    pad_multiple: int = 64
+    # content-adaptive encoding (eval_net.py:118-199)
+    tune_iters: int = 100
+    tune_lr: float = 1e-5
+    tune_lr_drop_step: int = 50
+    tune_lr_gamma: float = 0.5
+    # True: the train-consistent λ·255²·mse + bpp; False: the reference's
+    # literal λ·mse + bpp (eval_net.py:176, SURVEY defect §8.13, which
+    # weights distortion about 65,000× less than training does)
+    tune_loss_255sq: bool = True
+    # gain-unit operating point (None = unit 0); gain units are not ported
+    # (ROADMAP A16), so anything else raises
+    rate: Optional[float] = None

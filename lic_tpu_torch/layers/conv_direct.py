@@ -24,7 +24,13 @@ plain conv's own gradient (``conv5s2_backward``, ``convk_s1_backward``:
 ``aten.convolution_backward``, which autograd of ``F.conv2d`` calls), as
 the JAX package's ``custom_vjp``s take ``jax.vjp`` of the XLA conv
 (``lic_tpu/layers/conv.py:326-329,353-356,385-388``).  Each backward
-counts one in the wrapper's ``backwards``.
+counts one in the wrapper's ``backwards``.  Under autograd B6 keeps its
+LeakyReLU and the forward keeps the sign of the kernel's output for the
+backward (``LEAKY_SLOPE > 0``: the same as the pre-activation's); the
+residual, where there is one, is then added in torch.  A recompute of the
+pre-activation by cuDNN's fp32 conv, as JAX's VJP recomputes its XLA conv,
+costs about 126 ms a call at B = 1 on 128×192 maps of 192 channels on an
+H100 (cuDNN's heuristics pick an FFT path there; ``profile_path --tune``).
 
 The kernel runs 3xTF32 on the tensor cores: each fp32 operand is split into
 ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` (``tf32_split``), and a·b is
@@ -186,17 +192,13 @@ def conv5s2_backward(g, x, weight, bias, needs=(True, True, True)):
     return (None if dxp is None else dxp[:, :, 1 : 1 + h, 1 : 1 + w], dw, db)
 
 
-def convk_s1_backward(g, x, weight, bias, act, has_residual, needs=(True,) * 4):
+def convk_s1_backward(g, x, weight, bias, positive, has_residual, needs=(True,) * 4):
     """The gradient of ``convk_s1_plain`` → (dx, dW, db, d residual), the
-    last None without a residual.  With
-    the LeakyReLU the pre-activation is recomputed with the plain conv, as
-    the JAX package's VJP recomputes its XLA conv; its gradient is 1 at 0,
-    as ``jax.nn.leaky_relu``'s."""
-    if act == "leaky_relu":
-        z = F.conv2d(x, weight, bias, padding=weight.shape[-1] // 2)
-        gz = torch.where(z >= 0, g, g * LEAKY_SLOPE)
-    else:
-        gz = g
+    last None without a residual.  ``positive`` is the LeakyReLU's
+    ``pre-activation >= 0`` as the forward computed it (None without the
+    LeakyReLU): the gradient is 1 there, 1 at 0 too as
+    ``jax.nn.leaky_relu``'s, and the slope elsewhere."""
+    gz = g if positive is None else torch.where(positive, g, g * LEAKY_SLOPE)
     dx, dw, db = _conv_grads(gz, x, weight, bias is not None, 1, weight.shape[-1] // 2,
                              needs[:3])
     return dx, dw, db, (g if has_residual and needs[3] else None)
@@ -283,16 +285,24 @@ class _Conv5s2Fn(torch.autograd.Function):
 class _ConvkS1Fn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, act, residual):
-        ctx.save_for_backward(x, weight, bias)
-        ctx.act, ctx.has_residual = act, residual is not None
-        return _convk_s1_forward(x, weight, bias, act, residual)
+        ctx.has_residual = residual is not None
+        if act != "leaky_relu":
+            ctx.save_for_backward(x, weight, bias, None)
+            return _convk_s1_forward(x, weight, bias, act, residual)
+        # the kernel with its LeakyReLU, the residual (convk_s1_plain's last
+        # step) added after, so that the output's sign is the
+        # pre-activation's (but where a negative one's product with the
+        # slope underflows to -0)
+        y = _convk_s1_forward(x, weight, bias, act, None)
+        ctx.save_for_backward(x, weight, bias, y >= 0)
+        return y if residual is None else y + residual
 
     @staticmethod
     def backward(ctx, g):
         convk_s1.backwards += 1
         n = ctx.needs_input_grad
         dx, dw, db, dres = convk_s1_backward(
-            g, *ctx.saved_tensors, ctx.act, ctx.has_residual, (n[0], n[1], n[2], n[4]))
+            g, *ctx.saved_tensors, ctx.has_residual, (n[0], n[1], n[2], n[4]))
         return dx, dw, db, None, dres
 
 

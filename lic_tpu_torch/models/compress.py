@@ -25,9 +25,20 @@ ended at ``1 << 16`` and every pointer at its stream's end.
 
 Encoder and decoder must compute bit-identical σ-indexes.  The coder sets
 the numerics flags of ``set_numerics_flags`` (no TF32, deterministic
-cuDNN, no algorithm search) and both sides run the same code.  Streams
-decode at the batch size they were encoded at; a different batch size may
-pick other cuDNN algorithms on the card (ROADMAP §C).
+cuDNN, no algorithm search) and both sides run the same code.  cuDNN and
+oneDNN pick their algorithms by shape, batch size included: on an H100 the
+hyper decoder, the ChARM and LRP convs, g_s and the rich g_a give other
+bits for an image at B = 1 than inside a batch of 8, enough to move a
+σ-index (ROADMAP §C5).  So every model pass runs on exactly
+``pass_batch(H, W, device)`` images of the padded size H×W
+(``_passes``): a batch is cut into passes of that many, the last filled
+up with copies of the batch's last image, and the copies are dropped
+after.  Each pass then sees the same shapes whatever the batch, and the
+kernels compute each image on its own, so a stream's bytes and its
+reconstruction are the same whichever batch encodes or decodes it on a
+device of the same kind (``chip_smoke.py`` [c5] holds this on the card).
+The host rANS coding and the drain take the streams of the batch as they
+are; both treat each stream on its own.
 
 ``entro_pass_impl`` (entroformer checkerboard, ROADMAP A14) and the
 neural-syntax wavefront coder (ROADMAP A15) are not ported.
@@ -84,6 +95,44 @@ def dev_scale_idx(sigma: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return idx.clamp(0, table.shape[0] - 1).to(torch.uint8)
 
 
+# images per model pass on the card: as many of the padded size as fit in
+# the pixels of a batch of 8 Kodak images, at most 8 and at least 1
+PASS_PIXELS = 8 * 512 * 768
+MAX_PASS_BATCH = 8
+
+
+def pass_batch(h: int, w: int, device: torch.device) -> int:
+    """Images per model pass at the padded image size h×w on ``device``.
+    On the CPU one: its elementwise kernels split a tensor among threads
+    and finish each share with scalar code, whose exp or sqrt can differ
+    from the vector code's in the last bit, so there an element's bits
+    depend on where in the batch it sits.  A CUDA kernel gives every
+    element the same instructions."""
+    if device.type == "cpu":
+        return 1
+    return max(1, min(MAX_PASS_BATCH, PASS_PIXELS // (h * w)))
+
+
+def _fill(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with copies of its last image appended up to ``n`` images."""
+    if t.shape[0] == n:
+        return t
+    extra = t[-1:].expand(n - t.shape[0], *t.shape[1:])
+    return torch.cat([t, extra]).contiguous(memory_format=torch.channels_last)
+
+
+def _passes(fn, p: int, *batches):
+    """``fn`` on the batches in passes of ``p`` images, the last filled up
+    with copies of the last image; its outputs (a tensor or a tuple of
+    them) concatenated and cut back to the batch."""
+    b = batches[0].shape[0]
+    n = -(-b // p) * p
+    outs = [fn(*chunk) for chunk in zip(*(_fill(t, n).split(p) for t in batches))]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o)[:b] for o in zip(*outs))
+    return torch.cat(outs)[:b]
+
+
 def _nhwc_flat(t: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) → (B, H·W·C) in the wire's (h, w, c) symbol order."""
     return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1)
@@ -129,26 +178,27 @@ class ChannelCoder:
 
     # ------------------------------------------------------ device passes
 
-    def _z_enc(self, z3):
-        z = self.model.hyper_encode(z3)
+    def _z_enc(self, z3, p):
+        z = _passes(self.model.hyper_encode, p, z3)
         sym = torch.clamp(torch.round(z - self.med), -_SYM_CLIP, _SYM_CLIP)
         return sym.to(torch.int16), sym + self.med
 
-    def _slices_pass(self, z_hat, y=None, payload=None):
-        """The whole slice chain in one of two modes.  Encode (``y`` given):
-        symbols come from the latent.  Decode (``payload`` given): each
-        slice's symbols are drained from the streams.  Returns (symbols
-        (B, S) int16, rows (B, S) uint8, y_hat (B, N, h, w), lanes)."""
+    def _slices_pass(self, z_hat, p, y=None, payload=None):
+        """The whole slice chain, each model call in passes of ``p``
+        images (``_passes``), in one of two modes.  Encode (``y`` given): symbols
+        come from the latent.  Decode (``payload`` given): each slice's
+        symbols are drained from the streams.  Returns (symbols (B, S)
+        int16, rows (B, S) uint8, y_hat (B, N, h, w), lanes)."""
         model, cfg = self.model, self.model.cfg
         b = z_hat.shape[0]
-        scales, means = model.hyper_decode(z_hat)
+        scales, means = _passes(model.hyper_decode, p, z_hat)
         y_slices = y.chunk(cfg.num_slices, dim=1) if y is not None else None
         lanes = self.dev_rans.init_lanes(payload) if payload is not None else None
         supports, syms_out, rows_out = [], [], []
         for i in range(cfg.num_slices):
-            mu, sigma, msup = model.charm_entropy_params(
-                means, scales, model.support(supports), i
-            )
+            mu, sigma, msup = _passes(
+                lambda m, s, *sup: model.charm_entropy_params(m, s, list(sup), i),
+                p, means, scales, *model.support(supports))
             rows = dev_scale_idx(sigma, self.tab)
             if payload is None:
                 sym = torch.clamp(
@@ -161,7 +211,8 @@ class ChannelCoder:
                 )
                 _, c, h, w = mu.shape
                 sym = dec.view(b, h, w, c).permute(0, 3, 1, 2).float()
-            supports.append(model.charm_apply_lrp(msup, sym + mu, i))
+            supports.append(_passes(lambda ms, yh: model.charm_apply_lrp(ms, yh, i),
+                                    p, msup, sym + mu))
             syms_out.append(_nhwc_flat(sym).to(torch.int16))
             rows_out.append(_nhwc_flat(rows))
         return (
@@ -190,15 +241,16 @@ class ChannelCoder:
 
     @torch.no_grad()
     def compress_batch(self, xs: torch.Tensor) -> List[bytes]:
-        """Compress B same-sized images (B, 3, H, W) through one batched
-        device pass; the host rANS encodes run in a thread pool (the C
-        coder releases the interpreter lock)."""
+        """Compress B same-sized images (B, 3, H, W): the model in passes
+        of ``pass_batch`` images, the host rANS encodes in a thread pool
+        (the C coder releases the interpreter lock)."""
         b, _, h, w = xs.shape
         xs, _ = pad_to_multiple(self._to_device(xs), 64)
-        z3 = self.model.analyze(xs)
-        z_sym16, z_hat = self._z_enc(z3)
-        syntax = self.model.syntax_from_latent(z3)
-        sym, rows, _, _ = self._slices_pass(z_hat, y=z3)
+        p = pass_batch(*xs.shape[2:], self.device)
+        z3 = _passes(self.model.analyze, p, xs)
+        z_sym16, z_hat = self._z_enc(z3, p)
+        syntax = _passes(self.model.syntax_from_latent, p, z3)
+        sym, rows, _, _ = self._slices_pass(z_hat, p, y=z3)
 
         syntax_np = syntax.reshape(b, -1).cpu().numpy().astype(np.int16)
         z_np = z_sym16.permute(0, 2, 3, 1).cpu().numpy()  # NHWC for the host
@@ -294,7 +346,8 @@ class ChannelCoder:
         pay_np, ends = stack_payloads(payloads, CHARM_LANES)
         payload = torch.from_numpy(pay_np).to(self.device)
 
-        _, _, y_hat, lanes = self._slices_pass(z_hat, payload=payload)
+        p = pass_batch(h, w, self.device)
+        _, _, y_hat, lanes = self._slices_pass(z_hat, p, payload=payload)
         ends_t = torch.as_tensor(ends, dtype=torch.int64, device=self.device)
         if not (bool(torch.all(lanes.state == 1 << 16))
                 and bool(torch.all(lanes.ptr == ends_t))):
@@ -304,5 +357,5 @@ class ChannelCoder:
         syn = torch.from_numpy(
             np.stack([hd[3] for hd in heads]).astype(np.float32)
         ).reshape(b, -1, 1, 1).to(self.device)
-        rec = self.model.synthesize(y_hat, syn)
+        rec = _passes(self.model.synthesize, p, y_hat, syn)
         return rec[:, :, :orig_h, :orig_w]

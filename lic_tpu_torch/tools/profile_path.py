@@ -27,6 +27,12 @@ with the coder's numerics flags.  It prints:
   activity to the last);
 * ``PHASES``: host-clock seconds of the roundtrip's phases, unprofiled.
 
+With ``--tune STEPS`` it profiles content-adaptive encoding instead
+(``evaluation.content_adaptive_finetune`` of the batch's first image,
+B = 1, after one unprofiled step): the step's milliseconds by phase (CUDA
+events), the kernels with the most device time and the busy share, and
+the aten ops with the most device time by input shape.
+
 The Chrome traces go to ``--out``.
 """
 
@@ -166,6 +172,41 @@ def _profiled(label: str, fn, iters: int, out_dir: str, top: int) -> None:
               f"x{n // iters:<4d} {name[:100]}")
 
 
+def _tune_profile(model, x1, steps: int, out_dir: str, top: int = 15) -> None:
+    """``--tune``: one unprofiled tune step, then ``steps`` steps of
+    ``content_adaptive_finetune`` on ``x1`` timed by phase and profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..config import EvalConfig
+    from ..evaluation import content_adaptive_finetune
+
+    content_adaptive_finetune(model, x1, EvalConfig(tune_iters=1))
+    ev = []
+
+    def mark(name):
+        if name == "start":
+            ev.append({})
+        ev[-1][name] = torch.cuda.Event(enable_timing=True)
+        ev[-1][name].record()
+
+    content_adaptive_finetune(model, x1, EvalConfig(tune_iters=steps), on_phase=mark)
+    _sync()
+    phases = ("start", "forward", "backward", "optimizer")
+    for i, e in enumerate(ev):
+        ms = [e[a].elapsed_time(e[b]) for a, b in zip(phases, phases[1:])]
+        print(f"TUNE step {i}: forward {ms[0]:.3f} backward {ms[1]:.3f} "
+              f"optimizer {ms[2]:.3f} ms")
+    _profiled("tune", lambda: content_adaptive_finetune(
+        model, x1, EvalConfig(tune_iters=steps)), 1, out_dir, top=top)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        content_adaptive_finetune(model, x1, EvalConfig(tune_iters=steps))
+        _sync()
+    print(prof.key_averages(group_by_input_shape=True).table(
+        sort_by="cuda_time_total", row_limit=top, max_name_column_width=60,
+        max_shapes_column_width=80))
+
+
 def _counters() -> dict:
     """Each kernel wrapper and plain route of the forward, by name."""
     from ..coding import drain
@@ -187,13 +228,15 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=768)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--tune", type=int, default=0, metavar="STEPS",
+                    help="profile STEPS content-adaptive tune steps (B = 1) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
 
     from ..data import smooth_images
     from ..models import build_model
-    from ..models.compress import ChannelCoder, set_numerics_flags
+    from ..models.compress import ChannelCoder, pass_batch, set_numerics_flags
 
     os.makedirs(args.out, exist_ok=True)
     print(args.preset, subprocess.run(
@@ -207,6 +250,9 @@ def main() -> None:
     x = torch.from_numpy(smooth_images(
         np.random.default_rng(args.seed), args.batch, args.height, args.width,
     )).to(dev).contiguous(memory_format=torch.channels_last)
+    if args.tune:
+        _tune_profile(model, x[:1], args.tune, args.out)
+        return
     coder = ChannelCoder(model, name=args.preset)
 
     with torch.no_grad():
@@ -253,7 +299,7 @@ def main() -> None:
     _profiled("roundtrip", lambda: coder.decompress_batch(coder.compress_batch(x)),
               1, args.out, top=15)
 
-    phases = {}
+    phases, p = {}, pass_batch(*x.shape[2:], x.device)
     for _ in range(2):  # the second pass is reported
         with torch.no_grad():
             t = time.perf_counter()
@@ -261,12 +307,12 @@ def main() -> None:
             _sync()
             phases["encode g_a"] = time.perf_counter() - t
             t = time.perf_counter()
-            _, z_hat = coder._z_enc(z3)
+            _, z_hat = coder._z_enc(z3, p)
             model.syntax_from_latent(z3)
             _sync()
             phases["encode hyper+syntax"] = time.perf_counter() - t
             t = time.perf_counter()
-            coder._slices_pass(z_hat, y=z3)
+            coder._slices_pass(z_hat, p, y=z3)
             _sync()
             phases["encode slice chain"] = time.perf_counter() - t
         t = time.perf_counter()

@@ -1,10 +1,10 @@
 """Eval-forward and roundtrip times of the port, alone or beside another
 checkout's, on one GPU.
 
-    python -m lic_tpu_torch.tools.roundtrip_ab [--base DIR] [--pairs 2] [--preset source_net ...] [--reps 7]
+    python -m lic_tpu_torch.tools.roundtrip_ab [--base DIR] [--pairs 2] [--preset source_net ...] [--reps 7] [--batch 8]
 
 Each run is a process of its own that imports ``lic_tpu_torch`` from one
-checkout's root, builds each preset at full width (seed 0, a batch of 8
+checkout's root, builds each preset at full width (seed 0, a batch of ``--batch`` (8)
 smooth synthetic 512×768 images, fp32 with the coder's numerics flags)
 and, after one warm-up of each, times ``--reps`` eval forwards (CUDA
 events) and ``--reps`` roundtrips ``compress_batch`` → ``decompress_batch``
@@ -34,7 +34,7 @@ import time
 THIS_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _run(presets, reps: int) -> None:
+def _run(presets, reps: int, batch: int) -> None:
     """One checkout's run: ``lic_tpu_torch`` is whichever the path finds."""
     import numpy as np
     import torch
@@ -44,7 +44,7 @@ def _run(presets, reps: int) -> None:
     from lic_tpu_torch.models.compress import ChannelCoder, set_numerics_flags
 
     set_numerics_flags()
-    x = torch.from_numpy(smooth_images(np.random.default_rng(0), 8, 512, 768))
+    x = torch.from_numpy(smooth_images(np.random.default_rng(0), batch, 512, 768))
     x = x.cuda().contiguous(memory_format=torch.channels_last)
     for preset in presets:
         model = build_model(preset, device="cuda", seed=0)
@@ -81,10 +81,11 @@ def main() -> None:
     ap.add_argument("--pairs", type=int, default=2, help="pairs of runs with --base")
     ap.add_argument("--preset", nargs="+", default=["source_net", "source_net_wam"])
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--batch", type=int, default=8, help="images per batch")
     ap.add_argument("--one-run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one_run:
-        _run(args.preset, args.reps)
+        _run(args.preset, args.reps, args.batch)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip())
@@ -100,7 +101,7 @@ def main() -> None:
         env = dict(os.environ, PYTHONPATH=root)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one-run", "--reps", str(args.reps),
-             "--preset", *args.preset],
+             "--batch", str(args.batch), "--preset", *args.preset],
             cwd=root, env=env, check=True, capture_output=True, text=True, timeout=1800,
         )
         for line in proc.stdout.splitlines():

@@ -224,8 +224,8 @@ def test_jax_reads_port_stream(pair, coder):
 
     with torch.no_grad():
         z3 = tm.analyze(xt)
-        _, z_hat = coder._z_enc(z3)
-        sym, rows, _, _ = coder._slices_pass(z_hat, y=z3)
+        _, z_hat = coder._z_enc(z3, 1)
+        sym, rows, _, _ = coder._slices_pass(z_hat, 1, y=z3)
     counts = coder._step_counts(z3.shape[2], z3.shape[3])
     dec = Rans16InterleavedCodec(
         coder.y_coder.codec.cdfs, coder.y_coder.codec.offsets

@@ -723,3 +723,95 @@ def test_conv_kernels_read_the_weights_after_an_optimizer_step(cuda_device, opt)
             assert float((y.double() - plain(h.double(), old.double(), m.bias.double(),
                                             *extra)).abs().max()) > 10 * TOL
             h = y
+
+
+# ------------------------------------------------------------ eval and C5
+
+
+@pytest.fixture
+def source_net_on_card(cuda_device):
+    """Full-width ``source_net`` (B3 runs at C_in 192) and two smooth
+    128×128 images on the card."""
+    from lic_tpu_torch.data import smooth_images
+
+    model = build_model("source_net", seed=0)
+    x = torch.from_numpy(smooth_images(np.random.default_rng(0), 2, 128, 128))
+    return model, _cl(x, cuda_device)
+
+
+def _b3_b6_outputs_vs_f64(model, dev):
+    """Each g_a conv that takes B3 or B6 on a seeded input: → [(kernel
+    output − plain version in float64 with the conv's current weights) max,
+    the output]."""
+    from lic_tpu_torch.layers import Conv2d
+
+    g = torch.Generator().manual_seed(9)
+    out = []
+    with torch.no_grad():
+        for m in model.g_a.modules():
+            if not isinstance(m, Conv2d):
+                continue
+            x = _cl(_randn(g, 1, m.weight.shape[1], 32, 32), dev)
+            slot = m.kernel_slot(x)
+            if slot is None:
+                continue
+            plain = conv5s2_plain if slot == "conv5s2" else convk_s1_plain
+            extra = () if slot == "conv5s2" else (m.fused_act,)
+            y = m(x)
+            ref = plain(x.double(), m.weight.double(), m.bias.double(), *extra)
+            out.append((float((y.double() - ref).abs().max()), y))
+    return out
+
+
+def test_tuning_on_the_card_moves_g_a_only(source_net_on_card):
+    from lic_tpu_torch.config import EvalConfig
+    from lic_tpu_torch.evaluation import content_adaptive_finetune
+
+    model, x = source_net_on_card
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tuned = content_adaptive_finetune(model, x[:1], EvalConfig(tune_iters=3, tune_lr_drop_step=2))
+    after = tuned.state_dict()
+    for name, v in after.items():
+        if not name.startswith("g_a."):
+            assert torch.equal(v, before[name]), name
+    assert any(not torch.equal(after[k], before[k]) for k in after if k.startswith("g_a."))
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    assert [p.requires_grad for p in tuned.parameters()] == [
+        p.requires_grad for p in model.parameters()]
+
+
+def test_conv_kernels_read_the_tuned_then_the_checkpoint_weights(source_net_on_card):
+    """B3/B6 cache each weight's TF32 split: the tuned copy's g_a convs
+    read the tuned weights, and the model's own (the checkpoint's, which
+    the next image starts from) read the checkpoint's again."""
+    from lic_tpu_torch.config import EvalConfig
+    from lic_tpu_torch.evaluation import content_adaptive_finetune
+
+    model, x = source_net_on_card
+    dev = x.device
+    first = _b3_b6_outputs_vs_f64(model, dev)  # packs the checkpoint's weights
+    assert first
+    tuned = content_adaptive_finetune(model, x[:1], EvalConfig(tune_iters=3, tune_lr=1e-3))
+    for (err, y_tuned), (_, y_first) in zip(_b3_b6_outputs_vs_f64(tuned, dev), first):
+        assert err <= TOL, err
+        assert float((y_tuned - y_first).abs().max()) > 10 * TOL
+    for (err, y), (_, y_first) in zip(_b3_b6_outputs_vs_f64(model, dev), first):
+        assert err <= TOL, err
+        assert torch.equal(y, y_first)
+
+
+def test_decompress_batch_of_single_streams_is_bitidentical(source_net_on_card):
+    """Fault C5 on the card: streams encoded one at a time, decoded in one
+    batch, in chunks and alone, give the same bits (and the same bytes as
+    a batch encode)."""
+    from lic_tpu_torch.models.compress import ChannelCoder
+
+    model, x = source_net_on_card
+    x = torch.cat([x, x.flip(-1), x.flip(-2)]).contiguous(memory_format=torch.channels_last)
+    coder = ChannelCoder(model, name="source_net")
+    singles = [coder.compress(x[i : i + 1]) for i in range(len(x))]
+    assert singles == coder.compress_batch(x)
+    together = coder.decompress_batch(singles)
+    alone = torch.cat([coder.decompress(s) for s in singles])
+    chunks = torch.cat([coder.decompress_batch(singles[:4]), coder.decompress_batch(singles[4:])])
+    assert torch.equal(together, alone) and torch.equal(together, chunks)

@@ -1,18 +1,18 @@
 """Port repairs, on the CPU: where the JAX package computes a result and the
 port used to raise.
 
-* **bf16** (a bf16 forward).  ``source_net`` at ``n_override=32``,
-  128×128, run as ``model.to(torch.bfloat16)`` on a bf16 input, against
-  the JAX forward with ``bf16_params`` on the same bf16 input.  Both run
-  every layer in bf16 (bf16 operands, fp32 sums, bf16 results), in other
-  orders and with other intermediate roundings (the JAX GDN rounds x², the
-  norm and its square root to bf16; the port's plain GDN keeps the norm in
-  fp32).  The tolerance was fixed before the first run: each stage on the
-  same inputs (g_a; the hyper decoder on JAX's ẑ; the synthesis of JAX's
-  ŷ and syntax vector) within **3% of the stage's largest magnitude**
-  (about 8 bf16 ulps at that magnitude), and the whole forward's bpp within
-  **rtol 3%**.  The entropy math runs in the model's dtype, as the JAX
-  forward's does (it upcasts nothing there).
+* **bf16** (a bf16 forward). ``source_net`` and ``net_ga`` at
+  ``n_override=32``, 128×128, run as ``model.to(torch.bfloat16)`` on a bf16
+  input, against the JAX forward with ``bf16_params`` on the same bf16
+  input. Both run every layer in bf16 (bf16 operands, fp32 sums, bf16
+  results), in other orders and with other intermediate roundings (the JAX
+  GDN rounds x², the norm and its square root to bf16; the port's plain GDN
+  keeps the norm in fp32). The tolerance was fixed before the first run:
+  each stage on the same inputs (g_a; the hyper decoder on JAX's ẑ; the
+  synthesis of JAX's ŷ and syntax vector) within **3% of the stage's largest
+  magnitude** (about 8 bf16 ulps at that magnitude), and the whole forward's
+  bpp within **rtol 3%**. The entropy math runs in the model's dtype, as the
+  JAX forward's does (it upcasts nothing there).
 * **GDN widths** B2 does not take (C > 192; 16 < C with C % 4 ≠ 0): the
   gate ``b2_takes``, those widths against the JAX GDN, and the whole
   ``source_net`` at ``is_high`` (N = 384, M = 32) against JAX: z3, μ, σ
@@ -85,9 +85,21 @@ def _japply(jm, params, fn, *args):
 
 
 def test_source_net_bf16_forward_matches_jax_bf16_params():
-    jm, params = _jinit(jget_config("source_net", n_override=32))
-    tm = build_model("source_net", device="cpu", n_override=32)
-    tm.load_state_dict(params_from_flax(params))
+    _bf16_forward_matches_jax("source_net")
+
+
+def test_net_ga_bf16_forward_matches_jax_bf16_params():
+    """Past the masked attentions (the WAM gates' shifted windows, the
+    SWAtten stacks): JAX casts the mask to the logits' dtype
+    (``lic_tpu/layers/swin.py:120``, ``win_attention.py:252``), and so does
+    the port, so both stay in bf16 there."""
+    _bf16_forward_matches_jax("net_ga", init_hw=128)
+
+
+def _bf16_forward_matches_jax(preset, init_hw=64):
+    jm, params = _jinit(jget_config(preset, n_override=32), init_hw)
+    tm = build_model(preset, device="cpu", n_override=32)
+    tm.load_state_dict(params_from_flax(params, tm.cfg))
     tm = tm.to(torch.bfloat16)
     pb = bf16_params(params)
     x = np.random.default_rng(3).uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
