@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives the port's four serving paths, its evaluation and codec CLI and
+It drives the port's seven serving paths, its evaluation and codec CLI and
 content-adaptive encoding at full width (N=192, M=16), random
 weights from a seed (UNTRAINED), through the entry points a user calls, on
 a batch of 8 synthetic 512×768 images, and checks them:
@@ -17,12 +17,21 @@ a batch of 8 synthetic 512×768 images, and checks them:
   slice stacks and the WAM syntax model;
 * ``net_unet_ha_hs_dec`` — the same with the decodable U-Net hyper, whose
   window attention (head widths 12, 16, 32, 64) takes the plain route;
+* [entro] ``entroformer_cb`` (dim 192, 4 layers, 8 heads) and
+  ``entroformer_cb_full`` (dim 384, 6 layers, 6 heads) — plain transforms,
+  the ELIC hyper, the checkerboard entroformer context: two B1 drains per
+  decode (L 128, the 64-row table in shared memory);
+* [ns] ``neural_syntax`` — plain transforms, the classic hyper, the
+  spatial context over 4×4 causal patches and the syntax stream: one B1
+  drain per wavefront, 110 per decode (L 256, ``GaussianMuCoder``'s
+  1,024-row table in device memory), the context head's 3×3 on 2×2 maps
+  in B6;
 
 then one ``source_net`` forward in bf16 and one at ``is_high`` (N = 384),
 ``source_net_wam`` at ``is_high`` (head width 48: B4/B5's hd-48
-instantiations), and the training step of ``source_net`` and of
-``source_net_wam`` (B = 8 crops of 256×256), whose kernels' gradients it
-then checks.
+instantiations), and the training step of ``source_net``,
+``source_net_wam``, ``entroformer_cb`` and ``neural_syntax`` (B = 8 crops
+of 256×256), whose kernels' gradients it then checks.
 
 Each phase prints one line:
 
@@ -40,7 +49,9 @@ Each phase prints one line:
    on the tensor cores, C > 16), for B4/B5 its time over the yardstick's,
    shared memory per CTA and CTAs per SM, then the kernels' ``ptxas``
    register and spill lines; B1 on escape-heavy stress streams (about 1
-   symbol in 17 escapes), with each set's escape share;
+   symbol in 17 escapes), with each set's escape share and its bound (the
+   bytes of ``_drain_bytes``: rows, values, the payload words consumed,
+   lane states and the table entries the symbols need);
 4. per path: the zero-init weights (each attention's output projection,
    each residual branch's last conv, WMSA's output and the Swin MLP's
    second layer) get small seeded values, so that every check below sees
@@ -54,11 +65,18 @@ Each phase prints one line:
    B3/B6 call of that run with its shapes and flags, read by hooks on the
    ``Conv2d`` modules, and every B4 call with its shape, as B4's wrapper
    records it; ``compress`` → ``decompress`` at B=1; the times; for
-   ``source_net`` also B1 against its plain version on the streams of that
-   B=8 decode, of the B=1 decode and of [cli]'s decode of two 480×640
-   streams (each its payload, rows and threaded lane states, recorded from
+   ``source_net``, ``entroformer_cb`` and ``neural_syntax`` also B1
+   against its plain version on the streams of that B=8 decode (and for
+   ``source_net`` of the B=1 decode and of [cli]'s decode of two 480×640
+   streams; each its payload, rows and threaded lane states, recorded from
    another decode of the same streams), bit-exact, with the time and
-   escape share.
+   escape share.  The small-input check compares each family's own
+   stages: the hyper and slice 0's (μ, σ); both checkerboard passes' (μ,
+   σ); z2, h2, the context's and the syntax vector's (μ, σ); a σ that is
+   the exp of a head's output (entroformer, neural syntax) as log σ, so
+   1e-4 bounds σ's relative error.  [small_f64] prints beside it each
+   stage's distance from the CPU model in float64 for the card and the
+   CPU, and the largest |σ| difference with σ there.
    A path with window attention then checks that every attention branch
    outputs non-zero values and runs its forward once more with
    ``fuse_proj`` (kernel B5 where it takes the shape, else B4 between the
@@ -76,8 +94,9 @@ Each phase prints one line:
    the paths gave it beyond those of 3; B2 likewise at every (rows, C,
    inverse) that the paths and [eval], [train] and [tune] gave it;
 7. B3 and B6 against their plain versions, as in 3, at every distinct
-   shape and flag set that the paths gave them in 4-5, with TFLOP/s, the
-   bound at the 3xTF32 rate (495/3 TFLOP/s: the kernel runs three TF32
+   shape and flag set that the paths gave them in 4-5, with TFLOP/s and the
+   bound (both over the FLOPs of the taps that land inside the map: on a
+   2×2 map a 3×3 has 16 of its 36) at the 3xTF32 rate (495/3 TFLOP/s: the kernel runs three TF32
    products on the tensor cores) beside the HBM bound, the share of it, the
    time over cuDNN's, and the time of the weight's one-off TF32 prepack
    (cached on the weight, so not inside the kernel times); at the shapes
@@ -118,8 +137,8 @@ Each phase prints one line:
    alone against ``compress_batch`` (bytes); the single streams decoded in
    one batch, alone and in chunks of 3, 3 and 2, bit-identical and equal
    to the eval forward in the coder's passes; the σ-indexes (scale-table
-   rows) of the coder's slice chain for each image alone against the
-   batch, none differing;
+   rows) of the coder's slice chain, checkerboard passes or wavefronts for
+   each image alone against the batch, none differing;
 12. [eval] (``source_net``, ``net_unet_ha_hs_dec``): ``evaluate_image`` at
    B = 1 on 512×768, 768×512 and 480×640 (padded to 512×640) images: exact
    launches, its B3/B6 and B4 calls checked in 6-7, metrics finite, the
@@ -138,8 +157,9 @@ Each phase prints one line:
    (``pil=`` says which).
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
-it replaces, launches on the main paths, max error, times and bound, the
-card's line, and, last, the device JSON.  Any failure raises: the exit
+it replaces, launches on the main paths, max error, times and bound (B1 as
+two rows, one per table route), the card's line, and, last, the device
+JSON.  Any failure raises: the exit
 code is not 0 and no result line is printed.  It needs no argument and one
 card, and exits non-zero without CUDA or outside a checkout of the
 repository.
@@ -186,6 +206,15 @@ TUNE_PRESETS = ("source_net", "source_net_wam")
 TUNE_ITERS, TUNE_DROP = 10, 5
 # [cli]: the codec CLI's directory mode on 3 + 2 images of two sizes
 CLI_SIZES, CLI_BATCH = ((512, 768),) * 3 + ((480, 640),) * 2, 2
+# [entro], [ns]: the entroformer checkerboard and neural-syntax paths,
+# driven as the four ChARM paths are (``_drive``)
+ENTRO_PATHS = ("entroformer_cb", "entroformer_cb_full")
+NS_PATHS = ("neural_syntax",)
+# B1 on stress streams at every lane count of the format, on the 64-row
+# Gaussian table and GaussianMuCoder's 1,024 rows: three calls of a
+# 512×768 wavefront's p_max·c = 24·176 symbols each
+B1_LANES = (8, 16, 32, 64, 128, 256)
+B1_WAVEFRONT = 24 * 176
 # exact launches of each kernel, and calls of each plain route, over forward
 # + compress_batch + decompress_batch; each WinNoShiftAttention gate runs 4
 # window attentions and 14 B6 convs (3 + 3 ResidualBlocks, the 3x3 and the
@@ -209,6 +238,16 @@ EXPECTED = {
                            "wba": 40, "wba_proj": 0, "wba_plain_route": 12},
     "net_unet_ha_hs_dec+fuse_proj": {"gdn": 9, "drain": 0, "conv5s2": 2, "convk_s1": 60,
                                      "wba": 4, "wba_proj": 16, "wba_plain_route": 5},
+    # [entro]: B1 drains the anchors, then the non-anchors (L 128, the
+    # 64-row table in shared memory); B6 takes the ELIC hyper's h_a.c0 and
+    # both h_s.c0
+    **{p: {"gdn": 14, "drain": 2, "conv5s2": 6, "convk_s1": 8} for p in ENTRO_PATHS},
+    # [ns]: one B1 drain per wavefront, T = 2·31 + 48 = 110 at 512×768 (L
+    # 256, the 1,024-row table in device memory); B6 takes ha_model.c0,
+    # hs_model.c2 and the context head's c2 (2×2 maps): once in the
+    # forward, once per wavefront in the encode and in the decode
+    "neural_syntax": {"gdn": 14, "drain_global": 110, "conv5s2": 6,
+                      "convk_s1": 3 + 2 * 110 + 3},
     # one eval forward each
     "source_net+bf16": {"gdn": 7, "drain": 0, "conv5s2": 3, "convk_s1": 5,
                         "wba": 0, "wba_proj": 0},
@@ -226,6 +265,8 @@ EXPECTED = {
     "train:source_net_wam": {"gdn": 7, "conv5s2": 3, "convk_s1": 61, "wba": 16},
     "train:source_net_wam+fuse_proj": {"gdn": 7, "conv5s2": 3, "convk_s1": 61,
                                        "wba_proj": 16},
+    "train:entroformer_cb": {"gdn": 7, "conv5s2": 3, "convk_s1": 3},
+    "train:neural_syntax": {"gdn": 7, "conv5s2": 3, "convk_s1": 3},
     # [eval]: one B = 1 eval forward per image, the same at every size;
     # [tune]: TUNE_ITERS training steps at B = 1, each launch with its backward
     **{f"eval:source_net@{h}x{w}": {"gdn": 7, "conv5s2": 3, "convk_s1": 5}
@@ -348,33 +389,56 @@ def _roofline(ms, library_ms, nbytes, flops, peak=PEAK_FP32) -> dict:
                 share_of_bound=f"{bound / ms:.3f}", vs_library=f"{ms / library_ms:.3f}")
 
 
-def _escape_share(calls, offsets, nsyms):
+def _escape_share(calls, offsets, nsyms, lanes=LANES):
     """Over drain calls [(decoded (B, S), rows (B, S), s_tot)], the share of
     symbols that escape their table row (a value outside [offset, offset +
-    nsyms)) and the share of (stream, chunk of LANES) with an escape, the
-    chunks that take the kernel's escape path."""
+    nsyms)) and the share of (stream, chunk of ``lanes``) with an escape,
+    the chunks that take the kernel's escape path."""
     import numpy as np
 
     n_sym = n_esc = n_chunk = n_chunk_esc = 0
     for dec, rows, s_tot in calls:
         rel = dec[:, :s_tot].astype(np.int64) - offsets[rows[:, :s_tot]]
         esc = (rel < 0) | (rel >= nsyms)
-        pad = -s_tot % LANES
-        chunks = np.pad(esc, ((0, 0), (0, pad))).reshape(esc.shape[0], -1, LANES).any(-1)
+        pad = -s_tot % lanes
+        chunks = np.pad(esc, ((0, 0), (0, pad))).reshape(esc.shape[0], -1, lanes).any(-1)
         n_sym, n_esc = n_sym + esc.size, n_esc + int(esc.sum())
         n_chunk, n_chunk_esc = n_chunk + chunks.size, n_chunk_esc + int(chunks.sum())
     return n_esc / n_sym, n_chunk_esc / n_chunk
+
+
+def _drain_bytes(ddev, lanes_in, lanes_out, rows, dec, s_tot) -> int:
+    """The bytes one B1 call must move on this run's data: its rows in and
+    its values ``dec`` out (``s_tot`` a stream), the payload words it
+    consumes (the pointers' advance), the lane states and pointers in and
+    out, and of the table only what these symbols need: the two CDF entries
+    around each distinct (row, slot) decoded (the escape slot for an
+    escape) and the offsets of the rows named.  Not the coarse slot index:
+    the port builds it on the host for its own search, and the function
+    (``pallas_drain``) does not take it."""
+    import torch
+
+    b = rows.shape[0]
+    r = rows[:, :s_tot].long()
+    rel = dec[:, :s_tot].long() - ddev.offsets[r].long()
+    slot = torch.where((rel < 0) | (rel >= ddev.nsyms), ddev.nsyms, rel)
+    key = r * ddev.row_len + slot
+    entries = torch.unique(torch.cat([key, key + 1])).numel()
+    named = torch.unique(r).numel()
+    words = int((lanes_out.ptr - lanes_in.ptr).sum())
+    lane_words = 2 * (lanes_in.state.numel() + b)
+    return 4 * (2 * b * s_tot + words + lane_words + entries + named)
 
 
 def _drain_vs_plain(calls, ddev, coding):
     """B1 against its plain version on recorded drain calls [(lanes in,
     payload, rows, s_tot)] that thread one decode's lane state: bit-exact
     values, states and pointers.  → (kernel ms, plain ms, max error, lanes
-    out, [(decoded, rows, s_tot)] as numpy)."""
+    out, [(decoded, rows, s_tot)] as numpy, bytes of ``_drain_bytes``)."""
     import torch
 
     ms = pms = 0.0
-    err, decoded = 0, []
+    err, decoded, nbytes = 0, [], 0
     for lanes_in, payt, rows, s_tot in calls:
         k_lanes, k_dec = coding.rans_drain(ddev, lanes_in, payt, rows, s_tot)
         p_lanes, p_dec = coding.drain_plain(ddev, lanes_in, payt, rows, s_tot)
@@ -386,7 +450,16 @@ def _drain_vs_plain(calls, ddev, coding):
         ms += _cuda_ms(lambda: coding.rans_drain(ddev, lanes_in, payt, rows, s_tot), 5)
         pms += _cuda_ms(lambda: coding.drain_plain(ddev, lanes_in, payt, rows, s_tot), 1)
         decoded.append((k_dec.cpu().numpy(), rows.cpu().numpy(), s_tot))
-    return ms, pms, err, k_lanes, decoded
+        nbytes += _drain_bytes(ddev, lanes_in, k_lanes, rows, k_dec, s_tot)
+    return ms, pms, err, k_lanes, decoded, nbytes
+
+
+def _inside_taps(n, n_out, k, stride, pad) -> int:
+    """Over the ``n_out`` outputs of one axis of a conv (input ``n``, ``k``
+    taps, ``stride``, ``pad`` zeros before), the taps that land inside the
+    input: those on the zero padding multiply nothing (5 of 9 per output
+    of a 3×3 on a 2×2 map)."""
+    return sum(sum(0 <= o * stride - pad + j < n for j in range(k)) for o in range(n_out))
 
 
 def _nbytes(*ts) -> int:
@@ -432,7 +505,8 @@ def main() -> int:
 
     set_numerics_flags()  # no TF32, deterministic cuDNN: stated in code
     counters = {
-        "gdn": gdn_mod.gdn_fused, "drain": drain_mod.rans_drain,
+        "gdn": gdn_mod.gdn_fused, "drain": drain_mod.table_routes["smem"],
+        "drain_global": drain_mod.table_routes["global"],
         "conv5s2": conv_direct.conv5s2, "convk_s1": conv_direct.convk_s1,
         "wba": window_attn.window_attention, "wba_proj": window_attn.window_attention_proj,
     }
@@ -514,21 +588,21 @@ def main() -> int:
         rows = torch.from_numpy(idx[:, i * s_slice : (i + 1) * s_slice].copy()).to(dev)
         calls.append((lanes, payt, rows, s_slice))
         lanes, _ = coding.drain_plain(ddev, lanes, payt, rows, s_slice)
-    ms, pms, err, k_lanes, decoded = _drain_vs_plain(calls, ddev, coding)
+    ms, pms, err, k_lanes, decoded, nbytes = _drain_vs_plain(calls, ddev, coding)
     np.testing.assert_array_equal(np.concatenate([d for d, _, _ in decoded], 1), sym)
     if not (bool((k_lanes.state == 1 << 16).all()) and k_lanes.ptr.tolist() == ends):
         raise AssertionError("B1 drain: final lane states or pointers wrong")
-    # bytes: the rows in, the symbols out, the payload and the tables (per
-    # slice call); its integer work per symbol has no peak in the table
-    for _, _, rows, _ in calls:
-        tally["drain"].add(err, ms / 4, pms / 4, None,
-                           _nbytes(rows, rows, payt, ddev.cdf_rows, ddev.offsets), 0)
+    # bound: the bytes of _drain_bytes; its integer work per symbol has no
+    # peak in the table
+    tally["drain"].add(err, ms, pms, None, nbytes, 0)
     sym_share, chunk_share = _escape_share(decoded, offsets, ddev.nsyms)
     _say("b1_drain", streams="stress", batch=BATCH, lanes=LANES, slices=4,
          symbols_per_slice=s_slice, bitexact=True, escape_share_symbols=f"{sym_share:.4f}",
          escape_share_chunks=f"{chunk_share:.4f}", ms_4_slices=f"{ms:.3f}",
-         plain_ms_4_slices=f"{pms:.3f}")
+         plain_ms_4_slices=f"{pms:.3f}", route=drain_mod.route(ddev),
+         bound_ms=f"{nbytes / PEAK_BYTES * 1e3:.4f}")
     del payt, calls, decoded
+    _b1_lanes_and_routes(dev, coding, drain_mod, tally)
 
     def cl(t):
         return t.to(dev).contiguous(memory_format=torch.channels_last)
@@ -544,10 +618,11 @@ def main() -> int:
             _say("b4_b5_ptxas", kernel=repr(line))
     torch.cuda.empty_cache()
 
-    # ---- 4. the paths, with [c5], [eval], [tune] and [cli]
+    # ---- 4. the paths, with [c5], [eval], [tune] and [cli]; [entro], [ns]
     launches, times, conv_calls, attn_calls, gdn_calls = {}, {}, {}, {}, {}
     train_shapes = {"gdn": {}, "conv": {}, "attn": {}}  # for [grad]
-    for preset in PATHS:
+    real_drain_ms = {}  # B1 route → ms of the recorded real B=8 decode's drains
+    for preset in PATHS + ENTRO_PATHS + NS_PATHS:
         runs, t, drain_sets = _drive(preset, dev, counted, conv_calls, attn_calls, gdn_calls,
                                      train_shapes)
         launches.update(runs)
@@ -555,18 +630,26 @@ def main() -> int:
         # B1 on the streams of real decodes: B=8, one stream, a CLI chunk
         for label, drains in drain_sets.items():
             ddev_real = drains[0][0]
-            ms, pms, err, _, decoded = _drain_vs_plain(
+            route = drain_mod.route(ddev_real)
+            ms, pms, err, _, decoded, nbytes = _drain_vs_plain(
                 [c[1:] for c in drains], ddev_real, coding)
             sym_share, chunk_share = _escape_share(
-                decoded, ddev_real.offsets.cpu().numpy(), ddev_real.nsyms)
+                decoded, ddev_real.offsets.cpu().numpy(), ddev_real.nsyms, ddev_real.n_lanes)
             if label == f"{preset} B={BATCH} decode":
-                real_drain_ms = ms
+                real_drain_ms.setdefault(route, ms)  # source_net's, neural_syntax's
+                times[preset]["b1_decode_ms"] = ms
             _say("b1_drain", streams=label, batch=drains[0][3].shape[0], calls=len(drains),
-                 symbols_per_call=[c[4] for c in drains], bitexact=True,
+                 lanes=ddev_real.n_lanes, table_rows=ddev_real.rows, route=route,
+                 symbols_per_call=sorted({c[4] for c in drains}), bitexact=True,
                  escape_share_symbols=f"{sym_share:.4f}",
                  escape_share_chunks=f"{chunk_share:.4f}", ms=f"{ms:.3f}",
-                 plain_ms=f"{pms:.3f}")
+                 ms_per_call=f"{ms / len(drains):.4f}", plain_ms=f"{pms:.3f}",
+                 bound_ms=f"{nbytes / PEAK_BYTES * 1e3:.4f}")
             del drains, decoded
+        if preset in ENTRO_PATHS + NS_PATHS:
+            _say("entro" if preset in ENTRO_PATHS else "ns", preset=preset,
+                 launches=runs[preset], **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                                           for k, v in times[preset].items()})
         torch.cuda.empty_cache()
 
     # ---- 5. source_net in bf16 and at is_high, one forward each; [c3]
@@ -664,7 +747,9 @@ def main() -> int:
         )
         prepack_ms = _cuda_ms(lambda: conv_direct.pack_weight(wt), 5)
         nbytes = _nbytes(x, wt, bias, res) + b * cout * ho * wo * 4
-        flops = 2 * b * ho * wo * cout * cin * k * k
+        stride, pad = (2, 1) if slot == "conv5s2" else (1, k // 2)
+        flops = (2 * b * cout * cin * _inside_taps(hh, ho, k, stride, pad)
+                 * _inside_taps(ww, wo, k, stride, pad))
         tally[slot].add(err, ms, pms, lms, nbytes, flops)
         _say(f"b{3 if slot == 'conv5s2' else 6}_{slot}", shape=xs, c_out=cout, k=k,
              bias=has_bias, act=act, residual=has_res, path_launches=by_run,
@@ -705,8 +790,10 @@ def main() -> int:
     if bad:
         raise AssertionError(f"the port imported the JAX package or jax: {bad[:5]}")
     meta = {
-        "drain": ("rans_drain", "cuda", "lic_tpu_torch/csrc/rans_drain.cu",
-                  "lic_tpu/coding/pallas_rans.py:93"),
+        "drain": ("rans_drain (table in shared memory)", "cuda",
+                  "lic_tpu_torch/csrc/rans_drain.cu", "lic_tpu/coding/pallas_rans.py:93"),
+        "drain_global": ("rans_drain (table in device memory)", "cuda",
+                         "lic_tpu_torch/csrc/rans_drain.cu", "lic_tpu/coding/pallas_rans.py:93"),
         "gdn": ("gdn_fwd", "cuda", "lic_tpu_torch/csrc/gdn.cu",
                 "lic_tpu/layers/pallas_gdn.py:31"),
         "conv5s2": ("conv5s2", "cuda", "lic_tpu_torch/csrc/conv_direct.cu",
@@ -721,19 +808,67 @@ def main() -> int:
     }
     rows = []
     for key, (name, route, source, replaces) in meta.items():
-        by_path = {run: n[key] for run, n in launches.items()}
+        by_path = {run: n[key] for run, n in launches.items() if n[key]}
         rows.append(tally[key].row(
             name=name, route=route, source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
         ))
-        if key == "drain":  # ms and bound are the stress streams'
-            rows[-1]["real_decode_ms"] = round(real_drain_ms, 4)
+        if key in ("drain", "drain_global"):  # ms and bound are the stress streams'
+            rows[-1]["real_decode_ms"] = round(real_drain_ms["smem" if key == "drain"
+                                                             else "global"], 4)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def _b1_lanes_and_routes(dev, coding, drain_mod, tally):
+    """[b1_lanes] B1 against its plain version on stress streams (1 symbol
+    in 17 escaping) at every lane count of ``B1_LANES``, on the 64-row
+    Gaussian table and on ``GaussianMuCoder``'s 1,024 rows: B = 8 streams,
+    three calls of ``B1_WAVEFRONT`` symbols threading the state, bit-exact,
+    each launch counted in the route ``drain_mod.route`` names.  The
+    1,024-row table at L = 256 (a 512×768 neural-syntax wavefront) goes
+    into the tally of the device-memory route."""
+    import torch
+
+    tables = {"gaussian_64": coding.GaussianCoder(), "gaussian_mu_1024": coding.GaussianMuCoder()}
+    steps = [B1_WAVEFRONT] * 3
+    for tname, coder in tables.items():
+        cdfs, offsets = coder.codec.cdfs, coder.codec.offsets
+        for lanes in B1_LANES:
+            sym, idx, pay, ends = coding.random_streams(
+                cdfs, offsets, [(SEED + 40 + i, True) for i in range(BATCH)], steps, lanes)
+            ddev = coding.DeviceRans16Interleaved(cdfs, offsets, lanes, device=dev)
+            payt = torch.from_numpy(pay).to(dev)
+            route = drain_mod.route(ddev)
+            calls, lstate = [], ddev.init_lanes(payt)
+            for i, m in enumerate(steps):
+                rows = torch.from_numpy(idx[:, i * m : (i + 1) * m].copy()).to(dev)
+                calls.append((lstate, payt, rows, m))
+                lstate, _ = coding.drain_plain(ddev, lstate, payt, rows, m)
+            before = drain_mod.table_routes[route].launches
+            ms, pms, err, k_lanes, decoded, nbytes = _drain_vs_plain(calls, ddev, coding)
+            if drain_mod.table_routes[route].launches == before:
+                raise AssertionError(f"B1 L={lanes} {tname}: no launch on the {route} route")
+            import numpy as np
+
+            np.testing.assert_array_equal(np.concatenate([d for d, _, _ in decoded], 1), sym)
+            if not (bool((k_lanes.state == 1 << 16).all()) and k_lanes.ptr.tolist() == ends):
+                raise AssertionError(f"B1 L={lanes} {tname}: final lane states or pointers")
+            sym_share, chunk_share = _escape_share(decoded, offsets, ddev.nsyms, lanes)
+            if tname == "gaussian_mu_1024" and lanes == 256:
+                tally["drain_global"].add(err, ms, pms, None, nbytes, 0)
+            _say("b1_lanes", table=tname, rows=cdfs.shape[0], lanes=lanes, route=route,
+                 batch=BATCH, calls=len(steps), symbols_per_call=B1_WAVEFRONT, bitexact=True,
+                 escape_share_symbols=f"{sym_share:.4f}",
+                 escape_share_chunks=f"{chunk_share:.4f}", ms_per_call=f"{ms / 3:.4f}",
+                 plain_ms_per_call=f"{pms / 3:.3f}",
+                 bound_ms_per_call=f"{nbytes / 3 / PEAK_BYTES * 1e3:.4f}")
+            del payt, calls, decoded
+    torch.cuda.empty_cache()
 
 
 def _attn_vs_plain(c, nh, g, dev, tally, tag):
@@ -949,7 +1084,8 @@ def _drive_train(dev, counters, shapes):
     port's ``train_step`` (``TrainConfig``'s defaults: λ 0.0025, Adam 1e-4
     after a clip at 1.0, aux Adam 1e-3) on B = 8 256×256 crops.
     [train_wam]: ``source_net_wam``, one step through B4 and one with
-    ``fuse_proj`` (B5).  Each run: the first step's kernel launches (and
+    ``fuse_proj`` (B5); [train_entro], [train_ns]: one step each of
+    ``entroformer_cb`` and ``neural_syntax``.  Each run: the first step's kernel launches (and
     backwards, equal to them) against ``EXPECTED``, its kernel shapes
     recorded for [grad]; every loss finite and no step skipped; after the
     last step each B3/B6 slot's kernel output equals the plain version
@@ -970,7 +1106,8 @@ def _drive_train(dev, counters, shapes):
     kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
     runs = {}
     for preset, routes in (("source_net", [False] * TRAIN_STEPS),
-                           ("source_net_wam", [False, True])):
+                           ("source_net_wam", [False, True]),
+                           ("entroformer_cb", [False]), ("neural_syntax", [False])):
         model = build_model(preset, device=dev, seed=SEED).train()
         tc = TrainConfig()
         opt = make_optimizer(model, tc, steps_per_epoch=1000)
@@ -990,8 +1127,9 @@ def _drive_train(dev, counters, shapes):
                 m.fuse_proj = fuse
             run = f"train:{preset}" + ("+fuse_proj" if fuse else "")
             first = run not in runs
-            if i == len(routes) - 1:
-                before = {m: m.weight.detach().clone() for m in slots}
+            if i == len(routes) - 1:  # every conv: a one-step run records its slots in it
+                before = {m: m.weight.detach().clone() for m in model.modules()
+                          if isinstance(m, Conv2d)}
             hooks = []
             if first:
                 hooks = (_record_conv_slots(model, shapes["conv"], run)
@@ -1028,7 +1166,10 @@ def _drive_train(dev, counters, shapes):
             times.append([ev[a].elapsed_time(ev[b]) for a, b in zip(phases, phases[1:])])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         # the weight cache: B3/B6 read the weights the last step wrote
-        worst_new, least_old = 0.0, float("inf")
+        # a slot whose weight took an exactly zero gradient in the last step
+        # cannot move (Adam's step is 0 there): entroformer_cb's ELIC h_s at
+        # init, whose input ẑ rounds to 0; every other slot must move
+        worst_new, least_old, frozen = 0.0, float("inf"), 0
         with torch.no_grad():
             for m, xs in slots.items():
                 gen = torch.Generator().manual_seed(len(xs) + xs[1])
@@ -1044,14 +1185,19 @@ def _drive_train(dev, counters, shapes):
                 torch.testing.assert_close(y.double(), ref, atol=TOL, rtol=TOL,
                                            msg=lambda s: f"{preset} {slot} after the step: {s}")
                 worst_new = max(worst_new, float((y.double() - ref).abs().max()))
+                if m.weight.grad is not None and not m.weight.grad.any():
+                    frozen += 1
+                    if not torch.equal(m.weight, before[m]):
+                        raise AssertionError(f"{preset}: a weight with no gradient moved")
+                    continue
                 least_old = min(least_old, float((y.double() - old).abs().max()))
-        if not least_old > 10 * TOL:
+        if frozen == len(slots) or not least_old > 10 * TOL:
             raise AssertionError(f"{preset}: a B3/B6 output did not move with its weights "
                                  f"({least_old:.3g})")
         line = dict(preset=preset, batch=TRAIN_BATCH, crop=TRAIN_CROP, steps=len(routes),
                     losses=json.dumps([round(v, 4) for v in losses]), skipped=0,
                     launches={r: n for r, n in runs.items() if r.startswith(f"train:{preset}")},
-                    b3_b6_slots_checked=len(slots),
+                    b3_b6_slots_checked=len(slots), b3_b6_slots_zero_gradient=frozen,
                     b3_b6_after_step_max_err=f"{worst_new:.3g}",
                     b3_b6_vs_old_weights_min_diff=f"{least_old:.3g}",
                     peak_mem_gib=f"{peak:.2f}")
@@ -1064,10 +1210,15 @@ def _drive_train(dev, counters, shapes):
                         all_step_ms=json.dumps([round(sum(t), 2) for t in times]))
             _say("train", **line)
             _profile_step(step_fn, state, batch, step_ms)
-        else:
+        elif preset == "source_net_wam":
             line.update(step_ms=json.dumps([round(sum(t), 2) for t in times]),
                         routes=json.dumps(["b4", "b5"]))
             _say("train_wam", **line)
+        else:
+            line.update(step_ms=f"{sum(times[0]):.2f}", forward_ms=f"{times[0][0]:.2f}",
+                        backward_ms=f"{times[0][1]:.2f}", optimizer_ms=f"{times[0][2]:.2f}",
+                        note="one step: its first, cuDNN's choices included")
+            _say("train_entro" if preset == "entroformer_cb" else "train_ns", **line)
         del model, opt, state, step_fn
         torch.cuda.empty_cache()
     return runs
@@ -1415,9 +1566,10 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
     window attention the ``fuse_proj`` pass); then [c5], and where the
     preset is one of theirs [eval], [tune] (its kernel shapes into
     ``tune_shapes``) and [cli].
-    → ({run: launches}, times, {label: the drain calls of a decode}: for
-    ``source_net`` its B=8 decode, its one-stream decode and [cli]'s
-    decode of a chunk of two 480×640 streams, else {})."""
+    → ({run: launches}, times, {label: the drain calls of a decode}: the
+    B=8 decode of ``source_net``, ``entroformer_cb`` and ``neural_syntax``,
+    and for ``source_net`` also its one-stream decode and [cli]'s decode
+    of a chunk of two 480×640 streams)."""
     import numpy as np
     import torch
 
@@ -1437,28 +1589,8 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
     def on_gpu(t):
         return t.to(dev).contiguous(memory_format=torch.channels_last)
 
-    def stages(m, xin, z_hat=None, y_hat=None, syn=None):
-        z3 = m.analyze(xin)
-        if z_hat is None:
-            med = m.eb_medians()[None, :, None, None]
-            z_hat = torch.round(m.hyper_encode(z3) - med) + med
-        scales, means = m.hyper_decode(z_hat)
-        mu0, sigma0, _ = m.charm_entropy_params(means, scales, [], 0)
-        if y_hat is None:
-            y_hat, syn = m(xin).extras["y_hat"], m.syntax_from_latent(z3)
-        rec = m.synthesize(y_hat, syn)
-        return dict(z3=z3, z_hat=z_hat, scales=scales, means=means, mu0=mu0,
-                    sigma0=sigma0, y_hat=y_hat, syn=syn, rec=rec)
-
-    with torch.no_grad():
-        sc = stages(cpu_model, small)
-        sg = stages(model, on_gpu(small), on_gpu(sc["z_hat"]), on_gpu(sc["y_hat"]),
-                    sc["syn"].to(dev))
-    ref_err = {k: float((sg[k].cpu() - sc[k]).abs().max())
-               for k in ("z3", "scales", "means", "mu0", "sigma0", "rec")}
-    if max(ref_err.values()) > RECON_TOL:
-        raise AssertionError(f"{preset}: GPU stages disagree with the CPU run: {ref_err}")
-    del cpu_model, sc, sg
+    ref_err = _small_stages(preset, model, cpu_model, small, on_gpu)
+    del cpu_model
 
     # the main path: forward + compress_batch → decompress_batch
     coder = ChannelCoder(model, name=preset)
@@ -1495,8 +1627,9 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
     if rec1_err > RECON_TOL:
         raise AssertionError(f"{preset}: B=1 roundtrip recon differs from its forward: {rec1_err}")
     drains = {}
-    if preset == "source_net":
+    if preset in ("source_net", "entroformer_cb") + NS_PATHS:
         drains[f"{preset} B={BATCH} decode"] = record_drains(coder, blobs)
+    if preset == "source_net":
         drains[f"{preset} one-stream decode"] = record_drains(coder, [blob1])
     _say("roundtrip", preset=preset, streams=BATCH, bpp=f"{bpp:.4f}",
          recon_max_err=f"{rec_err:.3g}", final_state_ok=True, launches=runs[preset],
@@ -1564,22 +1697,84 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
     return runs, times, drains
 
 
-def _c5_rows(model, coder, x):
-    """The scale-table rows (σ-indexes) of the coder's own slice chain
-    (``ChannelCoder._slices_pass``, in its passes) for each image of ``x``
-    alone against the batch: → the count that differ."""
+# what ``_stages`` takes from the CPU run into the card's, so that no
+# rounding flip upstream can spread into the stages compared
+_GIVEN = ("z_hat", "z2_int", "y_hat", "syn")
+
+
+def _small_stages(preset, model, cpu_model, small, on_gpu):
+    """The small-input check: each of ``_stages`` on the card within
+    RECON_TOL of the CPU run (fp32 both).  Beside it, [small_f64] prints
+    each stage's distance from the CPU model run in float64 on the same
+    values, for the card and for the CPU, and for a log σ stage the
+    largest |σ| difference between card and CPU with σ there: what tells
+    fp32 rounding (both sides the same distance from float64) from a
+    fault (the card alone far from it).  → {stage: max |card − CPU|}."""
+    import copy
+
     import torch
 
-    from lic_tpu_torch.models.compress import _passes, pass_batch
-
-    p = pass_batch(*x.shape[2:], x.device)
     with torch.no_grad():
-        z3 = _passes(model.analyze, p, x)
-        _, z_hat = coder._z_enc(z3, p)
-        rows_b = coder._slices_pass(z_hat, p, y=z3)[1]
-        rows_1 = torch.cat([coder._slices_pass(z_hat[i : i + 1], p, y=z3[i : i + 1])[1]
-                            for i in range(x.shape[0])])
-    return int((rows_b != rows_1).sum())
+        sc = _stages(cpu_model, small)
+        sg = _stages(model, on_gpu(small), **{k: on_gpu(sc[k]) for k in _GIVEN if k in sc})
+        s64 = _stages(copy.deepcopy(cpu_model).double(), small.double(),
+                      **{k: sc[k].double() for k in _GIVEN if k in sc})
+    keys = [k for k in sg if k not in _GIVEN]
+    ref_err = {k: float((sg[k].cpu() - sc[k]).abs().max()) for k in keys}
+    f64 = {}
+    for k in keys:
+        f64[f"{k}_gpu_vs_f64"] = f"{float((sg[k].cpu().double() - s64[k]).abs().max()):.3g}"
+        f64[f"{k}_cpu_vs_f64"] = f"{float((sc[k].double() - s64[k]).abs().max()):.3g}"
+        if k.startswith("log_sigma"):
+            d = (sg[k].cpu().exp() - sc[k].exp()).abs().flatten()
+            i = int(d.argmax())
+            f64[f"{k[4:]}_abs_err"] = f"{float(d[i]):.3g}"
+            f64[f"{k[4:]}_there"] = f"{float(sc[k].exp().flatten()[i]):.4g}"
+    _say("small_f64", preset=preset, **f64)
+    if max(ref_err.values()) > RECON_TOL:
+        raise AssertionError(f"{preset}: GPU stages disagree with the CPU run: {ref_err}")
+    return ref_err
+
+
+def _stages(m, xin, z_hat=None, z2_int=None, y_hat=None, syn=None):
+    """The model's stages on ``xin``, each on the given upstream values
+    where given: charm, z3, the hyper's (scales, means), slice 0's (μ, σ)
+    and the synthesis; entroformer, the same with both checkerboard passes
+    (the second on the anchors of ``y_hat``); neural syntax, z3, z2, h2,
+    the context's (μ, σ) over ``y_hat``, the syntax (μ, σ) and the
+    synthesis; a σ that is exp of a head's output (the entroformer's and
+    neural syntax's) as that output, log σ.  → {stage: tensor} (with the
+    upstream values used)."""
+    import torch
+
+    from lic_tpu_torch.layers.entroformer import anchor_map
+
+    z3 = m.analyze(xin)
+    if y_hat is None:
+        out = m(xin)
+        y_hat, syn = out.extras["y_hat"], m.syntax_from_latent(z3)
+    st = dict(z3=z3, y_hat=y_hat, syn=syn, rec=m.synthesize(y_hat, syn))
+    if m.is_ns:
+        z2 = m.ns_hyper_encode(z3)
+        z2_int = torch.round(z2) if z2_int is None else z2_int
+        h2 = m.ns_hyper_decode(z2_int)
+        mu_c, sg_c = m.prediction_model(y_hat, h2, masked=True)
+        mu_s, sg_s = m.ns_syntax_params(h2)
+        return dict(st, z2=z2, z2_int=z2_int, h2=h2, mu_c=mu_c, log_sigma_c=torch.log(sg_c),
+                    mu_s=mu_s, log_sigma_s=torch.log(sg_s))
+    if z_hat is None:
+        med = m.eb_medians()[None, :, None, None]
+        z_hat = torch.round(m.hyper_encode(z3) - med) + med
+    scales, means = m.hyper_decode(z_hat)
+    st.update(z_hat=z_hat, scales=scales, means=means)
+    if m.is_entro:
+        mu0, sg0 = m.entro_predict(torch.zeros_like(y_hat), scales, means)
+        anchor = anchor_map(y_hat.shape[2], y_hat.shape[3], y_hat)
+        mu1, sg1 = m.entro_predict(y_hat * anchor, scales, means)
+        # σ = exp(the head's output): compared as that output
+        return dict(st, mu0=mu0, log_sigma0=torch.log(sg0), mu1=mu1, log_sigma1=torch.log(sg1))
+    mu0, sigma0, _ = m.charm_entropy_params(means, scales, [], 0)
+    return dict(st, mu0=mu0, sigma0=sigma0)
 
 
 def _c5(preset, model, coder, x, fwd):
@@ -1588,11 +1783,14 @@ def _c5(preset, model, coder, x, fwd):
     in one ``decompress_batch``, each alone and in chunks of ``C5_CHUNKS``,
     the reconstructions bit-identical and within ``RECON_TOL`` of the
     eval forward ``fwd``; the σ-indexes of each image alone against the
-    batch (``_c5_rows``).  Raises on any difference."""
+    batch (``tools.batch_probe.coder_rows_differing``).  Raises on any
+    difference."""
     import torch
 
+    from lic_tpu_torch.tools.batch_probe import coder_rows_differing
+
     b = x.shape[0]
-    rows_diff = _c5_rows(model, coder, x)
+    rows_diff = coder_rows_differing(model, coder, x)
     batch_blobs = coder.compress_batch(x)
     singles = [coder.compress(x[i : i + 1]) for i in range(b)]
     same_bytes = sum(s == t for s, t in zip(singles, batch_blobs))

@@ -1,15 +1,16 @@
 """lic_tpu_torch — the PyTorch/CUDA port of ``lic_tpu``.
 
 A second package beside the JAX one, which stays the reference every
-module here is tested against.  It covers the serving paths of the
-``source_net``, ``source_net_wam``, ``net_ga`` and ``net_unet_ha_hs_dec``
-presets (the eval-mode forward and the real bitstream roundtrip,
-``models.compress.ChannelCoder``) and their training (``training``,
-``cli.train``).  The kernels on those paths are written by hand for Hopper
+module here is tested against.  It covers the ``source_net``,
+``source_net_wam``, ``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``,
+``entroformer_cb_full`` and ``neural_syntax`` presets: the eval-mode
+forward, the real bitstream roundtrip (``models.compress.ChannelCoder``),
+training (``training``, ``cli.train``), eval and the CLIs.  The kernels on those paths are written by hand for Hopper
 and built from this package's sources at first use:
 
 * B1, the interleaved rANS drain, CUDA C++ (``csrc/rans_drain.cu``, wrapper
-  ``coding.drain``);
+  ``coding.drain``), at 8 to 256 lanes, its table in shared memory or,
+  when too large, read from device memory;
 * B2, the GDN/IGDN forward, CUDA C++ (``csrc/gdn.cu``, wrapper
   ``layers.gdn``);
 * B3 and B6, the 5×5 stride-2 conv and the stride-1 k×k conv with its

@@ -15,6 +15,7 @@ from .drain import rans_drain
 from .host_rans import (
     FactorizedCoder,
     GaussianCoder,
+    GaussianMuCoder,
     Rans16InterleavedCodec,
     load_host_rans,
     random_streams,
@@ -28,6 +29,7 @@ __all__ = [
     "rans_drain",
     "FactorizedCoder",
     "GaussianCoder",
+    "GaussianMuCoder",
     "Rans16InterleavedCodec",
     "load_host_rans",
     "random_streams",

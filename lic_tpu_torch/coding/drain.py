@@ -5,7 +5,17 @@ Counterpart of ``lic_tpu/coding/pallas_rans.py::pallas_drain``: it takes
 tensors take the plain version (``device_rans.drain_plain``); CUDA tensors
 launch the kernel, built at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (loaded with ``ctypes``); any other
-device raises.  A failed build or launch raises.
+device raises.  A failed build or launch raises, and so does a shape the
+kernel does not take (no fallback).
+
+The kernel takes L in {8, 16, 32, 64, 128, 256} lanes and tables of rows
+of at most 256 entries.  Its table (CDF rows, offsets and the coarse slot
+index) sits in shared memory where it fits beside the payload ring — the
+64-row ``GaussianCoder`` table at L <= 128 — and in device memory
+otherwise — ``GaussianMuCoder``'s 1,024 rows, or any table at L = 256
+(``route``: the kernel library decides, by the shared memory the table
+needs, once per coder).  ``table_routes`` counts the launches of each
+route; B1's launches are their sum.
 """
 
 from __future__ import annotations
@@ -28,11 +38,42 @@ from .device_rans import (
 def _bind(lib: ctypes.CDLL) -> None:
     lib.rans_drain_launch.restype = ctypes.c_int
     lib.rans_drain_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
+    lib.rans_drain_route.restype = ctypes.c_int
+    lib.rans_drain_route.argtypes = [ctypes.c_int] * 3
 
 
 library = CudaLibrary("rans_drain.cu", _bind)
+
+LANES = (8, 16, 32, 64, 128, 256)
+ROUTES = ("smem", "global")
+
+
+class RouteCount:
+    """Launches of one table route of B1."""
+
+    def __init__(self, route: str):
+        self.route = route
+        self.launches = 0
+
+
+table_routes = {r: RouteCount(r) for r in ROUTES}
+
+
+def route(dev: DeviceRans16Interleaved) -> str:
+    """The table route of the coder's launches on the card, 'smem' or
+    'global', asked of the kernel library once and kept on the coder;
+    raises for a shape the kernel does not take."""
+    r = getattr(dev, "_table_route", None)
+    if r is None:
+        k = library().rans_drain_route(dev.n_lanes, dev.rows, dev.row_len)
+        if k < 0:
+            raise ValueError(f"rans_drain: no kernel for L={dev.n_lanes}, a table of {dev.rows} "
+                             f"rows of {dev.row_len} (L in {LANES}, rows of at most 256)")
+        r = dev._table_route = ROUTES[k]
+    return r
+
 
 SLOT_BUCKET_BITS = 7  # the coarse slot index keys on cum >> 7: 512 buckets
 
@@ -80,7 +121,7 @@ def _drain_cuda(dev, lanes, payload, rows_flat, s_tot):
     w_len = payload.shape[1]
     device = payload.device
     _check(0 <= s_tot <= s, f"s_tot={s_tot} outside [0, {s}]")
-    _check(L == 128, f"L={L}: the kernel takes the format's 128 lanes")
+    table = route(dev)
     _check(payload.dtype == torch.int32 and payload.is_contiguous(),
            "payload must be contiguous int32")
     _check(payload.shape[0] == b and w_len >= 2 * L,
@@ -109,10 +150,11 @@ def _drain_cuda(dev, lanes, payload, rows_flat, s_tot):
     err = library().rans_drain_launch(
         rows.data_ptr(), payload.data_ptr(), state.data_ptr(), ptr.data_ptr(),
         out.data_ptr(), dev.cdf_rows.data_ptr(), dev.offsets.data_ptr(),
-        _slot_index_on(dev).data_ptr(), b, s, int(s_tot), w_len, L, dev.rows, dev.row_len, stream,
+        _slot_index_on(dev).data_ptr(), b, s, int(s_tot), w_len, L, dev.rows, dev.row_len,
+        ROUTES.index(table), stream,
     )
     check_launch(err, "rans_drain")
-    rans_drain.launches += 1
+    table_routes[table].launches += 1
     return DeviceIState(state.long() & _MASK32, ptr.long()), out
 
 
@@ -133,6 +175,3 @@ def rans_drain(
     if payload.device.type != "cuda":
         raise RuntimeError(f"rans_drain: no kernel for device {payload.device}")
     return _drain_cuda(dev, lanes, payload, rows_flat, s_tot)
-
-
-rans_drain.launches = 0

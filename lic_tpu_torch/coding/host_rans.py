@@ -1,8 +1,8 @@
 """Host entropy coders on the port's C++ rANS (``csrc/rans.cpp``).
 
 The port's copies of what its codec uses from the JAX package's host
-coding code: ``GaussianCoder`` and ``FactorizedCoder``
-(``lic_tpu/coding/codec.py:25-118,181-217``) and ``Rans16InterleavedCodec``
+coding code: ``GaussianCoder``, ``GaussianMuCoder`` and ``FactorizedCoder``
+(``lic_tpu/coding/codec.py:25-217``) and ``Rans16InterleavedCodec``
 (``lic_tpu/coding/device_rans.py:288-346``).  Tests hold their tables and
 streams byte-identical to the JAX package's.
 """
@@ -26,6 +26,7 @@ except ImportError:  # scipy-less host: vectorize math.erf (exact, slower)
 __all__ = [
     "FactorizedCoder",
     "GaussianCoder",
+    "GaussianMuCoder",
     "Rans16InterleavedCodec",
     "load_host_rans",
     "random_streams",
@@ -38,11 +39,29 @@ SCALES_LEVELS = 64
 RADIUS = 64
 
 
-def _gaussian_pmf(scale: float, radius: int) -> np.ndarray:
-    xs = np.arange(-radius, radius + 1, dtype=np.float64)
+def _gaussian_pmf(scale: float, radius: int, mean: float = 0.0) -> np.ndarray:
+    xs = np.arange(-radius, radius + 1, dtype=np.float64) - mean
     upper = 0.5 * (1 + _erf((xs + 0.5) / (scale * math.sqrt(2))))
     lower = 0.5 * (1 + _erf((xs - 0.5) / (scale * math.sqrt(2))))
     return np.maximum(upper - lower, 0.0)
+
+
+def _scale_table() -> np.ndarray:
+    return np.exp(np.linspace(math.log(SCALES_MIN), math.log(SCALES_MAX), SCALES_LEVELS))
+
+
+def _quantized_row(scale: float, mean: float = 0.0) -> np.ndarray:
+    # honest tail mass: the escape slot takes 1 − Σpmf; the 0.9999 factor
+    # only keeps it nonzero for tiny σ
+    pmf = _gaussian_pmf(scale, RADIUS, mean)
+    return pmf_to_quantized_cdf(np.clip(pmf, 0.0, 1.0) * 0.9999)
+
+
+def scale_table_indexes(table: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Index of the smallest table scale >= scale (lower-bounded); the
+    device mirror is ``models.compress.dev_scale_idx``."""
+    s = np.maximum(scales, table[0])
+    return np.searchsorted(table, s - 1e-9).clip(0, len(table) - 1).astype(np.int32)
 
 
 class GaussianCoder:
@@ -50,16 +69,44 @@ class GaussianCoder:
     (y − μ) residuals; one row per table scale."""
 
     def __init__(self):
-        self.scale_table = np.exp(
-            np.linspace(math.log(SCALES_MIN), math.log(SCALES_MAX), SCALES_LEVELS)
-        )
-        # honest tail mass: the escape slot takes 1 − Σpmf; the 0.9999
-        # factor only keeps it nonzero for tiny σ
-        rows = [
-            pmf_to_quantized_cdf(np.clip(_gaussian_pmf(float(s), RADIUS), 0.0, 1.0) * 0.9999)
-            for s in self.scale_table
-        ]
+        self.scale_table = _scale_table()
+        rows = [_quantized_row(float(s)) for s in self.scale_table]
         self.codec = RansCodec(np.stack(rows), np.full(len(rows), -RADIUS, np.int32))
+
+    def scale_indexes(self, scales: np.ndarray) -> np.ndarray:
+        return scale_table_indexes(self.scale_table, scales)
+
+    def encode_symbols(self, symbols: np.ndarray, scales: np.ndarray) -> bytes:
+        """Integer residual symbols under the table rows of ``scales``."""
+        return self.codec.encode(symbols.astype(np.int32), self.scale_indexes(scales))
+
+
+class GaussianMuCoder:
+    """rANS coder for integer-grid symbols under N(μ, σ) with a fractional
+    μ (the neural-syntax family codes ``round(y)``): one CDF row per
+    (scale index, δ bin), δ = μ − round(μ) in ``n_delta`` bins; symbols
+    ``y_int − round(μ)``."""
+
+    def __init__(self, n_delta: int = 16):
+        self.scale_table = _scale_table()
+        self.n_delta = n_delta
+        centers = (np.arange(n_delta) + 0.5) / n_delta - 0.5
+        rows = [_quantized_row(float(s), float(d)) for s in self.scale_table for d in centers]
+        self.codec = RansCodec(np.stack(rows), np.full(len(rows), -RADIUS, np.int32))
+
+    def indexes(self, scales: np.ndarray, means: np.ndarray) -> np.ndarray:
+        si = scale_table_indexes(self.scale_table, scales)
+        dj = np.clip(np.floor((means - np.round(means) + 0.5) * self.n_delta), 0,
+                     self.n_delta - 1)
+        return (si * self.n_delta + dj).astype(np.int32)
+
+    def encode_ints(self, y_int: np.ndarray, means: np.ndarray, scales: np.ndarray) -> bytes:
+        sym = y_int.astype(np.int64) - np.round(means).astype(np.int64)
+        return self.codec.encode(sym.astype(np.int32), self.indexes(scales, means))
+
+    def decode_ints(self, data: bytes, means: np.ndarray, scales: np.ndarray) -> np.ndarray:
+        sym = self.codec.decode(data, self.indexes(scales, means))
+        return sym.reshape(means.shape) + np.round(means).astype(np.int32)
 
 
 class FactorizedCoder:

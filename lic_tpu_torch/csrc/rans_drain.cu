@@ -22,10 +22,13 @@
 // a chunk on escape-heavy streams.
 //
 // What the design does about it:
-//  * one CTA per stream, one thread per lane (L = 128, the format's lane
-//    count: four warps, a template constant, so every loop over the warps
-//    unrolls); the lane
-//    state lives in a register as uint32 and the shared pointer in a
+//  * one CTA per stream, one thread per lane: L in {8, 16, ..., 256} (128
+//    for the charm and entroformer streams; the neural-syntax coder takes
+//    its lane count from the latent size).  The CTA has max(L, 32) threads
+//    in NW = max(L / 32, 1) warps, a template constant, so every loop over
+//    the warps unrolls; under 32 lanes the threads t >= L are dead: never
+//    valid, so they join every ballot with a 0 and never take a word.  The
+//    lane state lives in a register as uint32 and the shared pointer in a
 //    register of every thread;
 //  * no global load on the chain: each chunk starts one cp.async group that
 //    copies the CDF rows of the chunk kLead chunks ahead into a shared ring
@@ -37,10 +40,17 @@
 //    zero-filled by the copy (only a corrupt stream reads there: valid
 //    streams end >= L zero words before it);
 //  * the CDF table, its row offsets and a coarse slot index (per row and per
-//    cum >> 8, the slot of the bucket's first cum, built on the host by
-//    coding/drain.py::slot_index) sit in shared memory; the slot search is
-//    a binary search only between a bucket's first slot and the next
-//    bucket's, zero steps where one slot covers the bucket;
+//    cum >> 7, the slot of the bucket's first cum, built on the host by
+//    coding/drain.py::slot_index) sit in shared memory where they fit
+//    beside the payload ring (the 64-row Gaussian table: 165 KB); a larger
+//    table (GaussianMuCoder's 1,024 rows: 2.64 MB) stays in device memory,
+//    read through the read-only path (L2 holds it).  The route is chosen by
+//    the shared memory the table needs, nothing else (rans_drain_route);
+//    both compute the same bits.  Where the table fits, shared memory is
+//    the faster route (measured with tools/kernel_probe.py --kernel
+//    b1_routes; PERF.md section 6).  The slot search is a binary search only
+//    between a bucket's first slot and the next bucket's, zero steps where
+//    one slot covers the bucket;
 //  * one barrier per renorm exchange: per-warp counts (ballot / popc) go
 //    into double-buffered shared words, so the next exchange's writes need
 //    no second barrier; the main phase's exchange also says whether a lane
@@ -91,27 +101,38 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // The payload ring: words [ptr, loaded) are requested.  Each thread copies
-// 4 words of a segment of 4 L.
+// 4 words of a segment of 4 NT (NT = 32 NW threads).
 struct Ring {
   int32_t* buf;   // rlen words, rlen a power of two
   int mask;       // rlen - 1
-  int ahead;      // loaded - ptr kept >= 10 L kLead
+  int ahead;      // loaded - ptr kept >= 10 L kLead (L lanes)
   int loaded;
 };
 
 // Every thread calls it with the same ptr: request segments until the ring
 // runs `ahead` words past ptr, into the cp.async group being built.
-template <int L>
+template <int NT>
 __device__ __forceinline__ void ring_refill(Ring& r, int ptr, const int32_t* __restrict__ pay,
                                             int W) {
   while (r.loaded - ptr < r.ahead) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int w = r.loaded + i * L + static_cast<int>(threadIdx.x);
+      const int w = r.loaded + i * NT + static_cast<int>(threadIdx.x);
       const bool in = w < W;
       cp_async4(smem_addr(r.buf + (w & r.mask)), in ? pay + w : pay, in ? 4 : 0);
     }
-    r.loaded += 4 * L;
+    r.loaded += 4 * NT;
+  }
+}
+
+// A table word: from shared memory, or (kGlobal) from device memory
+// through the read-only path.
+template <bool kGlobal, typename T>
+__device__ __forceinline__ T tload(const T* p) {
+  if constexpr (kGlobal) {
+    return __ldg(p);
+  } else {
+    return *p;
   }
 }
 
@@ -142,7 +163,7 @@ __device__ __forceinline__ uint32_t window_renorm(uint32_t state, bool need, int
   return state;
 }
 
-template <int NW>
+template <int NW, bool kGlobal>
 __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
     const int32_t* __restrict__ rows,      // (B, S) CDF row per symbol
     const int32_t* __restrict__ payload,   // (B, W) zero-extended words
@@ -152,8 +173,8 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
     const int32_t* __restrict__ cdf,       // (nrows, row_len)
     const int32_t* __restrict__ offsets,   // (nrows,)
     const uint32_t* __restrict__ slot_idx,  // (nrows, kIdxLen) coarse slot index
-    int S, int s_tot, int W, int nrows, int row_len, int rlen) {
-  constexpr int L = 32 * NW;
+    int S, int s_tot, int W, int L, int nrows, int row_len, int rlen) {
+  constexpr int NT = 32 * NW;  // threads; lanes t < L are live
   extern __shared__ __align__(16) int32_t smem[];
   // exchange words, double-buffered: the main phase's per-warp count (low
   // 16 bits) and escape flag (bit 16); the escape phases' per-warp counts,
@@ -163,7 +184,7 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
   __shared__ __align__(16) uint32_t s_esc[2][NW][8];
   __shared__ int s_fb[NW];  // phase-by-phase path
   __shared__ int s_fb_kmax;
-  __shared__ int32_t s_rows[kRowSlots][L];
+  __shared__ int32_t s_rows[kRowSlots][NT];
   __shared__ uint16_t s_needs[8 * 16];
 
   const int t = threadIdx.x;
@@ -175,39 +196,47 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
   ring.buf = smem;
   ring.mask = rlen - 1;
   ring.ahead = 10 * L * kLead;
+  // the table in shared memory behind the ring, or kGlobal: in place
   int32_t* s_cdf = smem + rlen;
   int32_t* s_off = s_cdf + nrows * row_len;
   uint32_t* s_idx = reinterpret_cast<uint32_t*>(s_off + nrows);
+  const int32_t* t_cdf = kGlobal ? cdf : s_cdf;
+  const int32_t* t_off = kGlobal ? offsets : s_off;
+  const uint32_t* t_idx = kGlobal ? slot_idx : s_idx;
 
+  const bool live = t < L;
   const int32_t* pay = payload + static_cast<size_t>(b) * W;
   const int32_t* rrow = rows + static_cast<size_t>(b) * S;
   int32_t* orow = out + static_cast<size_t>(b) * S;
-  uint32_t state = state_io[static_cast<size_t>(b) * L + t];
+  uint32_t state = live ? state_io[static_cast<size_t>(b) * L + t] : 0u;
   int ptr = ptr_io[b];
 
-  // this thread's row of chunk k (a zero past s_tot) into its ring slot
+  // this thread's row of chunk k (a zero past s_tot, and for a dead
+  // thread) into its ring slot
   auto copy_row = [&](int k) {
     const int i = k * L + t;
-    const bool in = i < s_tot;
+    const bool in = live && i < s_tot;
     cp_async4(smem_addr(&s_rows[k % kRowSlots][t]), in ? rrow + i : rrow, in ? 4 : 0);
   };
   // groups 0 .. kLead - 1: the payload's first words and the rows of
   // chunks 0 .. kLead - 1; chunk c starts group kLead + c (the rows of chunk
   // c + kLead), so chunk c's rows and words are in groups <= c
   ring.loaded = ptr;
-  ring_refill<L>(ring, ptr, pay, W);
+  ring_refill<NT>(ring, ptr, pay, W);
 #pragma unroll
   for (int k = 0; k < kLead; ++k) {
     copy_row(k);
     cp_async_commit();
   }
 
-  for (int i = t; i < nrows * row_len; i += L) s_cdf[i] = cdf[i];
-  for (int i = t; i < nrows; i += L) s_off[i] = offsets[i];
-  for (int i = t; i < nrows * kIdxLen; i += L) s_idx[i] = slot_idx[i];
+  if constexpr (!kGlobal) {
+    for (int i = t; i < nrows * row_len; i += NT) s_cdf[i] = cdf[i];
+    for (int i = t; i < nrows; i += NT) s_off[i] = offsets[i];
+    for (int i = t; i < nrows * kIdxLen; i += NT) s_idx[i] = slot_idx[i];
+  }
   // s_needs[cnt - 1][nbits - 17]: which of the escape phases 0..cnt need a
   // word, for a state of bit length nbits after the main phase
-  for (int i = t; i < 8 * 16; i += L) {
+  for (int i = t; i < 8 * 16; i += NT) {
     const int cnt = i / 16 + 1;
     int nbits = i % 16 + 17;
     uint32_t needs = 0;
@@ -226,12 +255,12 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
 
   for (int c = 0, c0 = 0; c0 < s_tot; ++c, c0 += L) {
     const int idx = c0 + t;
-    const bool valid = idx < s_tot;
+    const bool valid = live && idx < s_tot;
 
     // start group kLead + c; wait for group c (this chunk's rows and the
     // words up to ptr + 10 L): the exchange's barrier shows every thread's
     // words to every other
-    ring_refill<L>(ring, ptr, pay, W);
+    ring_refill<NT>(ring, ptr, pay, W);
     copy_row(c + kLead);
     cp_async_commit();
     cp_async_wait_lead();
@@ -243,14 +272,15 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
     // had frequency 1 (exact in the Gaussian tails, where most do; the
     // clamps make them lo or hi where one wide slot covers the bucket).
     // Only a lane whose guesses both miss searches [lo, hi].
-    const int32_t* crow = s_cdf + row * row_len;
+    const int32_t* crow = t_cdf + row * row_len;
     const int cum = static_cast<int>(state & 0xFFFFu);
-    const uint32_t* irow = s_idx + row * kIdxLen + (cum >> kBucketBits);
-    const uint32_t e0 = irow[0], e1 = irow[1];
+    const uint32_t* irow = t_idx + row * kIdxLen + (cum >> kBucketBits);
+    const uint32_t e0 = tload<kGlobal>(irow), e1 = tload<kGlobal>(irow + 1);
     int lo = static_cast<int>(e0 & 0xFFu), hi = static_cast<int>(e1 & 0xFFu);
     const int up = min(hi, lo + (cum - static_cast<int>(e0 >> 8)));
     const int down = min(max(hi - (static_cast<int>(e1 >> 8) - cum), lo), hi);
-    int c_up = crow[up], c_up1 = crow[up + 1], c_dn = crow[down], c_dn1 = crow[down + 1];
+    int c_up = tload<kGlobal>(crow + up), c_up1 = tload<kGlobal>(crow + up + 1);
+    int c_dn = tload<kGlobal>(crow + down), c_dn1 = tload<kGlobal>(crow + down + 1);
     int slot;
     if (c_up <= cum && cum < c_up1) {
       slot = up;
@@ -264,11 +294,11 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
       if (c_dn1 <= cum) lo = max(lo, down + 1); else hi = min(hi, down - (c_dn > cum));
       while (lo < hi) {
         const int mid = (lo + hi + 1) >> 1;
-        if (crow[mid] <= cum) lo = mid; else hi = mid - 1;
+        if (tload<kGlobal>(crow + mid) <= cum) lo = mid; else hi = mid - 1;
       }
       slot = lo;
-      c_up = crow[slot];
-      c_up1 = crow[slot + 1];
+      c_up = tload<kGlobal>(crow + slot);
+      c_up1 = tload<kGlobal>(crow + slot + 1);
     }
     const uint32_t start = static_cast<uint32_t>(c_up);
     const uint32_t freq = static_cast<uint32_t>(c_up1) - start;
@@ -295,7 +325,7 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
     }
     ptr += total & 0xFFFF;
 
-    const int off = s_off[row];
+    const int off = tload<kGlobal>(t_off + row);
     uint32_t value = static_cast<uint32_t>(slot + off);
     if (total >> 16) {
       // exchange 2: the ranks of every escape phase at once.  Phase 0 reads
@@ -330,8 +360,8 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
         const uint32_t vs[5] = {v.x, v.y, v.z, v.w, src[4]};
 #pragma unroll
         for (int q = 0; q < 5; ++q) {
-          // 16-bit fields cannot carry: every field sums to <= L = 128,
-          // and the flags of word 4 to <= 4 << 16
+          // 16-bit fields cannot carry: every field sums to <= L <= 256,
+          // and the flags of word 4 to <= NW << 16
           tot[q] += vs[q];
           pre[q] += w < warp ? vs[q] : 0u;
         }
@@ -395,51 +425,110 @@ __global__ void __launch_bounds__(32 * NW) rans_drain_kernel(
     if (valid) orow[idx] = static_cast<int32_t>(value);
   }
   cp_async_wait_all();
-  state_io[static_cast<size_t>(b) * L + t] = state;
+  if (live) state_io[static_cast<size_t>(b) * L + t] = state;
   if (t == 0) ptr_io[b] = ptr;
 }
 
-// Shared memory of one CTA: the payload ring, the CDF table, the row
-// offsets and the coarse slot index.  The ring holds the words a slow
-// thread may still read (10 L behind the pointer), the words ahead of the
-// pointer and one more segment: rlen >= 10 L + 10 L kLead + 4 L.
-size_t drain_smem(int L, int nrows, int row_len, int* rlen) {
+// Shared memory of one CTA: the payload ring and, on the shared route, the
+// CDF table, the row offsets and the coarse slot index.  The ring holds the
+// words a slow thread may still read (10 L behind the pointer), the words
+// ahead of the pointer and one more segment of 4 NT: rlen >= 10 L +
+// 10 L kLead + 4 NT.
+size_t drain_smem(int L, int nt, int nrows, int row_len, bool global, int* rlen) {
   int r = 1;
-  while (r < (10 + 10 * kLead + 4) * L) r <<= 1;
+  while (r < (10 + 10 * kLead) * L + 4 * nt) r <<= 1;
   *rlen = r;
-  const size_t words = static_cast<size_t>(r) + static_cast<size_t>(nrows) * (row_len + 1);
-  return words * sizeof(int32_t) + static_cast<size_t>(nrows) * kIdxLen * sizeof(uint32_t);
+  size_t words = static_cast<size_t>(r);
+  if (!global)
+    words += static_cast<size_t>(nrows) * (row_len + 1) + static_cast<size_t>(nrows) * kIdxLen;
+  return words * sizeof(int32_t);
 }
 
-template <int NW>
+// The shared memory a CTA may take on sm_90 (227 KB), static and dynamic.
+constexpr size_t kSmemPerBlock = 232448;
+
+// The kernel's static shared arrays at nt threads (NW = nt / 32): s_main,
+// s_esc, s_fb, s_fb_kmax, s_rows, s_needs.
+size_t static_smem(int nt) {
+  const size_t nw = static_cast<size_t>(nt) / 32;
+  return (2 * nw + 2 * nw * 8 + nw + 1 + static_cast<size_t>(kRowSlots) * nt) * 4 + 8 * 16 * 2;
+}
+
+// 0: the table in shared memory, 1: in device memory; by whether the table
+// fits beside the ring and the static arrays (the 64-row table does at
+// L <= 128, not at 256; the 1,024-row table never does).
+int table_route(int L, int nrows, int row_len) {
+  int rlen = 0;
+  const int nt = L < 32 ? 32 : L;
+  return drain_smem(L, nt, nrows, row_len, false, &rlen) + static_smem(nt) <= kSmemPerBlock
+             ? 0 : 1;
+}
+
+template <int NW, bool kGlobal>
 int launch(const void* rows, const void* payload, void* state, void* ptr, void* out,
            const void* cdf, const void* offsets, const void* slot_idx, int B, int S, int s_tot,
-           int W, int nrows, int row_len, cudaStream_t stream) {
+           int W, int L, int nrows, int row_len, cudaStream_t stream) {
   int rlen = 0;
-  const size_t smem = drain_smem(32 * NW, nrows, row_len, &rlen);
+  const size_t smem = drain_smem(L, 32 * NW, nrows, row_len, kGlobal, &rlen);
   const cudaError_t e = cudaFuncSetAttribute(
-      rans_drain_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      rans_drain_kernel<NW, kGlobal>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  rans_drain_kernel<NW><<<B, 32 * NW, smem, stream>>>(
+  rans_drain_kernel<NW, kGlobal><<<B, 32 * NW, smem, stream>>>(
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(payload),
       static_cast<uint32_t*>(state), static_cast<int32_t*>(ptr), static_cast<int32_t*>(out),
       static_cast<const int32_t*>(cdf), static_cast<const int32_t*>(offsets),
-      static_cast<const uint32_t*>(slot_idx), S, s_tot, W, nrows, row_len, rlen);
+      static_cast<const uint32_t*>(slot_idx), S, s_tot, W, L, nrows, row_len, rlen);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kGlobal>
+int launch_lanes(const void* rows, const void* payload, void* state, void* ptr, void* out,
+                 const void* cdf, const void* offsets, const void* slot_idx, int B, int S,
+                 int s_tot, int W, int L, int nrows, int row_len, cudaStream_t stream) {
+#define RANS_DRAIN_LAUNCH(NW)                                                                   \
+  launch<NW, kGlobal>(rows, payload, state, ptr, out, cdf, offsets, slot_idx, B, S, s_tot, W, \
+                      L, nrows, row_len, stream)
+  switch (L) {
+    case 8: case 16: case 32: return RANS_DRAIN_LAUNCH(1);
+    case 64: return RANS_DRAIN_LAUNCH(2);
+    case 128: return RANS_DRAIN_LAUNCH(4);
+    case 256: return RANS_DRAIN_LAUNCH(8);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RANS_DRAIN_LAUNCH
+}
+
+bool takes(int L, int nrows, int row_len) {
+  const bool lanes = L == 8 || L == 16 || L == 32 || L == 64 || L == 128 || L == 256;
+  return lanes && row_len >= 3 && row_len <= 256 && nrows > 0;
 }
 
 }  // namespace
 
+// Which route a shape takes: 0 the table in shared memory, 1 in device
+// memory, -1 a shape the kernel does not take.  The wrapper asks once per
+// coder and passes the answer to every launch.
+extern "C" int rans_drain_route(int L, int nrows, int row_len) {
+  return takes(L, nrows, row_len) ? table_route(L, nrows, row_len) : -1;
+}
+
 // Plain C entry point, loaded with ctypes.  Launches on `stream` and
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
-// shape it does not take: L = 128 lanes, rows of at most 256 entries (the
-// slot index holds a byte).
+// shape it does not take: L in {8, 16, 32, 64, 128, 256} lanes, rows of at
+// most 256 entries (the slot index holds a byte), `route` 0 or 1, as
+// rans_drain_route gives it (route 0 on a table too large for shared
+// memory fails in cudaFuncSetAttribute).
 extern "C" int rans_drain_launch(
     const void* rows, const void* payload, void* state, void* ptr, void* out,
     const void* cdf, const void* offsets, const void* slot_idx, int B, int S,
-    int s_tot, int W, int L, int nrows, int row_len, void* stream) {
-  if (L != 128 || row_len < 3 || row_len > 256 || nrows <= 0)
+    int s_tot, int W, int L, int nrows, int row_len, int route, void* stream) {
+  if (!takes(L, nrows, row_len) || (route != 0 && route != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<4>(rows, payload, state, ptr, out, cdf, offsets, slot_idx, B, S, s_tot, W, nrows,
-                   row_len, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 0)
+    return launch_lanes<false>(rows, payload, state, ptr, out, cdf, offsets, slot_idx, B, S,
+                               s_tot, W, L, nrows, row_len, st);
+  return launch_lanes<true>(rows, payload, state, ptr, out, cdf, offsets, slot_idx, B, S,
+                            s_tot, W, L, nrows, row_len, st);
 }

@@ -1,25 +1,38 @@
-"""The codec core, charm family: the classic dual hyper (``source_net``,
-``source_net_wam``), the ELIC hyper (``net_ga``) and the decodable U-Net
-hyper (``net_unet_ha_hs_dec``), with or without the SWAtten slice stacks.
+"""The codec core: the charm family (ChARM slices or the entroformer
+checkerboard context) and the neural-syntax family, NCHW.
 
-Counterpart of ``lic_tpu/models/codec.py``: ``_CharmSliceStack``
-(``:73-85``), the hyper branches (``:141-162``, ``_hyper_forward``
-``:437-479``), ``_forward_charm`` in eval and training mode
-(``:481-575``), ``entropy_aux_loss`` (``:752-758``) and the sub-passes
-``ChannelCoder`` calls (``:589-649``).  NCHW throughout.
+Counterpart of ``lic_tpu/models/codec.py``:
+
+* charm — the classic dual hyper (``source_net``, ``source_net_wam``), the
+  ELIC hyper (``net_ga``, ``entroformer_cb*``) and the decodable U-Net
+  hyper (``net_unet_ha_hs_dec``); ``_CharmSliceStack`` (``:73-85``), the
+  hyper branches (``:141-162``, ``_hyper_forward`` ``:437-479``),
+  ``_forward_charm`` in eval and training mode (``:481-575``) and the
+  sub-passes ``ChannelCoder`` calls (``:589-649``);
+* the entroformer context (``context='entroformer'``): ``entro_context``
+  (``:178-196``), ``_entroformer_entropy`` (``:698-750``: two
+  checkerboard passes, anchors from the hyper alone, then the non-anchors
+  seeing the decoded anchors) and its sub-passes ``entro_predict`` /
+  ``entro_embed_hyper`` (``:681-694``);
+* neural syntax (``family='neural_syntax'``, ``:122-134``,
+  ``_forward_neural_syntax`` ``:365-433``): the latent splits into M
+  syntax and N − M content channels; z2 rides a learned per-channel
+  N(0, |σ_z2|), the content ``PredictionModelContext`` over causal
+  patches, the syntax vector ``PredictionModelSyntax``; sub-passes
+  ``ns_*`` (``:660-679``).
 
 The training forward is the eval one with U(-½, ½) noise in the
-likelihoods of z and of each y slice (the STE-rounded values still feed
-the decoders, as in the JAX package).  Every noise tensor is drawn through
-one ``noise_fn(shape, dtype, device)``, five per charm forward: z, then
-slices 0-3.
+likelihoods (the rounded values still feed the decoders, as in the JAX
+package).  Every noise tensor is drawn through one ``noise_fn(shape,
+dtype, device)``, in the JAX package's order: charm, z then slices 0-3;
+entroformer, z then y; neural syntax, z2, content, syntax.
 
 The charm configs also build a ``PredictionModelSyntax`` that no charm
 forward calls (``config.py:88``, ``codec.py:115-119``); it is not part of
-the model, ``utils.params`` skips its subtree, and ``utils.checkpoint``
-carries it in the ``.npz`` files.  The other hypers and families, gain
-units, ``stop_base_grad`` and the HAN tail raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+a charm model, ``utils.params`` skips its subtree there, and
+``utils.checkpoint`` carries it in the ``.npz`` files.  The other hypers,
+gain units, ``stop_base_grad`` and the HAN tail raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -31,10 +44,12 @@ import torch
 from torch import nn
 
 from ..config import CodecConfig
-from ..entropy import EntropyBottleneck, GaussianConditional
+from ..entropy import EntropyBottleneck, GaussianConditional, GaussianModel
+from ..entropy.context import PredictionModelContext
 from ..layers import Conv2d, SWAtten, gelu
+from ..layers.entroformer import EntroformerConfig, EntroformerContext, anchor_map
 from ..ops import bypass_round, quantize_ste_offset, ste_round, uniform_noise
-from ..ops.rounding import NoiseFn
+from ..ops.rounding import NoiseFn, additive_noise
 from .hyper import (
     ClassicHyperAnalysis,
     ClassicHyperSynthesis,
@@ -43,7 +58,7 @@ from .hyper import (
     ElicHyperSynthesis,
     UnetHyperAnalysis,
 )
-from .syntax import ConvGenerator, SyntaxModel, batch_conv
+from .syntax import ConvGenerator, PredictionModelSyntax, SyntaxModel, batch_conv
 from .transforms import AnalysisTransform, SynthesisTransform
 
 
@@ -64,20 +79,25 @@ def _bpp(likelihood: torch.Tensor, num_pixels: int) -> torch.Tensor:
 
 def check_supported(cfg: CodecConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not carry yet."""
+    charm = cfg.family == "charm"
+    if cfg.family not in ("charm", "neural_syntax"):
+        raise ValueError(f"unknown codec family {cfg.family!r}")
     gaps = [
-        (cfg.family != "charm", f"family {cfg.family!r} (ROADMAP A15)"),
         (cfg.transform not in ("plain", "plain_wam", "rich"),
          f"transform {cfg.transform!r} (ROADMAP A16)"),
-        (cfg.hyper not in ("classic_dual", "elic", "unet_dec"),
+        (charm and cfg.hyper not in ("classic_dual", "elic", "unet_dec"),
          f"hyper {cfg.hyper!r} (ROADMAP A16)"),
-        (cfg.hyper == "unet_dec" and not cfg.shared_hyper_decoder,
+        (charm and cfg.hyper == "unet_dec" and not cfg.shared_hyper_decoder,
          "two separate U-Net hyper decoders (ROADMAP A16)"),
-        (cfg.context != "charm", f"context {cfg.context!r} (ROADMAP A14)"),
+        (charm and cfg.context not in ("charm", "entroformer"),
+         f"context {cfg.context!r}"),
         (cfg.syntax not in ("basic", "wam") or not cfg.syntax_decoder,
          f"syntax {cfg.syntax!r} without its decoder (ROADMAP A16)"),
+        (not charm and not cfg.code_syntax, "neural syntax without code_syntax"),
         (cfg.post_processing, "the HAN post-processing tail (ROADMAP A16)"),
         (cfg.gain_units > 0, "gain units (ROADMAP A16)"),
-        (not cfg.lrp, "charm without LRP (ROADMAP A16)"),
+        (charm and cfg.context == "charm" and not cfg.lrp,
+         "charm without LRP (ROADMAP A16)"),
     ]
     for missing, what in gaps:
         if missing:
@@ -106,10 +126,16 @@ class CodecModel(nn.Module):
         self.cfg = cfg
         N, M = cfg.N, cfg.M
         g = generator
+        self.is_ns = cfg.family == "neural_syntax"
+        self.is_entro = not self.is_ns and cfg.context == "entroformer"
         self.g_a = AnalysisTransform(N, cfg.transform, generator=g)
-        self.g_s = SynthesisTransform(N, M, cfg.transform, generator=g)
+        self.g_s = SynthesisTransform(N, M, cfg.transform, in_channels=cfg.content_channels,
+                                      generator=g)
         self.syntax_model = SyntaxModel(M, M, cfg.syntax, generator=g)
         self.conv_weights_gen = ConvGenerator(M, M, generator=g)
+        if self.is_ns:
+            self._init_neural_syntax(g)
+            return
         if cfg.hyper == "classic_dual":
             self.h_a = ClassicHyperAnalysis(N, generator=g)
             self.h_mean_s = ClassicHyperSynthesis(N, generator=g)
@@ -126,6 +152,16 @@ class CodecModel(nn.Module):
             z_channels = 512
         self.entropy_bottleneck = EntropyBottleneck(z_channels, generator=g)
         self.gaussian_conditional = GaussianConditional()
+        if self.is_entro:
+            ed = cfg.entro_dim_mult * N
+            self.entro_context = EntroformerContext(
+                N, 2 * N, "checkerboard",
+                EntroformerConfig(dim=ed, num_layers=cfg.entro_layers,
+                                  num_heads=cfg.entro_heads,
+                                  dim_head=ed // cfg.entro_heads,
+                                  attn_topk=cfg.entro_topk),
+                generator=g)
+            return
 
         ns = cfg.num_slices
         sc = N // ns
@@ -150,6 +186,21 @@ class CodecModel(nn.Module):
             _CharmSliceStack(N + sc * (n_sup[i] + 1), sc, g) for i in range(ns)
         )
 
+    def _init_neural_syntax(self, g):
+        """The neural-syntax modules (``codec.py:122-134`` and the syntax
+        stream's ``PredictionModelSyntax``)."""
+        cfg = self.cfg
+        N, M = cfg.N, cfg.M
+        self.prediction_model_syntax = PredictionModelSyntax(
+            N, M, 2 * M, "wam" if cfg.syntax == "wam" else "basic", generator=g)
+        self.ha_model = ClassicHyperAnalysis(N, generator=g)
+        self.hs_model = ClassicHyperSynthesis(N, generator=g)
+        # the flax leaf's (1, 1, 1, N) layout
+        self.z2_sigma = nn.Parameter(torch.ones(1, 1, 1, N))
+        self.prediction_model = PredictionModelContext(
+            (N - M) + N, N, 2 * (N - M), generator=g)
+        self.gm = GaussianModel()
+
     def support(self, y_hat_slices: Sequence[torch.Tensor]):
         """The decoded slices slice ``len(y_hat_slices)`` conditions on."""
         k = self.cfg.max_support_slices
@@ -166,7 +217,7 @@ class CodecModel(nn.Module):
         self, x: torch.Tensor, training: bool = False, *,
         noise_fn: Optional[NoiseFn] = None, stop_base_grad: bool = False,
     ) -> CodecOutput:
-        """The charm forward on NCHW ``x`` in [-1, 1]: eval mode, or
+        """The forward on NCHW ``x`` in [-1, 1]: eval mode, or
         ``training`` with the likelihoods' noise drawn by ``noise_fn``
         (default: ``uniform_noise()``, torch's default generator)."""
         if stop_base_grad:
@@ -174,6 +225,8 @@ class CodecModel(nn.Module):
                 "stop_base_grad trains the HAN tail only, which is not ported (ROADMAP A16)")
         if training and noise_fn is None:
             noise_fn = uniform_noise()
+        if self.is_ns:
+            return self._forward_neural_syntax(x, training, noise_fn)
         cfg = self.cfg
         b, _, h, w = x.shape
         num_pixels = b * h * w
@@ -184,6 +237,9 @@ class CodecModel(nn.Module):
         z_hat = quantize_ste_offset(z, self.eb_medians()[None, :, None, None])
         latent_scales, latent_means = self.hyper_decode(z_hat)
         syntax_rounded = self.syntax_from_latent(z3)
+        if self.is_entro:
+            return self._entroformer_entropy(x, z3, latent_scales, latent_means, z_lik,
+                                             syntax_rounded, training, noise_fn)
 
         y_hat_slices, y_liks, mus, sigmas = [], [], [], []
         for i, y_slice in enumerate(z3.chunk(cfg.num_slices, dim=1)):
@@ -219,9 +275,74 @@ class CodecModel(nn.Module):
             },
         )
 
+    def _entroformer_entropy(self, x, z3, latent_scales, latent_means, z_lik,
+                             syntax_rounded, training, noise_fn) -> CodecOutput:
+        """Checkerboard entropy coding of y: anchors from the hyper alone,
+        non-anchors from the anchors rounded about their μ; each pass runs
+        the context once (``run``, as the JAX codec calls ``_run``)."""
+        b, _, h, w = x.shape
+        hyper = torch.cat([latent_scales, latent_means], dim=1)
+        anchor = anchor_map(z3.shape[2], z3.shape[3], z3)
+        ctx = self.entro_context
+        mu1, s1 = ctx.run(torch.zeros_like(z3), hyper, None)
+        mu2, s2 = ctx.run((ste_round(z3 - mu1) + mu1) * anchor, hyper, None)
+        mu = anchor * mu1 + (1 - anchor) * mu2
+        sigma = anchor * s1 + (1 - anchor) * s2
+        _, y_lik = self.gaussian_conditional(z3, sigma, mu, training, noise_fn)
+        y_hat = ste_round(z3 - mu) + mu
+        x_tilde = self._decode_tail(self.g_s(y_hat), syntax_rounded)
+        num_pixels = b * h * w
+        bpp_y = _bpp(y_lik, num_pixels)
+        bpp_z = (_bpp(z_lik, num_pixels) if self.cfg.count_hyper_bpp
+                 else torch.zeros((), device=x.device))
+        return CodecOutput(
+            x_tilde=x_tilde, bpp=bpp_y + bpp_z, mse=torch.mean((x_tilde - x) ** 2),
+            bpp_y=bpp_y, bpp_z=bpp_z, bpp_syntax=torch.zeros((), device=x.device),
+            extras={"y_hat": y_hat, "means": mu, "scales": sigma},
+        )
+
+    def _forward_neural_syntax(self, x, training, noise_fn) -> CodecOutput:
+        M = self.cfg.M
+        b, _, h, w = x.shape
+        num_pixels = b * h * w
+        z3 = self.g_a(x)
+        z2 = self.ha_model(z3)
+        h2 = self.hs_model(bypass_round(z2))
+        syntax = self.syntax_model(z3[:, :M])
+        syntax_rounded = bypass_round(syntax)
+        content = z3[:, M:]
+        content_rounded = bypass_round(content)
+        if training:
+            # the JAX package's three draws, in its order
+            z2_in = additive_noise(z2, noise_fn)
+            content_in = additive_noise(content, noise_fn)
+            syntax_in = additive_noise(syntax, noise_fn)
+        else:
+            z2_in, content_in, syntax_in = bypass_round(z2), content_rounded, syntax_rounded
+        # |σ| with a floor, as the wavefront coder's pmf (ns_z2_sigma)
+        z2_scale = self.ns_z2_sigma()[None, :, None, None]
+        z2_lik = self.gm(z2_in, z2_scale, torch.zeros_like(z2_scale))
+        mu_c, sigma_c = self.prediction_model(content_rounded, h2, masked=True)
+        content_lik = self.gm(content_in, sigma_c, mu_c)
+        mu_s, sigma_s = self.prediction_model_syntax(h2)
+        syntax_lik = self.gm(syntax_in, sigma_s, mu_s)
+        x_tilde = self._decode_tail(self.g_s(content_rounded), syntax_rounded)
+
+        bpp_z = _bpp(z2_lik, num_pixels)
+        bpp_y = _bpp(content_lik, num_pixels)
+        bpp_s = _bpp(syntax_lik, num_pixels)
+        return CodecOutput(
+            x_tilde=x_tilde, bpp=bpp_z + bpp_y + bpp_s, mse=torch.mean((x_tilde - x) ** 2),
+            bpp_y=bpp_y, bpp_z=bpp_z, bpp_syntax=bpp_s,
+            extras={"y_hat": content_rounded, "syntax": syntax_rounded,
+                    "content_mu": mu_c, "content_sigma": sigma_c},
+        )
+
     def entropy_aux_loss(self) -> torch.Tensor:
-        """The EntropyBottleneck's quantile loss (every hyper this port
-        carries has one)."""
+        """The EntropyBottleneck's quantile loss; 0 for the neural-syntax
+        family, which has none."""
+        if self.is_ns:
+            return torch.zeros((), device=self.z2_sigma.device)
         return self.entropy_bottleneck.aux_loss()
 
     # ------------------------------------------------ bitstream sub-passes
@@ -271,3 +392,37 @@ class CodecModel(nn.Module):
     def synthesize(self, y_hat: torch.Tensor, syntax_rounded: torch.Tensor):
         """y_hat (+ syntax vector (B, M, 1, 1)) → reconstruction."""
         return self._decode_tail(self.g_s(y_hat), syntax_rounded)
+
+    # ------------------------------------- entroformer checkerboard passes
+
+    def entro_embed_hyper(self, latent_scales, latent_means) -> torch.Tensor:
+        """The hyper features embedded once for both passes: (B, H·W, D)."""
+        return self.entro_context.embed_hyper(torch.cat([latent_scales, latent_means], dim=1))
+
+    def entro_predict(self, y_in, latent_scales, latent_means, h_emb=None):
+        """One checkerboard pass: (μ, σ) given the decoded latent ``y_in``
+        (zeros where unknown) and the hyper (or ``h_emb``)."""
+        hyper = None if h_emb is not None else torch.cat([latent_scales, latent_means], dim=1)
+        return self.entro_context.run(y_in, hyper, None, h_emb=h_emb)
+
+    # ------------------------------------ neural-syntax wavefront passes
+
+    def ns_hyper_encode(self, z3: torch.Tensor) -> torch.Tensor:
+        """z3 → z2 (unrounded; the symbols are round(z2))."""
+        return self.ha_model(z3)
+
+    def ns_hyper_decode(self, z2_int: torch.Tensor) -> torch.Tensor:
+        """Integer ẑ2 → hyper features h2."""
+        return self.hs_model(z2_int)
+
+    def ns_z2_sigma(self) -> torch.Tensor:
+        """max(|σ_z2|, 1e-4), (N,)."""
+        return torch.clamp(torch.abs(self.z2_sigma), min=1e-4)[0, 0, 0]
+
+    def ns_syntax_params(self, h2: torch.Tensor):
+        """(μ, σ) of the syntax vector, each (B, M, 1, 1)."""
+        return self.prediction_model_syntax(h2)
+
+    def ns_context_head(self, merged: torch.Tensor):
+        """(μ, σ) from prebuilt (P, C_y + C_h, 4, 4) context patches."""
+        return self.prediction_model.head(merged)

@@ -1,5 +1,6 @@
-"""Preset table of the port: the ``source_net``, ``source_net_wam``,
-``net_ga`` and ``net_unet_ha_hs_dec`` rows, built from the port's
+"""Preset table of the port: the ``neural_syntax``, ``source_net``,
+``source_net_wam``, ``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``
+and ``entroformer_cb_full`` rows, built from the port's
 ``config.CodecConfig``.
 
 Each row must equal ``lic_tpu.models.presets.PRESETS[name]``; a test holds
@@ -17,6 +18,17 @@ from ..config import CodecConfig
 from .codec import CodecModel
 
 PRESETS: Dict[str, CodecConfig] = {
+    # model/net.py — the original neural-syntax model: plain GDN
+    # transforms, classic hyper, PredictionModel_Context, no tanh after
+    # the syntax conv
+    "neural_syntax": CodecConfig(
+        family="neural_syntax",
+        transform="plain",
+        hyper="classic",
+        syntax="basic",
+        tanh_after_syntax=False,
+        code_syntax=True,
+    ),
     # model/source_net.py — plain GDN transforms, classic dual hyper +
     # EntropyBottleneck, 4-slice ChARM with LRP, no SWAtten
     "source_net": CodecConfig(
@@ -53,19 +65,37 @@ PRESETS: Dict[str, CodecConfig] = {
         swatten=True,
         syntax="wam",
     ),
+    # the Entroformer path the reference implies but never ships: the
+    # checkerboard masked-attention context over y, ELIC hyper
+    "entroformer_cb": CodecConfig(
+        family="charm",
+        transform="plain",
+        hyper="elic",
+        context="entroformer",
+        syntax="basic",
+    ),
+    # the reference-sized Entroformer context: 6 layers, 6 heads of 64,
+    # dim 2N = 384
+    "entroformer_cb_full": CodecConfig(
+        family="charm",
+        transform="plain",
+        hyper="elic",
+        context="entroformer",
+        syntax="basic",
+        entro_layers=6,
+        entro_heads=6,
+        entro_dim_mult=2,
+    ),
 }
 
 # the JAX package's other presets → the ROADMAP item that ports each
 NOT_YET_PORTED: Dict[str, str] = {
-    "neural_syntax": "A15",
     "net_ha": "A16",
     "net_unet_ha_hs": "A16",
     "net_unet_ha_hs_1": "A16",
     "net_unet": "A16",
     "net_unet_1": "A16",
     "net_unet_005_5": "A16",
-    "entroformer_cb": "A14",
-    "entroformer_cb_full": "A14",
     "source_net_vr": "A16",
 }
 

@@ -9,10 +9,12 @@
   the decoder's final 1x1 conv, with the JAX package's head init.
 * ``batch_conv`` — the per-image generated 1x1 conv, one batched einsum
   (the JAX package, too, computes it outside any Pallas kernel).
-* ``PredictionModelSyntax`` — the parameters of the JAX module
-  (``lic_tpu/models/syntax.py:128-156``), which the charm configs build but
-  no charm forward calls; the port's ``CodecModel`` leaves it out, and
-  ``utils.checkpoint`` uses it only for that subtree of the ``.npz`` files.
+* ``PredictionModelSyntax`` — hyper features → pooled pyramid → FC →
+  (μ, σ = exp) of the syntax vector (``lic_tpu/models/syntax.py:128-156``):
+  the neural-syntax family codes its syntax stream with it.  The charm
+  configs build it too, but no charm forward calls it: there the port's
+  ``CodecModel`` leaves it out, and ``utils.checkpoint`` uses it only for
+  that subtree of the ``.npz`` files.
 """
 
 from __future__ import annotations
@@ -114,19 +116,28 @@ def batch_conv(weights: torch.Tensor, inputs: torch.Tensor) -> torch.Tensor:
 
 
 class PredictionModelSyntax(nn.Module):
-    """The parameters of the JAX package's ``PredictionModelSyntax``
-    (``down0``, ``down1``, the ``'wam'`` gate, ``fc``; flax names and
-    inits).  No charm forward calls it, so it has no forward here:
-    ``utils.checkpoint`` writes its init where a model loaded no such
-    subtree, so that every ``.npz`` the port writes loads into the JAX
-    package strictly."""
+    """Hyper features → (μ, σ) of the syntax vector, each (B, outdim/2,
+    1, 1): ``down0``, ``down1`` (3×3 stride 2, ReLU), the ``'wam'`` gate,
+    the pooled pyramid and ``fc`` (flax names and inits).  Returns the
+    intended (μ, σ), not the reference's swapped unpack."""
 
-    def __init__(self, dim: int, outdim: int, variant: str = "basic", *,
+    def __init__(self, in_dim: int, dim: int, outdim: int, variant: str = "basic", *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
-        self.down0 = Conv2d(dim, dim, 3, 2, 1, generator=g)
+        self.down0 = Conv2d(in_dim, dim, 3, 2, 1, generator=g)
         self.down1 = Conv2d(dim, dim, 3, 2, 1, generator=g)
         if variant == "wam":
             self.wam = WinNoShiftAttention(dim, 8, 4, 2, generator=g)
-        self.fc = Linear(3 * dim, outdim, generator=g)
+        self.fc = Linear(in_dim + 2 * dim, outdim, generator=g)
+        self.outdim = outdim
+
+    def forward(self, h_tilde: torch.Tensor):
+        b, c = h_tilde.shape[0], self.outdim // 2
+        ds0 = torch.relu(self.down0(h_tilde))
+        ds1 = torch.relu(self.down1(ds0))
+        if hasattr(self, "wam"):
+            ds1 = self.wam(ds1)
+        ctx = torch.cat([_gap(h_tilde), _gap(ds0), _gap(ds1)], dim=1).reshape(b, -1)
+        out = self.fc(ctx)
+        return out[:, :c].reshape(b, c, 1, 1), torch.exp(out[:, c:]).reshape(b, c, 1, 1)

@@ -97,10 +97,13 @@ class AnalysisTransform(nn.Module):
 
 
 class SynthesisTransform(nn.Module):
-    """g_s: N → ``out_channels``, ×16 spatial."""
+    """g_s: ``in_channels`` (default N) → ``out_channels``, ×16 spatial.
+    The neural-syntax family feeds it the N − M content channels (flax
+    infers the width from the input)."""
 
     def __init__(
         self, N: int, out_channels: int, variant: str = "plain", *,
+        in_channels: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -111,7 +114,7 @@ class SynthesisTransform(nn.Module):
         if wam:
             self.wam0 = WinNoShiftAttention(N, 8, 4, 2, generator=g)
         filters = [N, N, N, out_channels]
-        cin = N
+        cin = in_channels or N
         for i, f in enumerate(filters):
             self.add_module(f"up{i}", _Up5(cin, f, g))
             self.add_module(f"igdn{i}", IGDN(f))

@@ -3,6 +3,7 @@ time goes.
 
     python -m lic_tpu_torch.tools.kernel_probe           # on a GPU host
     python -m lic_tpu_torch.tools.kernel_probe --kernel b2   # B2 only
+    python -m lic_tpu_torch.tools.kernel_probe --kernel b1_routes
     python -m lic_tpu_torch.tools.kernel_probe --check   # CPU: sources only
 
 B1: a copy of ``csrc/rans_drain.cu`` with ``clock64`` probes between the
@@ -17,6 +18,14 @@ the products are skipped, the fences and waits kept), timed beside the
 kernel at the largest C = 192 shape (786,432 rows) and on the same bytes
 at C = 96 (one 96-wide N-tile, so each x tile is read by one CTA).  The
 variant's output is wrong by construction; only its time means anything.
+
+B1's table routes (``--kernel b1_routes``): the kernel launched with its
+table in shared memory (the route it takes for these streams) and in
+device memory, timed on the same streams in the order shared, device,
+device, shared (each set's calls threading one decode's state, 5 repeats
+a call): the stress streams, a ``source_net`` and an ``entroformer_cb``
+B=8 512×768 decode, all at L = 128 on the 64-row table.  Both routes must
+give the same bits.
 
 ``--check`` builds nothing: it writes the instrumented sources into
 ``build/probe/`` and fails if a kernel source no longer has the lines the
@@ -163,7 +172,7 @@ def _cuda_ms(fn: Callable, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _drain_sets(dev) -> Dict[str, list]:
+def _drain_sets(dev, presets=("source_net",)) -> Dict[str, list]:
     from .. import coding
     from ..data import smooth_images
     from ..models import build_model
@@ -181,38 +190,84 @@ def _drain_sets(dev) -> Dict[str, list]:
         rows = torch.from_numpy(idx[:, i * s_slice:(i + 1) * s_slice].copy()).to(dev)
         stress.append((ddev, lanes, payt, rows, s_slice))
         lanes, _ = coding.drain_plain(ddev, lanes, payt, rows, s_slice)
-    model = build_model("source_net", device=dev, seed=0)
     x = torch.from_numpy(smooth_images(np.random.default_rng(0), 8, 512, 768)).to(dev)
-    coder = ChannelCoder(model, name="source_net")
-    real = record_drains(coder, coder.compress_batch(x.contiguous(memory_format=torch.channels_last)))
-    return {"stress": stress, "source_net decode": real}
+    x = x.contiguous(memory_format=torch.channels_last)
+    sets = {"stress": stress}
+    for preset in presets:
+        model = build_model(preset, device=dev, seed=0)
+        coder = ChannelCoder(model, name=preset)
+        sets[f"{preset} decode"] = record_drains(coder, coder.compress_batch(x))
+        del model, coder
+    return sets
+
+
+def _raw_drain(lib, call, dev, route=None):
+    """A launch of ``lib``'s ``rans_drain_launch`` on one recorded drain
+    call, on copies of its lane state, on ``route`` (0 shared memory, 1
+    device memory; default: the coder's own).  → (run, (out, state, ptr))."""
+    from ..coding.drain import ROUTES, _slot_index_on
+    from ..coding.drain import route as table_route
+
+    ddev, lanes, payt, rows, s_tot = call
+    if route is None:
+        route = ROUTES.index(table_route(ddev))
+    st = lanes.state
+    state = torch.where(st >= 1 << 31, st - (1 << 32), st).to(torch.int32)
+    ptr = lanes.ptr.to(torch.int32)
+    out = torch.zeros(rows.shape, dtype=torch.int32, device=dev)
+    s2, p2 = state.clone(), ptr.clone()
+    sidx = _slot_index_on(ddev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        s2.copy_(state)
+        p2.copy_(ptr)
+        err = lib.rans_drain_launch(
+            rows.data_ptr(), payt.data_ptr(), s2.data_ptr(), p2.data_ptr(),
+            out.data_ptr(), ddev.cdf_rows.data_ptr(), ddev.offsets.data_ptr(),
+            sidx.data_ptr(), rows.shape[0], rows.shape[1], s_tot, payt.shape[1],
+            ddev.n_lanes, ddev.rows, ddev.row_len, route, stream)
+        if err:
+            raise RuntimeError(f"drain probe launch failed: {err}")
+
+    return run, (out, s2, p2)
+
+
+def probe_routes(dev) -> None:
+    from ..coding import drain
+
+    routes = {"shared": 0, "global": 1}
+    for name, calls in _drain_sets(dev, ("source_net", "entroformer_cb")).items():
+        ms = {r: [] for r in routes}
+        outs = {}
+        for r in ("shared", "global", "global", "shared"):
+            total, res = 0.0, []
+            for call in calls:
+                run, out = _raw_drain(drain.library(), call, dev, routes[r])
+                total += _cuda_ms(run, 5)
+                res.append(out)
+            ms[r].append(total)
+            if r not in outs:
+                outs[r] = res
+        for a, b in zip(outs["shared"], outs["global"]):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"b1 routes: the two routes differ on {name}")
+        sh, gl = sum(ms["shared"]) / 2, sum(ms["global"]) / 2
+        print(f"[b1_routes] streams={name!r} calls={len(calls)} lanes={calls[0][0].n_lanes} "
+              f"table_rows={calls[0][0].rows} symbols={sum(c[4] for c in calls)} "
+              f"shared_ms={ms['shared'][0]:.4f},{ms['shared'][1]:.4f} "
+              f"global_ms={ms['global'][0]:.4f},{ms['global'][1]:.4f} "
+              f"global_over_shared={gl / sh:.4f}", flush=True)
 
 
 def probe_drain(dev) -> None:
-    from ..coding.drain import _slot_index_on
-
     lib = _build(PROBE_DIR / "drain_probe.cu")
-    lib.rans_drain_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream().cuda_stream
+    lib.rans_drain_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     for name, calls in _drain_sets(dev).items():
         ms, cycles, chunks = 0.0, np.zeros(16), 0
-        for ddev, lanes, payt, rows, s_tot in calls:
-            st = lanes.state
-            state = torch.where(st >= 1 << 31, st - (1 << 32), st).to(torch.int32)
-            ptr = lanes.ptr.to(torch.int32)
-            out = torch.zeros(rows.shape, dtype=torch.int32, device=dev)
-            sidx = _slot_index_on(ddev)
-
-            def run():
-                s2, p2 = state.clone(), ptr.clone()
-                err = lib.rans_drain_launch(
-                    rows.data_ptr(), payt.data_ptr(), s2.data_ptr(), p2.data_ptr(),
-                    out.data_ptr(), ddev.cdf_rows.data_ptr(), ddev.offsets.data_ptr(),
-                    sidx.data_ptr(), rows.shape[0], rows.shape[1], s_tot, payt.shape[1],
-                    ddev.n_lanes, ddev.rows, ddev.row_len, stream)
-                if err:
-                    raise RuntimeError(f"drain probe launch failed: {err}")
-
+        for call in calls:
+            ddev, s_tot = call[0], call[4]
+            run, _ = _raw_drain(lib, call, dev)
             ms += _cuda_ms(run, 5)
             buf = (ctypes.c_ulonglong * 16)()
             lib.probe_read(buf)
@@ -254,7 +309,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true",
                     help="write the instrumented sources and stop (no GPU needed)")
-    ap.add_argument("--kernel", choices=("b1", "b2", "both"), default="both")
+    ap.add_argument("--kernel", choices=("b1", "b1_routes", "b2", "both"), default="both")
     args = ap.parse_args()
     paths = _write_sources()
     if args.check:
@@ -269,6 +324,8 @@ def main() -> int:
         probe_drain(dev)
     if args.kernel in ("b2", "both"):
         probe_gdn(dev)
+    if args.kernel == "b1_routes":
+        probe_routes(dev)
     return 0
 
 

@@ -2,30 +2,40 @@
 
     python -m lic_tpu_torch.tools.profile_path [--preset net_unet_ha_hs_dec] [--out build/profile]
 
-``--preset`` (``source_net``, ``source_net_wam``, ``net_ga`` or
-``net_unet_ha_hs_dec``) at full width, random weights from ``--seed``, a
-batch of
-``--batch`` smooth synthetic images of ``--height`` × ``--width``, fp32
-with the coder's numerics flags.  It prints:
+``--preset`` (any preset of the port: ``source_net``, ``source_net_wam``,
+``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``,
+``entroformer_cb_full``, ``neural_syntax``) at full width, random weights
+from ``--seed``, a batch of ``--batch`` smooth synthetic images of
+``--height`` × ``--width``, fp32 with the coder's numerics flags.  It
+prints:
 
 * the card: name, power limit and maximum SM clock from ``nvidia-smi``;
 * ``STAGE`` / ``LAYER`` lines: CUDA-event milliseconds of each stage of the
   eval forward (g_a, the hyper analysis and synthesis, the syntax model,
-  g_s) and of each layer of g_a and g_s (a ``WinNoShiftAttention`` gate is
-  one layer);
-* ``SLICE`` lines, read inside the eval forward itself by CUDA events that
+  g_s; for the entroformer the hyper embedding and each checkerboard
+  pass; for neural syntax the hyper, the syntax vector's parameters and
+  the spatial context) and of each layer of g_a and g_s (a
+  ``WinNoShiftAttention`` gate is one layer);
+* ``SLICE`` lines (ChARM presets), read inside the eval forward itself by
+  CUDA events that
   forward pre- and post-hooks record: the 4-slice ChARM chain from its
   first module to its last LRP stack, and per slice each SWAtten stack
   (where the preset has them), each ChARM conv stack and the LRP stack;
+* ``WAVEFRONT`` lines (neural syntax): the wavefront loop of the encode
+  and of the decode split by CUDA events into the patch gather, context
+  head and scatter, the rows, and the drain (B1; the encode's residuals),
+  summed over the T wavefronts;
 * ``LAUNCHES``: each kernel's launches, and each plain route's calls, in
   one eval forward;
 * for the eval forward and for the roundtrip ``compress_batch`` →
   ``decompress_batch``, each under ``torch.profiler``: the kernels with the
-  most device time, and the device busy share — the union of the intervals
+  most device time (and B1's device time per launch), and the device busy
+  share — the union of the intervals
   in which a kernel, copy or memset ran on the card, over the host wall
   time of the profiled region (and over the span from the first device
   activity to the last);
-* ``PHASES``: host-clock seconds of the roundtrip's phases, unprofiled.
+* ``PHASES``: host-clock seconds of the roundtrip's phases, unprofiled,
+  and the forward's and the roundtrip's megapixels per second.
 
 With ``--tune STEPS`` it profiles content-adaptive encoding instead
 (``evaluation.content_adaptive_finetune`` of the batch's first image,
@@ -48,6 +58,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
+
+from ..models.presets import PRESETS
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -170,6 +182,10 @@ def _profiled(label: str, fn, iters: int, out_dir: str, top: int) -> None:
     for name, (t, n) in act["kernels"][:top]:
         print(f"  {t / iters / 1e3:9.3f} ms/iter {100 * t / kernel_us:5.1f}%  "
               f"x{n // iters:<4d} {name[:100]}")
+    for name, (t, n) in act["kernels"]:
+        if "rans_drain" in name:  # B1, in or out of the top
+            print(f"  B1 {t / iters / 1e3:.4f} ms/iter in {n // iters} launches "
+                  f"({t / n:.2f} us each): {name[:80]}")
 
 
 def _tune_profile(model, x1, steps: int, out_dir: str, top: int = 15) -> None:
@@ -216,13 +232,86 @@ def _counters() -> dict:
             "conv5s2": conv_direct.conv5s2, "convk_s1": conv_direct.convk_s1,
             "wba": window_attn.window_attention,
             "wba_proj": window_attn.window_attention_proj,
-            "wba_plain_route": win_attention.wba_plain_route, "drain": drain.rans_drain}
+            "wba_plain_route": win_attention.wba_plain_route,
+            "drain": drain.table_routes["smem"], "drain_global": drain.table_routes["global"]}
+
+
+def _stages(model, x, out) -> Dict[str, object]:
+    """The eval forward's stages as callables, by family."""
+    from ..layers.entroformer import anchor_map
+
+    y_hat = out.extras["y_hat"]
+    z3 = model.analyze(x)
+    syn = model.syntax_from_latent(z3)
+    stages = {"forward": lambda: model(x), "g_a": lambda: model.analyze(x)}
+    if model.is_ns:
+        z2_int = torch.round(model.ns_hyper_encode(z3))
+        h2 = model.ns_hyper_decode(z2_int)
+        stages.update({
+            "ha_model": lambda: model.ns_hyper_encode(z3),
+            "hs_model": lambda: model.ns_hyper_decode(z2_int),
+            "syntax": lambda: model.syntax_from_latent(z3),
+            "syntax (μ, σ)": lambda: model.ns_syntax_params(h2),
+            "context": lambda: model.prediction_model(y_hat, h2, masked=True),
+        })
+    else:
+        med = model.eb_medians()[None, :, None, None]
+        z_hat = torch.round(model.hyper_encode(z3) - med) + med
+        scales, means = model.hyper_decode(z_hat)
+        stages.update({
+            "h_a": lambda: model.hyper_encode(z3),
+            "h_s (both)": lambda: model.hyper_decode(z_hat),
+            "syntax": lambda: model.syntax_from_latent(z3),
+        })
+        if model.is_entro:
+            h_emb = model.entro_embed_hyper(scales, means)
+            y_in = y_hat * anchor_map(y_hat.shape[2], y_hat.shape[3], y_hat)
+            stages.update({
+                "entro embed": lambda: model.entro_embed_hyper(scales, means),
+                "entro anchors": lambda: model.entro_predict(
+                    torch.zeros_like(y_hat), scales, means, h_emb),
+                "entro non-anchors": lambda: model.entro_predict(y_in, scales, means, h_emb),
+            })
+    stages.update({"g_s": lambda: model.g_s(y_hat),
+                   "synthesize": lambda: model.synthesize(y_hat, syn)})
+    return stages
+
+
+def _wavefront_split(coder, x, blobs) -> None:
+    """``WAVEFRONT`` lines: the encode's and the decode's wavefront loops
+    split by CUDA events after each step's head, rows and drain."""
+    names = ("gather+head+scatter", "rows", "drain")
+    real = coder._wavefronts
+    for label, run in (("encode", lambda: coder.compress_batch(x)),
+                       ("decode", lambda: coder.decompress_batch(blobs))):
+        events = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        def timed(*a, **k):
+            mark("start")
+            return real(*a, stage=mark, **k)
+
+        coder._wavefronts = timed
+        try:
+            run()
+        finally:
+            coder._wavefronts = real
+        _sync()
+        sums = [0.0, 0.0, 0.0]
+        for i in range(1, len(events)):
+            sums[(i - 1) % 3] += events[i - 1].elapsed_time(events[i])
+        steps = (len(events) - 1) // 3
+        print(f"WAVEFRONT {label}: {steps} steps, " + ", ".join(
+            f"{n} {t:.3f} ms ({t / steps * 1e3:.1f} us/step)" for n, t in zip(names, sums)))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="source_net",
-                    choices=("source_net", "source_net_wam", "net_ga", "net_unet_ha_hs_dec"))
+    ap.add_argument("--preset", default="source_net", choices=tuple(PRESETS))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--width", type=int, default=768)
@@ -262,26 +351,17 @@ def main() -> None:
         coder.decompress_batch(coder.compress_batch(x))
         _sync()
         y_hat = out.extras["y_hat"]
-        z3 = model.analyze(x)
-        med = model.eb_medians()[None, :, None, None]
-        z_hat = torch.round(model.hyper_encode(z3) - med) + med
-        syn = model.syntax_from_latent(z3)
-        stages = {
-            "forward": lambda: model(x),
-            "g_a": lambda: model.analyze(x),
-            "h_a": lambda: model.hyper_encode(z3),
-            "h_s (both)": lambda: model.hyper_decode(z_hat),
-            "syntax": lambda: model.syntax_from_latent(z3),
-            "g_s": lambda: model.g_s(y_hat),
-            "synthesize": lambda: model.synthesize(y_hat, syn),
-        }
-        for name, fn in stages.items():
-            print(f"STAGE {name:12s} {_cuda_ms(fn):9.3f} ms")
-        sl = _hooked_ms(model, x, _slice_spans(model))
-        print(f"SLICE chain {sl.pop('chain'):.3f} ms (inside the forward)")
-        for i in range(model.cfg.num_slices):
-            print(f"SLICE {i} " + " ".join(f"{k.split()[1]}={v:.3f}" for k, v in sl.items()
-                                          if k.startswith(f"{i} ")) + " ms")
+        mp = x.shape[0] * x.shape[2] * x.shape[3] / 1e6
+        for name, fn in _stages(model, x, out).items():
+            ms = _cuda_ms(fn)
+            print(f"STAGE {name:18s} {ms:9.3f} ms"
+                  + (f"  {mp / ms * 1e3:.2f} MP/s" if name == "forward" else ""))
+        if not (model.is_ns or model.is_entro):
+            sl = _hooked_ms(model, x, _slice_spans(model))
+            print(f"SLICE chain {sl.pop('chain'):.3f} ms (inside the forward)")
+            for i in range(model.cfg.num_slices):
+                print(f"SLICE {i} " + " ".join(f"{k.split()[1]}={v:.3f}" for k, v in sl.items()
+                                              if k.startswith(f"{i} ")) + " ms")
         counters = _counters()
         for fn in counters.values():
             fn.launches = 0
@@ -307,14 +387,26 @@ def main() -> None:
             _sync()
             phases["encode g_a"] = time.perf_counter() - t
             t = time.perf_counter()
-            _, z_hat = coder._z_enc(z3, p)
-            model.syntax_from_latent(z3)
-            _sync()
-            phases["encode hyper+syntax"] = time.perf_counter() - t
-            t = time.perf_counter()
-            coder._slices_pass(z_hat, p, y=z3)
-            _sync()
-            phases["encode slice chain"] = time.perf_counter() - t
+            if model.is_ns:
+                z2 = torch.round(model.ns_hyper_encode(z3))
+                h2, _, _ = coder._ns_hyper(z2.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32), p)
+                model.syntax_from_latent(z3)
+                _sync()
+                phases["encode hyper+syntax"] = time.perf_counter() - t
+                t = time.perf_counter()
+                coder._wavefronts(h2, p, y_known=torch.round(z3[:, model.cfg.M :]).int())
+                _sync()
+                phases["encode wavefronts"] = time.perf_counter() - t
+            else:
+                _, z_hat = coder._z_enc(z3, p)
+                model.syntax_from_latent(z3)
+                _sync()
+                phases["encode hyper+syntax"] = time.perf_counter() - t
+                t = time.perf_counter()
+                coder._slices_pass(z_hat, p, y=z3)
+                _sync()
+                phases["encode checkerboard" if model.is_entro else "encode slice chain"] = (
+                    time.perf_counter() - t)
         t = time.perf_counter()
         blobs = coder.compress_batch(x)
         _sync()
@@ -323,6 +415,10 @@ def main() -> None:
         coder.decompress_batch(blobs)
         _sync()
         phases["decompress_batch"] = time.perf_counter() - t
+    mp = x.shape[0] * x.shape[2] * x.shape[3] / 1e6
+    phases["roundtrip_mps"] = mp / (phases["compress_batch"] + phases["decompress_batch"])
+    if model.is_ns:
+        _wavefront_split(coder, x, blobs)
     print("PHASES (s)", json.dumps(phases))
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

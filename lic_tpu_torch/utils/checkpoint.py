@@ -6,11 +6,12 @@ torch state.
   its path (``"g_a/c0/kernel"``), in the flax layout, so that a file
   written by either package loads into the other.  ``load_params`` is
   strict by default (every leaf present with its shape, as the
-  reference's strict ``load_state_dict``).  The ``PredictionModelSyntax``
-  subtree that the JAX charm models carry and no charm forward reads is
+  reference's strict ``load_state_dict``).  A charm model has no
+  ``PredictionModelSyntax`` (no charm forward reads it); its subtree is
   kept from the file loaded, or, for a model that loaded none, written
   from a seeded init of the port's ``PredictionModelSyntax``, so that the
-  JAX package's strict load takes every file this one writes.
+  files carry the JAX package's whole parameter surface.  A neural-syntax
+  model owns the module, and its leaves are the model's own.
 * ``CheckpointManager`` keeps the trainer's state per epoch with
   ``torch.save``: the model's state dict, both optimizers' state, the
   schedule's count, the step and the noise generator's state.
@@ -30,7 +31,10 @@ from .params import SKIPPED_PREFIX, flax_from_state, flax_leaves, to_torch_layou
 
 def _syntax_subtree(model: nn.Module) -> Dict[str, np.ndarray]:
     """The ``prediction_model_syntax/*`` leaves: those ``load_params``
-    kept, else a seeded init where the config builds the module."""
+    kept, else a seeded init where the config builds the module; none
+    for a model that owns the module (they are among its parameters)."""
+    if hasattr(model, "prediction_model_syntax"):
+        return {}
     kept = getattr(model, "flax_extra", None)
     if kept:
         return dict(kept)
@@ -39,7 +43,7 @@ def _syntax_subtree(model: nn.Module) -> Dict[str, np.ndarray]:
         return {}
     from ..models.syntax import PredictionModelSyntax
 
-    pms = PredictionModelSyntax(cfg.M, 2 * cfg.M, "wam" if cfg.syntax == "wam" else "basic",
+    pms = PredictionModelSyntax(cfg.N, cfg.M, 2 * cfg.M, "wam" if cfg.syntax == "wam" else "basic",
                                 generator=torch.Generator().manual_seed(0))
     return flax_from_state(pms, SKIPPED_PREFIX)
 
@@ -75,7 +79,9 @@ def load_params(path: str, model: nn.Module, strict: bool = True) -> nn.Module:
                 skipped.append(key)
                 continue
             state[skey] = to_torch_layout(module, pname, arr)
-        model.flax_extra = {k: data[k] for k in data.files if k.startswith(SKIPPED_PREFIX)}
+        if not hasattr(model, "prediction_model_syntax"):
+            model.flax_extra = {k: data[k] for k in data.files
+                                if k.startswith(SKIPPED_PREFIX)}
     model.load_state_dict(state)
     if skipped:
         print(f"load_params: kept the model's own value for {len(skipped)} leaves "

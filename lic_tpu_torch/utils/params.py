@@ -15,7 +15,9 @@ conversion applies the inverse of the layout rules of
 * ``nn.Dense`` kernels transposed to torch's ``(out, in)`` (the window
   attention's ``qkv`` and ``proj``, WMSA's ``embedding_layer`` and
   ``linear``, the Swin MLP's ``mlp_fc1``/``mlp_fc2``);
-* ``nn.LayerNorm``'s ``scale`` to torch's ``weight``;
+* ``nn.LayerNorm``'s ``scale`` to torch's ``weight`` (its ``bias`` as is);
+* ``nn.Embed``'s ``embedding`` (the entroformer's
+  ``relative_attention_bias``) to the parameter of that name;
 * every other leaf (GDN β/Γ, entropy-bottleneck tensors, biases, the
   ``relative_position_bias_table``, which keeps the reference's
   ((2ws-1)², nh) layout, and WMSA's (2ws-1, 2ws-1, nh)
@@ -29,7 +31,9 @@ Which rule a leaf takes is read off the port's own module types, on a
 skeleton built on the meta device.  Every state-dict key must be filled
 and every flax leaf used, except the subtree of the
 ``PredictionModelSyntax`` that no charm forward calls (prefix
-``SKIPPED_PREFIX``).
+``SKIPPED_PREFIX``); a neural-syntax model owns that module, and its
+leaves are used like any other.  ``z2_sigma`` keeps the flax (1, 1, 1, N)
+layout.
 """
 
 from __future__ import annotations
@@ -94,6 +98,8 @@ def flax_leaves(skeleton: nn.Module):
         for pname, _ in module.named_parameters(recurse=False):
             if isinstance(module, (Conv2d, ConvTranspose2d, Linear, SubpelConv2d)):
                 key = base + ("kernel" if pname == "weight" else pname)
+            elif pname == "relative_attention_bias":
+                key = base + pname + "/embedding"
             elif isinstance(module, nn.LayerNorm):
                 key = base + ("scale" if pname == "weight" else pname)
             else:

@@ -1,5 +1,5 @@
 """The port's hand-written kernels against their plain versions, on the
-card: B1 (rANS drain), B2 (GDN), B3 (5×5 stride-2 conv), B4/B5 (window
+card: B1 (rANS drain; every lane count and both table routes), B2 (GDN), B3 (5×5 stride-2 conv), B4/B5 (window
 attention, head widths 8, 24 and 48) and B6 (stride-1 conv), and the
 gradients of B2-B6 through their autograd.Functions.  Every test here is
 marked ``cuda`` and skips without CUDA.  fp32 tolerance: atol/rtol 1e-5
@@ -21,10 +21,12 @@ import torch
 from lic_tpu_torch.coding import (
     DeviceRans16Interleaved,
     GaussianCoder,
+    GaussianMuCoder,
     drain_plain,
     random_streams,
     rans_drain,
 )
+from lic_tpu_torch.coding import drain as drain_mod
 from lic_tpu_torch.layers import (
     conv5s2,
     conv5s2_plain,
@@ -164,10 +166,10 @@ def test_drain_kernel_bitexact_vs_plain(cuda_device):
     off = 0
     for m in steps:
         rows = torch.from_numpy(idx[:, off : off + m]).to(cuda_device)
-        before = rans_drain.launches
+        before = drain_mod.table_routes["smem"].launches
         k_lanes, k_dec = rans_drain(dev, k_lanes, payt, rows, m)
         torch.cuda.synchronize()
-        assert rans_drain.launches == before + 1
+        assert drain_mod.table_routes["smem"].launches == before + 1
         p_lanes, p_dec = drain_plain(dev, p_lanes, payt, rows, m)
         assert torch.equal(k_dec, p_dec)
         assert torch.equal(k_lanes.state, p_lanes.state)
@@ -268,6 +270,47 @@ def test_drain_kernel_rejects_payload_without_trailing_zeros(cuda_device):
                    torch.from_numpy(idx).to(cuda_device), 200)
 
 
+@pytest.mark.parametrize("lanes", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("table", ["gaussian", "gaussian_mu"])
+def test_drain_kernel_every_lane_count_and_table_route(cuda_device, lanes, table):
+    """Every lane count the format's coders use, on the 64-row Gaussian
+    table (in shared memory up to 128 lanes, in device memory at 256) and
+    on ``GaussianMuCoder``'s 1,024 rows (always in device memory):
+    stress streams (1 symbol in 17 escaping) and plain ones, calls of
+    p_max·c = 4,224 symbols (a 512×768 wavefront) and of odd sizes
+    threading the state, bit-exact against the plain version; each launch
+    counted once in its route."""
+    coder = GaussianCoder() if table == "gaussian" else GaussianMuCoder()
+    cdfs, offsets = coder.codec.cdfs, coder.codec.offsets
+    steps = [4224, 37, 1, 700]
+    sym, idx, pay, ends = random_streams(
+        cdfs, offsets, [(200 + lanes, True), (300 + lanes, False)], steps, lanes)
+    want = "global" if table == "gaussian_mu" or lanes == 256 else "smem"
+    dev = DeviceRans16Interleaved(cdfs, offsets, lanes, device=cuda_device)
+    assert drain_mod.route(dev) == want
+    payt = torch.from_numpy(pay).to(cuda_device)
+    before = {r: c.launches for r, c in drain_mod.table_routes.items()}
+    lanes_out, dec = _drain_vs_plain(dev, payt, idx, steps)
+    torch.cuda.synchronize()
+    after = {r: c.launches for r, c in drain_mod.table_routes.items()}
+    assert after[want] == before[want] + len(steps)
+    assert sum(after.values()) == sum(before.values()) + len(steps)
+    np.testing.assert_array_equal(dec, sym)
+    assert bool((lanes_out.state == 1 << 16).all())
+    assert lanes_out.ptr.tolist() == ends
+
+
+def test_drain_kernel_rejects_other_lane_counts(cuda_device):
+    (cdfs, offsets), _, idx, pay, _ = _streams(1, [200], seed=83)
+    # zeros past the stream: room for 512 lanes' heads
+    payt = torch.nn.functional.pad(torch.from_numpy(pay), (0, 1024)).to(cuda_device)
+    rows = torch.from_numpy(idx).to(cuda_device)
+    for lanes in (4, 48, 512):
+        dev = DeviceRans16Interleaved(cdfs, offsets, lanes, device=cuda_device)
+        with pytest.raises(ValueError, match=f"L={lanes}"):
+            rans_drain(dev, dev.init_lanes(payt), payt, rows, 200)
+
+
 TOL = 1e-5
 
 
@@ -360,6 +403,27 @@ def test_conv_kernels_at_path_shapes_vs_float64(cuda_device, slot, shape, k):
     b = _randn(g, 192).to(cuda_device)
     fn, plain = (convk_s1, convk_s1_plain) if slot == "convk_s1" else (conv5s2, conv5s2_plain)
     _check_kernel(fn, plain, (x, wt, b), f64=True)
+
+
+def test_convk_s1_kernel_on_2x2_maps(cuda_device):
+    """The neural-syntax context head's c2: C_in 192, 3×3 on 2×2 maps, in
+    a batch of 8·24 = 192 patches (one wavefront step at 512×768) and of
+    12,288 (the forward at B = 8), bias, against float64; its backward
+    against autograd of the plain version."""
+    g = torch.Generator().manual_seed(22)
+    wt = _randn(g, 192, 192, 3, 3, scale=(192 * 9) ** -0.5).to(cuda_device)
+    b = _randn(g, 192).to(cuda_device)
+    for n in (192, 12288):
+        x = _cl(_randn(g, n, 192, 2, 2), cuda_device)
+        _check_kernel(convk_s1, convk_s1_plain, (x, wt, b), f64=True)
+    x = _cl(_randn(g, 192, 192, 2, 2), cuda_device).requires_grad_()
+    w = wt.clone().requires_grad_()
+    cot = _randn(g, 192, 192, 2, 2).to(cuda_device)
+    got = torch.autograd.grad(convk_s1(x, w, b), (x, w), cot)
+    x2, w2 = x.detach().double().requires_grad_(), w.detach().double().requires_grad_()
+    ref = torch.autograd.grad(convk_s1_plain(x2, w2, b.double()), (x2, w2), cot.double())
+    for a, r in zip(got, ref):
+        assert float((a.double() - r).abs().max() / r.abs().max()) < 1e-4
 
 
 def test_conv_kernel_prepack_follows_in_place_weight_update(cuda_device):
