@@ -27,6 +27,11 @@ a batch of 8 synthetic 512×768 images, and checks them:
   1,024-row table in device memory), the context head's 3×3 on 2×2 maps
   in B6;
 
+* [vr] ``source_net_vr`` — ``source_net`` with 4 gain units: the
+  variable-rate path at 8 per-image rates, its rate control, a
+  multi-rate training step and [serve], the dynamic-batching
+  ``CodecService`` under threaded load;
+
 then one ``source_net`` forward in bf16 and one at ``is_high`` (N = 384),
 ``source_net_wam`` at ``is_high`` (head width 48: B4/B5's hd-48
 instantiations), and the training step of ``source_net``,
@@ -154,7 +159,30 @@ Each phase prints one line:
    of two sizes at ``--batch 2``, every file against the eval forward, a
    single-file stream decoded in a directory chunk, MP/s; where PIL
    imports, ``cli.codec.main`` and ``cli.eval.main`` on PNGs it writes
-   (``pil=`` says which).
+   (``pil=`` says which);
+15. [c7] (``source_net``, ``source_net_vr``, the entropy bottleneck's
+   ``factor_i`` woken with seeded values as a trained checkpoint has
+   them): the z-coder's pmf table, quantized CDFs and digest of a coder on
+   the card bit-identical to those of the same weights on the CPU (the
+   digests printed), and a 128×128 stream written on the card decoded by
+   the CPU model within 1e-4 of the card's decode;
+16. [vr] (``source_net_vr``, its EB woken, B = 8 at 512×768): the eval
+   forward at rates 0, 1, 1.5, 2 and 3 (bpp strictly rising); the main
+   path — forward, ``compress_batch`` and ``decompress_batch`` at the
+   per-image rates 0, 0.5, …, 3, 1.25 — with exact launches (those of
+   ``source_net``) and its B2/B3/B6 calls checked in 6-7; every stream
+   against ``compress`` of its image alone at its rate (bytes), the decode
+   within 1e-4 of each image's eval forward at its rate; the forward and
+   roundtrip times; [vr_solve] ``solve_rate_for_bpp`` on one image (its
+   probes, rate and ms); [vr_train] one ``lmbda_list`` training step on
+   4 crops (exact launches and backwards, its shapes into [grad], the
+   drawn unit's ``log_gain`` row taking a gradient);
+17. [serve] ``CodecService(max_batch=8, max_wait_ms=5)`` over that model:
+   24 compress requests from 4 threads at 512×768 and 480×640 with
+   rates cycling through those of [vr], then their 24 decompresses; every
+   stream equals ``compress`` and every decode ``decompress`` bit for
+   bit, no error, the launches those of the batches the service formed;
+   p50/p95 latency, mean batch and requests/s.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
 it replaces, launches on the main paths, max error, times and bound (B1 as
@@ -206,6 +234,18 @@ TUNE_PRESETS = ("source_net", "source_net_wam")
 TUNE_ITERS, TUNE_DROP = 10, 5
 # [cli]: the codec CLI's directory mode on 3 + 2 images of two sizes
 CLI_SIZES, CLI_BATCH = ((512, 768),) * 3 + ((480, 640),) * 2, 2
+# [c7]: the card-written stream decoded on the CPU (full width, small map)
+C7_SIZE = (128, 128)
+# [vr]: source_net_vr's eval forward at each rate of VR_SWEEP; the main
+# path's per-image rates (0 to 3 by 0.5, then 1.25 for the eighth image);
+# the multi-rate training step's λ per gain unit (the preset's λ family)
+VR_SWEEP = (0.0, 1.0, 1.5, 2.0, 3.0)
+VR_RATES = [0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 1.25]
+VR_LMBDAS = (0.0025, 0.0067, 0.013, 0.05)
+# [serve]: compress requests (then as many decompresses) from SERVE_THREADS
+# threads, alternating between two sizes (480×640 pads to 512×640)
+SERVE_REQUESTS, SERVE_THREADS = 24, 4
+SERVE_SIZES = ((512, 768), (480, 640))
 # [entro], [ns]: the entroformer checkerboard and neural-syntax paths,
 # driven as the four ChARM paths are (``_drive``)
 ENTRO_PATHS = ("entroformer_cb", "entroformer_cb_full")
@@ -248,6 +288,10 @@ EXPECTED = {
     # forward, once per wavefront in the encode and in the decode
     "neural_syntax": {"gdn": 14, "drain_global": 110, "conv5s2": 6,
                       "convk_s1": 3 + 2 * 110 + 3},
+    # [vr]: source_net_vr's forward + roundtrip at 8 rates: source_net's
+    # kernels, as many times (the gains are plain elementwise products)
+    "source_net_vr": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14},
+    "train:source_net_vr": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
     # one eval forward each
     "source_net+bf16": {"gdn": 7, "drain": 0, "conv5s2": 3, "convk_s1": 5,
                         "wba": 0, "wba_proj": 0},
@@ -482,6 +526,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
 
+    t_main = time.perf_counter()
+
     # ---- 1. device
     def query(fields):
         return subprocess.run(
@@ -652,6 +698,14 @@ def main() -> int:
                                            for k, v in times[preset].items()})
         torch.cuda.empty_cache()
 
+    # ---- [c7], [vr] (with [serve]): the variable-rate slice
+    t_vr = time.perf_counter()
+    _c7(dev)
+    torch.cuda.empty_cache()
+    launches.update(_drive_vr(dev, counted, conv_calls, gdn_calls, train_shapes))
+    torch.cuda.empty_cache()
+    _say("wall", c7_vr_serve_s=f"{time.perf_counter() - t_vr:.1f}")
+
     # ---- 5. source_net in bf16 and at is_high, one forward each; [c3]
     # source_net_wam at is_high, with and without fuse_proj
     launches.update(_drive_variants(dev, counted, conv_calls))
@@ -816,6 +870,7 @@ def main() -> int:
         if key in ("drain", "drain_global"):  # ms and bound are the stress streams'
             rows[-1]["real_decode_ms"] = round(real_drain_ms["smem" if key == "drain"
                                                              else "global"], 4)
+    _say("wall", total_s=f"{time.perf_counter() - t_main:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2137,6 +2192,291 @@ def _cli_mains(model, items):
         raise AssertionError(f"cli mains: decoded sizes {sizes}, AVG lines {avg}")
     _say("cli_main", codec_compress_decompress_s=f"{t1 - t0:.3f}", files=len(items),
          eval_avg=repr(avg[0]))
+
+
+def _wake_eb(*models):
+    """Seeded values (0.05·N(0, 1), the same on every model given) for the
+    entropy bottleneck's all-zero leaves, its ``factor_i``, as a trained
+    checkpoint has them: at their zero init the pmf table takes no tanh
+    of them, and ROADMAP §C7 hid there.  → leaves woken per model."""
+    import torch
+
+    for m in models:
+        g = torch.Generator().manual_seed(SEED + 2)
+        woken = 0
+        with torch.no_grad():
+            for _, p in m.entropy_bottleneck.named_parameters():
+                if not p.any():
+                    p.copy_(0.05 * torch.randn(p.shape, generator=g))
+                    woken += 1
+    return woken
+
+
+def _c7(dev):
+    """[c7] ``source_net`` and ``source_net_vr`` with their EB woken
+    (``_wake_eb``): the z-coder's pmf table, quantized CDFs and digest of
+    a coder on the card equal, bit for bit, those of the same weights on
+    the CPU (the table is computed on the host, ``entropy/xla_f32.py``);
+    a ``C7_SIZE`` stream written on the card decodes with the CPU model,
+    within ``RECON_TOL`` of the card's decode."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import Z_RANGE, ChannelCoder
+
+    for preset in ("source_net", "source_net_vr"):
+        card = build_model(preset, device=dev, seed=SEED)
+        cpu = build_model(preset, device="cpu", seed=SEED)
+        woken = _wake_eb(card, cpu)
+        pmf_card, pmf_cpu = card.eb_pmf_table(-Z_RANGE, Z_RANGE - 1), cpu.eb_pmf_table(
+            -Z_RANGE, Z_RANGE - 1)
+        c_card, c_cpu = ChannelCoder(card, name=preset), ChannelCoder(cpu, name=preset)
+        cdfs_equal = np.array_equal(c_card.z_coder.codec.cdfs, c_cpu.z_coder.codec.cdfs)
+        if not (woken and torch.equal(pmf_card, pmf_cpu) and cdfs_equal
+                and c_card.digest == c_cpu.digest):
+            raise AssertionError(f"c7 {preset}: the card's EB tables differ from the CPU's "
+                                 f"(woken {woken}, digests {c_card.digest:#010x} / "
+                                 f"{c_cpu.digest:#010x})")
+        x = torch.from_numpy(smooth_images(np.random.default_rng(SEED + 7), 1, *C7_SIZE))
+        rate = 1.5 if c_card.has_gain else None
+        blob = c_card.compress(x.to(dev), rate=rate)
+        rec_cpu = c_cpu.decompress(blob)  # raises on a σ-row or CDF mismatch
+        rec_card = c_card.decompress(blob).cpu()
+        diff = float((rec_cpu - rec_card).abs().max())
+        if diff > RECON_TOL:
+            raise AssertionError(f"c7 {preset}: the CPU decode is {diff} off the card's")
+        _say("c7", preset=preset, eb_leaves_woken=woken, digest_card=f"{c_card.digest:#010x}",
+             digest_cpu=f"{c_cpu.digest:#010x}", pmf_bits_equal=True, cdfs_equal=cdfs_equal,
+             card_stream_decoded_on_cpu=True, size=C7_SIZE, rate=rate, stream_bytes=len(blob),
+             cpu_vs_card_recon_max_diff=f"{diff:.3g}")
+        del card, cpu, c_card, c_cpu
+
+
+def _rate_forward(model, x, rates):
+    """``_pass_forward`` at per-image rates: the eval forward of each image
+    in the coder's passes, each at its rate."""
+    import torch
+
+    from lic_tpu_torch.models.compress import _passes, pass_batch
+
+    r = torch.tensor(rates, dtype=torch.float32, device=x.device)
+    with torch.no_grad():
+        return _passes(lambda t, rr: model(t, rate=rr).x_tilde,
+                       pass_batch(*x.shape[2:], x.device), x, r)
+
+
+def _drive_vr(dev, counters, conv_calls, gdn_calls, shapes):
+    """[vr] ``source_net_vr`` at full width (its EB woken), B = 8 at
+    512×768, through the public entry points: the eval forward at each of
+    ``VR_SWEEP`` (bpp strictly rising, the 1.5 point between 1 and 2);
+    the main path, forward at ``VR_RATES`` + ``compress_batch`` at those
+    rates + ``decompress_batch`` with counters zeroed just before and read
+    just after (exact launches, its B2/B3/B6 calls recorded for 6-7);
+    every stream against ``compress`` of its image alone at its rate,
+    bytes; the decode within ``RECON_TOL`` of each image's eval forward at
+    its rate; ``solve_rate_for_bpp`` on one image (probes, rate, ms); one
+    multi-rate training step (``lmbda_list``) on 4 crops, its launches and
+    backwards exact and its kernel shapes recorded for [grad]; then
+    [serve] on the same model.  → {run: launches}."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import ChannelCoder
+    from lic_tpu_torch.serving import solve_rate_for_bpp
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    preset = "source_net_vr"
+    model = build_model(preset, device=dev, seed=SEED)
+    woken = _wake_eb(model)
+    x = torch.from_numpy(smooth_images(np.random.default_rng(SEED + 8), BATCH, H, W)).to(
+        dev).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        sweep = {r: float(model(x, rate=r).bpp) for r in VR_SWEEP}
+    rising = all(sweep[a] < sweep[b] for a, b in zip(VR_SWEEP, VR_SWEEP[1:]))
+    if not (rising and sweep[1.0] < sweep[1.5] < sweep[2.0]):
+        raise AssertionError(f"vr: bpp does not rise with the rate: {sweep}")
+
+    coder = ChannelCoder(model, name=preset)
+    hooks = _record_conv_slots(model, conv_calls, preset) + _record_gdn(model, gdn_calls, preset)
+    _zero(counters)
+    with torch.no_grad():
+        out = model(x, rate=VR_RATES)
+    blobs = coder.compress_batch(x, rates=VR_RATES)
+    rec = coder.decompress_batch(blobs)
+    runs = {preset: _read(counters)}
+    for h in hooks:
+        h.remove()
+    _hooks_agree(preset, runs[preset], conv_calls, gdn_calls)
+    if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
+        raise AssertionError("vr: non-finite forward output")
+    alone = [coder.compress(x[i : i + 1], rate=r) for i, r in enumerate(VR_RATES)]
+    if alone != blobs:
+        bad = [i for i, (a, b) in enumerate(zip(alone, blobs)) if a != b]
+        raise AssertionError(f"vr: streams {bad} differ from their image's compress alone")
+    rec_err = float((rec - _rate_forward(model, x, VR_RATES)).abs().max())
+    if rec_err > RECON_TOL:
+        raise AssertionError(f"vr: decoded recon differs from the forward at its rate: {rec_err}")
+    sizes = [len(b) for b in blobs]
+    mp = BATCH * H * W / 1e6
+    with torch.no_grad():
+        fwd_ms = _cuda_ms(lambda: model(x, rate=VR_RATES), 3)
+    rt = sorted(_cuda_ms(lambda: coder.decompress_batch(coder.compress_batch(x, rates=VR_RATES)),
+                         1) / 1e3 for _ in range(3))[1]
+    _say("vr", preset=preset, eb_leaves_woken=woken, weights="UNTRAINED",
+         bpp_by_rate=json.dumps({str(r): round(b, 4) for r, b in sweep.items()}),
+         rates=json.dumps(VR_RATES), bytes_by_rate=json.dumps(sizes),
+         codec_bpp=f"{sum(sizes) * 8 / (BATCH * H * W):.4f}",
+         streams_equal_compress_alone=True, recon_max_err=f"{rec_err:.3g}",
+         launches=runs[preset], forward_ms=f"{fwd_ms:.2f}",
+         forward_mps=f"{mp / fwd_ms * 1e3:.2f}", roundtrip_s=f"{rt:.3f}",
+         roundtrip_mps=f"{mp / rt:.3f}")
+
+    # rate control on one image: the bisection's probes are eval forwards
+    probes = []
+    hook = model.register_forward_hook(lambda m, a, o: probes.append(1))
+    x1 = x[:1]
+    with torch.no_grad():
+        lo, hi = (float(model(x1, rate=r).bpp) for r in (0.0, 3.0))
+    probes.clear()
+    target = 0.5 * (lo + hi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rate, est = solve_rate_for_bpp(model, x1, target)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    hook.remove()
+    if not (0.0 < rate < 3.0 and abs(est - target) <= 0.02 * target):
+        raise AssertionError(f"vr: solve_rate_for_bpp({target}) → {rate}, {est}")
+    _say("vr_solve", target_bpp=f"{target:.4f}", rate=f"{rate:.6f}", est_bpp=f"{est:.4f}",
+         probes=len(probes), ms=f"{solve_ms:.1f}", ms_per_probe=f"{solve_ms / len(probes):.1f}")
+
+    del coder
+    runs.update(_serve(model, dev, counters))
+
+    # one multi-rate training step: the unit k drawn by the step
+    model.train()
+    tc = TrainConfig(lmbda_list=VR_LMBDAS)
+    opt = make_optimizer(model, tc, steps_per_epoch=1000)
+    state = create_state(model, opt, tc.seed)
+    step_fn = make_train_step(model, tc, opt)
+    batch = _train_batch(dev)[:4]
+    run = f"train:{preset}"
+    hooks = _record_conv_slots(model, shapes["conv"], run) + _record_train_shapes(model, shapes)
+    kernels = ("gdn", "conv5s2", "convk_s1")
+    _zero(counters)
+    metrics = step_fn(state, batch)
+    runs[run] = _read(counters)
+    for h in hooks:
+        h.remove()
+    back = {k: counters[k].backwards for k in kernels}
+    if back != {k: runs[run][k] for k in kernels}:
+        raise AssertionError(f"{run}: backwards {back} != launches {runs[run]}")
+    k = int(metrics["rate"])
+    grad = model.log_gain.grad
+    if not (torch.isfinite(metrics["loss"]) and not float(metrics["skipped"])
+            and torch.isfinite(grad).all() and grad[k].abs().max() > 0):
+        raise AssertionError(f"{run}: loss {float(metrics['loss'])}, unit {k}, "
+                             f"log_gain grad row {grad[k].abs().max()}")
+    _say("vr_train", preset=preset, batch=4, crop=TRAIN_CROP, unit=k, lmbda=VR_LMBDAS[k],
+         loss=f"{float(metrics['loss']):.4f}", launches=runs[run], backwards=back,
+         log_gain_grad_row_max=f"{float(grad[k].abs().max()):.3g}")
+    model.eval()
+    return runs
+
+
+def _serve(model, dev, counters):
+    """[serve] ``CodecService(max_batch=8, max_wait_ms=5)`` over the model:
+    ``SERVE_REQUESTS`` compress requests from ``SERVE_THREADS`` threads at
+    two sizes (512×768 and 480×640, padded to 512×640) and rates cycling
+    through ``VR_RATES``, then their decompresses.  Every stream equals
+    ``coder.compress`` of its image at its rate and every decode
+    ``coder.decompress`` of its stream, bit for bit; no error.  The
+    service's launches, counters zeroed before the first request and read
+    after the last, equal the model passes of the batches it formed
+    (recorded around ``compress_batch`` / ``decompress_batch``).  p50/p95
+    latency, mean batch, requests/s.  → {run: launches}."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models.compress import pass_batch
+    from lic_tpu_torch.serving import CodecService
+
+    rng = np.random.default_rng(SEED + 9)
+    sizes = SERVE_SIZES
+    reqs = [(smooth_images(rng, 1, *sizes[i % 2])[0].transpose(1, 2, 0).copy(),
+             VR_RATES[i % len(VR_RATES)]) for i in range(SERVE_REQUESTS)]
+    svc = CodecService(model, name="source_net_vr", max_batch=8, max_wait_ms=5)
+    coder = svc.coder
+    formed = []  # (kind, padded h, w, images) of each batch the service ran
+    inner_c, inner_d = coder.compress_batch, coder.decompress_batch
+
+    def compress_batch(xs, rates=None):
+        formed.append(("c", *xs.shape[2:], xs.shape[0]))
+        return inner_c(xs, rates=rates)
+
+    def decompress_batch(blobs):
+        h, w = coder._parse_header(blobs[0])[1:3]
+        formed.append(("d", h, w, len(blobs)))
+        return inner_d(blobs)
+
+    coder.compress_batch, coder.decompress_batch = compress_batch, decompress_batch
+    _zero(counters)
+    svc.start()
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_THREADS) as pool:
+            futs = list(pool.map(lambda r: svc.submit_compress(r[0], rate=r[1]), reqs))
+            blobs = [f.result(timeout=600) for f in futs]
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_THREADS) as pool:
+            futs = list(pool.map(svc.submit_decompress, blobs))
+            recs = [f.result(timeout=600) for f in futs]
+        t2 = time.perf_counter()
+    finally:
+        svc.stop()
+        coder.compress_batch, coder.decompress_batch = inner_c, inner_d
+    runs = {"serve:source_net_vr": _read(counters)}
+    stats = svc.stats.snapshot()
+    # each batch runs ceil(n / pass_batch) model passes; per pass, compress
+    # runs g_a (3 B2, 3 B3), h_a.c0, both h_s.c2 and slice 0's two c0 (5
+    # B6); decompress runs both h_s.c2 and slice 0's c0s (4 B6), 4 drains
+    # and g_s (4 B2)
+    want = {k: 0 for k in counters}
+    per_pass = {"c": {"gdn": 3, "conv5s2": 3, "convk_s1": 5},
+                "d": {"gdn": 4, "convk_s1": 4, "drain": 4}}
+    for kind, h, w, n in formed:
+        hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
+        passes = -(-n // pass_batch(hp, wp, dev))
+        for key, v in per_pass[kind].items():
+            want[key] += v * passes
+    if runs["serve:source_net_vr"] != want:
+        raise AssertionError(f"serve: launches {runs['serve:source_net_vr']}, the batches "
+                             f"{formed} need {want}")
+    for (img, rate), blob, rec in zip(reqs, blobs, recs):
+        x1 = torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).to(dev)
+        if blob != coder.compress(x1, rate=rate):
+            raise AssertionError(f"serve: a stream at rate {rate} differs from compress")
+        direct = coder.decompress(blob)[0].permute(1, 2, 0).cpu().numpy()
+        if rec.shape != img.shape or not np.array_equal(rec, direct):
+            raise AssertionError("serve: a decode differs from decompress")
+    if stats["errors"] or stats["requests"] != 2 * SERVE_REQUESTS:
+        raise AssertionError(f"serve: stats {stats}")
+    _say("serve", requests=2 * SERVE_REQUESTS, threads=SERVE_THREADS, sizes=json.dumps(sizes),
+         rates=json.dumps(VR_RATES), batches=stats["batches"],
+         mean_batch=f"{stats['mean_batch']:.2f}", p50_ms=f"{stats['p50_ms']:.1f}",
+         p95_ms=f"{stats['p95_ms']:.1f}", errors=stats["errors"],
+         compress_req_per_s=f"{SERVE_REQUESTS / (t1 - t0):.2f}",
+         decompress_req_per_s=f"{SERVE_REQUESTS / (t2 - t1):.2f}",
+         streams_equal_compress=True, decodes_equal_decompress=True,
+         batches_formed=json.dumps([f"{k}{n}@{h}x{w}" for k, h, w, n in formed]),
+         launches=runs["serve:source_net_vr"])
+    return runs
 
 
 if __name__ == "__main__":

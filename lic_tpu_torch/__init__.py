@@ -3,10 +3,13 @@
 A second package beside the JAX one, which stays the reference every
 module here is tested against.  It covers the ``source_net``,
 ``source_net_wam``, ``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``,
-``entroformer_cb_full`` and ``neural_syntax`` presets: the eval-mode
-forward, the real bitstream roundtrip (``models.compress.ChannelCoder``),
-training (``training``, ``cli.train``), eval and the CLIs.  The kernels on those paths are written by hand for Hopper
-and built from this package's sources at first use:
+``entroformer_cb_full``, ``neural_syntax`` and ``source_net_vr`` presets:
+the eval-mode forward, the real bitstream roundtrip
+(``models.compress.ChannelCoder``), training (``training``,
+``cli.train``), eval, the CLIs and, for the variable-rate
+``source_net_vr``, rate control and the dynamic-batching
+``serving.CodecService``.  The kernels on those paths are written by hand
+for Hopper and built from this package's sources at first use:
 
 * B1, the interleaved rANS drain, CUDA C++ (``csrc/rans_drain.cu``, wrapper
   ``coding.drain``), at 8 to 256 lanes, its table in shared memory or,

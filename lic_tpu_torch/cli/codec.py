@@ -13,12 +13,18 @@ grouped by size and coded in chunks of at most ``--batch`` through
 ``compress`` / ``decompress``).  A stream decodes in any chunk, whatever
 the batch it was encoded in.
 
+Variable-rate presets (``source_net_vr``): ``--rate`` sets the coder's
+gain-unit rate index (continuous: 1.5 interpolates units 1 and 2);
+``--target_bpp`` solves each image's rate for that bitrate
+(``serving.solve_rate_for_bpp``) and overrides ``--rate``.  The rate
+rides each stream's header, so decompress needs neither flag.
+
 It runs on the card unless ``--device cpu`` is given.  ``--progressive``,
-``--truncate_planes``, ``--rate``, ``--target_bpp`` and
-``--post_processing`` raise ``NotImplementedError``: trit-plane streams,
-gain units and the HAN tail are not ported (ROADMAP A16).  PIL reads and
-writes the files; ``compress_images`` and ``decompress_streams``, the
-directory mode's core, take arrays and blobs.
+``--truncate_planes`` and ``--post_processing`` raise
+``NotImplementedError``: trit-plane streams and the HAN tail are not
+ported (ROADMAP A16).  PIL reads and writes the files;
+``compress_images`` and ``decompress_streams``, the directory mode's
+core, take arrays and blobs.
 """
 
 from __future__ import annotations
@@ -26,12 +32,12 @@ from __future__ import annotations
 import argparse
 import os
 from collections import defaultdict
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm")
-_A16_FLAGS = ("progressive", "truncate_planes", "rate", "target_bpp", "post_processing")
+_A16_FLAGS = ("progressive", "truncate_planes", "post_processing")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,9 +53,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=8,
                    help="max images per device batch in directory mode")
     p.add_argument("--rate", type=float, default=None,
-                   help="gain-unit rate index (not ported: ROADMAP A16)")
+                   help="gain-unit rate index (variable-rate presets; "
+                        "continuous, e.g. 1.5 interpolates units 1 and 2)")
     p.add_argument("--target_bpp", type=float, default=None,
-                   help="rate control through gain units (not ported: ROADMAP A16)")
+                   help="solve the gain-unit rate for this bitrate per "
+                        "image (variable-rate presets; bisection on the "
+                        "estimated bpp — overrides --rate)")
     p.add_argument("--progressive", action="store_true",
                    help="trit-plane streams (not ported: ROADMAP A16)")
     p.add_argument("--truncate_planes", type=int, default=None,
@@ -71,11 +80,13 @@ def _chunks(items: list, batch: int):
 
 
 def compress_images(coder, items: Sequence[Tuple[str, np.ndarray]],
-                    batch: int) -> List[Tuple[str, bytes]]:
+                    batch: int, target_bpp: Optional[float] = None) -> List[Tuple[str, bytes]]:
     """Directory compress: ``items`` [(name, (H, W, 3) float32 in [−1, 1])]
     → [(name, blob)], grouped by size in order of first appearance, each
-    group in chunks of at most ``batch``."""
+    group in chunks of at most ``batch``; with ``target_bpp``, each image
+    at the rate solved for it."""
     from ..data.datasets import to_batch
+    from ..serving import solve_rate_for_bpp
 
     buckets = defaultdict(list)
     for name, img in items:
@@ -84,10 +95,14 @@ def compress_images(coder, items: Sequence[Tuple[str, np.ndarray]],
     for group in buckets.values():
         for chunk in _chunks(group, batch):
             xs = to_batch(np.stack([img for _, img in chunk]), coder.device)
+            rates = None
+            if target_bpp is not None:
+                rates = [solve_rate_for_bpp(coder.model, xs[k : k + 1], target_bpp)[0]
+                         for k in range(len(chunk))]
             if len(chunk) > 1:
-                blobs = coder.compress_batch(xs)
+                blobs = coder.compress_batch(xs, rates=rates)
             else:
-                blobs = [coder.compress(xs)]
+                blobs = [coder.compress(xs, rate=None if rates is None else rates[0])]
             out += [(name, blob) for (name, _), blob in zip(chunk, blobs)]
     return out
 
@@ -116,8 +131,8 @@ def main(argv=None) -> None:
     for flag in _A16_FLAGS:
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
-                f"--{flag}: trit-plane streams, gain units and the HAN tail are not "
-                "ported (ROADMAP A16)")
+                f"--{flag}: trit-plane streams and the HAN tail are not ported "
+                "(ROADMAP A16)")
 
     from ..data.datasets import load_image_uint8, normalize_pm1, to_batch
     from ..models import build_model
@@ -126,14 +141,22 @@ def main(argv=None) -> None:
 
     model = build_model(args.preset, device=args.device, is_high=args.high)
     load_params(args.weight_path, model)
-    coder = ChannelCoder(model, name=args.preset)
+    coder = ChannelCoder(model, name=args.preset, rate=args.rate)
 
     if os.path.isdir(args.input):
         _run_dir(args, coder)
         return
     if args.command == "compress":
         img = normalize_pm1(load_image_uint8(args.input))
-        blob = coder.compress(to_batch(img[None], coder.device))  # pads to /64 inside
+        x = to_batch(img[None], coder.device)
+        rate = None
+        if args.target_bpp is not None:
+            from ..serving import solve_rate_for_bpp
+
+            rate, est = solve_rate_for_bpp(model, x, args.target_bpp)
+            print(f"target {args.target_bpp} bpp → rate {rate:.3f} "
+                  f"(estimated {est:.4f} bpp)")
+        blob = coder.compress(x, rate=rate)  # pads to /64 inside
         with open(args.output, "wb") as fd:
             fd.write(blob)
         h, w = img.shape[:2]
@@ -160,7 +183,7 @@ def _run_dir(args, coder) -> None:
                  for n in names]
         sizes = {n: img.shape[0] * img.shape[1] for n, img in items}
         total_bits = total_px = 0
-        for n, blob in compress_images(coder, items, args.batch):
+        for n, blob in compress_images(coder, items, args.batch, args.target_bpp):
             out = os.path.join(args.output, os.path.splitext(n)[0] + ".ltc")
             with open(out, "wb") as fd:
                 fd.write(blob)

@@ -8,9 +8,10 @@ image set.
 It runs on the card unless ``--device cpu`` is given.  ``--weight_path``
 is a ``.npz`` of either package; ``--pre_processing`` tunes g_a per image
 (content-adaptive encoding); ``--write_bitstreams DIR`` writes each
-image's ``.ltc`` file, coded with the checkpoint's weights.  ``--rate``
-(gain units) and ``--post_processing`` (the HAN tail) raise
-``NotImplementedError``: they are not ported (ROADMAP A16).
+image's ``.ltc`` file, coded with the checkpoint's weights; ``--rate``
+picks a variable-rate preset's operating point for both.
+``--post_processing`` (the HAN tail) raises ``NotImplementedError``: it is
+not ported (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--write_bitstreams", default="",
                    help="directory to write real rANS bitstreams")
     p.add_argument("--rate", type=float, default=None,
-                   help="gain-unit rate index (not ported: ROADMAP A16)")
+                   help="gain-unit rate index for variable-rate presets "
+                        "(continuous; None = unit 0)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the card (default) or on the CPU")
     return p
@@ -43,11 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for flag, given in (("--rate", args.rate is not None),
-                        ("--post_processing", args.post_processing)):
-        if given:
-            raise NotImplementedError(
-                f"{flag}: gain units and the HAN tail are not ported (ROADMAP A16)")
+    if args.post_processing:
+        raise NotImplementedError(
+            "--post_processing: the HAN tail is not ported (ROADMAP A16)")
 
     from ..config import EvalConfig
     from ..data.datasets import list_images
@@ -59,12 +59,17 @@ def main(argv=None) -> None:
 
     model = build_model(args.preset, device=args.device, is_high=args.high)
     load_params(args.weight_path, model)
-    ec = EvalConfig(lmbda=args.lmbda, tune_iters=args.tune_iter)
+    if args.rate is not None and model.cfg.gain_units == 0:
+        raise SystemExit(
+            f"--rate given but preset '{args.preset}' has no gain units — "
+            "it would be silently ignored (use a variable-rate preset)"
+        )
+    ec = EvalConfig(lmbda=args.lmbda, tune_iters=args.tune_iter, rate=args.rate)
     evaluate_folder(model, args.data_path, ec, pre_processing=args.pre_processing)
 
     if args.write_bitstreams:
         os.makedirs(args.write_bitstreams, exist_ok=True)
-        coder = ChannelCoder(model, name=args.preset)
+        coder = ChannelCoder(model, name=args.preset, rate=args.rate)
         for f in list_images(args.data_path):
             blob = coder.compress(_load_pm1(f, args.device))
             out = os.path.join(

@@ -177,6 +177,5 @@ class EvalConfig:
     # literal λ·mse + bpp (eval_net.py:176, SURVEY defect §8.13, which
     # weights distortion about 65,000× less than training does)
     tune_loss_255sq: bool = True
-    # gain-unit operating point (None = unit 0); gain units are not ported
-    # (ROADMAP A16), so anything else raises
+    # gain-unit operating point (None = unit 0)
     rate: Optional[float] = None

@@ -5,6 +5,12 @@ monotone MLP (softplus matrices, tanh factors), the eval-mode
 medians-offset rounding, the train-time U(-½, ½) noise, the likelihood,
 ``medians``, ``aux_loss`` and ``pmf_table``.  Parameter names, shapes and
 inits are the JAX module's.
+
+The likelihoods of the forward use torch's ops, within 1e-4 of JAX's.
+``pmf_table`` feeds the coder's quantized CDFs and the ``.ltc`` digest,
+so it must be JAX's table bit for bit: it runs on the host in numpy, with
+``xla_f32``'s copies of what XLA's CPU backend computes, whatever the
+module's device.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from torch import nn
 
 from ..ops.bounds import lower_bound
 from ..ops.rounding import NoiseFn
+from . import xla_f32 as xf
 
 _FILTERS = (3, 3, 3, 3)
 _INIT_SCALE = 10.0
@@ -105,8 +112,30 @@ class EntropyBottleneck(nn.Module):
 
     def pmf_table(self, min_sym: int, max_sym: int) -> torch.Tensor:
         """Per-channel PMF over integer symbols ``[min_sym, max_sym]``
-        relative to the channel median → (C, S)."""
-        dev = self.quantiles.device
-        symbols = torch.arange(min_sym, max_sym + 1, device=dev).float()
-        samples = symbols[None, None, :] + self.quantiles[:, :, 1:2]
-        return self._likelihood(samples)[:, 0, :]
+        relative to the channel median → (C, S) float32 on the CPU,
+        JAX's ``pmf_table`` bit for bit (``xla_pmf_table``)."""
+        host = {k: v.detach().float().cpu().numpy() for k, v in self.named_parameters()}
+        return torch.from_numpy(xla_pmf_table(host, self.n_layers, min_sym, max_sym))
+
+
+def _xla_logits_cumulative(p: dict, n_layers: int, x: np.ndarray) -> np.ndarray:
+    """``_logits_cumulative`` as eager JAX computes it on the CPU, each
+    operation rounded on its own (``lic_tpu/entropy/factorized.py:81-97``)."""
+    for i in range(n_layers):
+        x = xf.add(xf.einsum_cij_cjn(xf.softplus(p[f"matrix_{i}"]), x), xf.f32(p[f"bias_{i}"]))
+        if i < n_layers - 1:
+            x = xf.add(x, xf.mul(xf.tanh(p[f"factor_{i}"]), xf.tanh(x)))
+    return x
+
+
+def xla_pmf_table(p: dict, n_layers: int, min_sym: int, max_sym: int) -> np.ndarray:
+    """The EB's pmf table from its parameters (numpy, by name) as
+    ``lic_tpu/entropy/factorized.py:151-163`` computes it under eager JAX
+    on the CPU: (C, S) float32, bit for bit."""
+    symbols = np.arange(min_sym, max_sym + 1, dtype=np.float32)
+    samples = xf.add(symbols[None, None, :], xf.f32(p["quantiles"][:, :, 1:2]))
+    v0 = _xla_logits_cumulative(p, n_layers, xf.sub(samples, np.float32(0.5)))
+    v1 = _xla_logits_cumulative(p, n_layers, xf.add(samples, np.float32(0.5)))
+    sign = -np.sign(xf.add(v0, v1))
+    pmf = np.abs(xf.sub(xf.sigmoid(xf.mul(sign, v1)), xf.sigmoid(xf.mul(sign, v0))))
+    return pmf[:, 0, :]

@@ -12,10 +12,11 @@ decoder.
 The model is an ``nn.Module`` that holds its parameters, so where the JAX
 functions take ``(model, params, ...)`` these take ``(model, ...)``, and
 ``content_adaptive_finetune`` returns a tuned copy of the model where the
-JAX one returns tuned parameters.  Gain units (``EvalConfig.rate``) and the
-HAN post-processing tail are not ported (ROADMAP A16): a ``rate`` raises
-``NotImplementedError``, and a model with ``post_processing`` cannot be
-built (``models.codec.check_supported``).
+JAX one returns tuned parameters.  ``EvalConfig.rate`` picks a
+variable-rate model's operating point, in the eval forward and in the
+tune forward alike.  The HAN post-processing tail is not ported (ROADMAP
+A16): a model with ``post_processing`` cannot be built
+(``models.codec.check_supported``).
 """
 
 from __future__ import annotations
@@ -37,17 +38,9 @@ from ..training.loss import ms_ssim
 from ..training.schedule import multistep
 from .metrics import mse_255, psnr_255
 
-_A16 = "gain units (EvalConfig.rate) are not ported (ROADMAP A16)"
-
-
 def _load_pm1(path: str, device) -> torch.Tensor:
     """An image file → (1, 3, H, W) in [−1, 1], channels_last on ``device``."""
     return to_batch(normalize_pm1(load_image_uint8(path))[None], device)
-
-
-def _check_rate(eval_cfg: EvalConfig) -> None:
-    if eval_cfg.rate is not None:
-        raise NotImplementedError(_A16)
 
 
 def evaluate_image(
@@ -60,14 +53,13 @@ def evaluate_image(
     where the JAX package's first image of a shape includes its jit
     compile; but the first image of a size includes cuDNN's choice of
     algorithms and each B3/B6 weight's one-off TF32 split."""
-    _check_rate(eval_cfg)
     _, _, h, w = x_pm1.shape
     padded, orig = pad_to_multiple(x_pm1, eval_cfg.pad_multiple, mode="replicate")
     fence = torch.cuda.synchronize if padded.is_cuda else (lambda: None)
     with torch.no_grad():
         fence()
         t0 = time.perf_counter()
-        out = model(padded)
+        out = model(padded, rate=eval_cfg.rate)
         fence()
         dt = time.perf_counter() - t0
 
@@ -121,7 +113,6 @@ def content_adaptive_finetune(
     draws from ``PRNGKey(0)``, so the bits differ).  ``on_phase(name)``,
     where given, is called at "start", "forward", "backward" and
     "optimizer" of each step, for timing."""
-    _check_rate(eval_cfg)
     padded, _ = pad_to_multiple(x_pm1, eval_cfg.pad_multiple, mode="replicate")
     tuned = copy.deepcopy(model)
     for name, p in tuned.named_parameters():
@@ -138,7 +129,7 @@ def content_adaptive_finetune(
         mark("start")
         opt.param_groups[0]["lr"] = lr(step)
         opt.zero_grad(set_to_none=True)
-        out = tuned(padded, training=True, noise_fn=noise_fn)
+        out = tuned(padded, training=True, noise_fn=noise_fn, rate=eval_cfg.rate)
         loss = eval_cfg.lmbda * d_scale * out.mse + out.bpp
         mark("forward")
         loss.backward()

@@ -27,12 +27,19 @@ package).  Every noise tensor is drawn through one ``noise_fn(shape,
 dtype, device)``, in the JAX package's order: charm, z then slices 0-3;
 entroformer, z then y; neural syntax, z2, content, syntax.
 
+Variable rate (``cfg.gain_units`` = K > 0, charm slices only,
+``:249-296``): K learned (log-gain, log-inverse-gain) rows of N; a
+continuous rate r ∈ [0, K − 1] interpolates the adjacent rows in log
+space.  The latent is scaled by the gain after g_a, so everything
+downstream codes the gained latent, and ŷ by the inverse gain before g_s.
+A scalar rate serves the batch; a (B,) rate one operating point per image.
+
 The charm configs also build a ``PredictionModelSyntax`` that no charm
 forward calls (``config.py:88``, ``codec.py:115-119``); it is not part of
 a charm model, ``utils.params`` skips its subtree there, and
 ``utils.checkpoint`` carries it in the ``.npz`` files.  The other hypers,
-gain units, ``stop_base_grad`` and the HAN tail raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``stop_base_grad`` and the HAN tail raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from __future__ import annotations
 import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -95,7 +103,6 @@ def check_supported(cfg: CodecConfig) -> None:
          f"syntax {cfg.syntax!r} without its decoder (ROADMAP A16)"),
         (not charm and not cfg.code_syntax, "neural syntax without code_syntax"),
         (cfg.post_processing, "the HAN post-processing tail (ROADMAP A16)"),
-        (cfg.gain_units > 0, "gain units (ROADMAP A16)"),
         (charm and cfg.context == "charm" and not cfg.lrp,
          "charm without LRP (ROADMAP A16)"),
     ]
@@ -128,6 +135,8 @@ class CodecModel(nn.Module):
         g = generator
         self.is_ns = cfg.family == "neural_syntax"
         self.is_entro = not self.is_ns and cfg.context == "entroformer"
+        if cfg.gain_units and (self.is_ns or self.is_entro):
+            raise ValueError("gain_units currently supports the charm slice family")
         self.g_a = AnalysisTransform(N, cfg.transform, generator=g)
         self.g_s = SynthesisTransform(N, M, cfg.transform, in_channels=cfg.content_channels,
                                       generator=g)
@@ -185,6 +194,16 @@ class CodecModel(nn.Module):
         self.lrp_transforms = nn.ModuleList(
             _CharmSliceStack(N + sc * (n_sup[i] + 1), sc, g) for i in range(ns)
         )
+        if cfg.gain_units:
+            # a log-spaced amplitude ramp: unit K−1 starts at gain_span × unit
+            # 0, so bpp rises with the rate from step 0; K = 1 is neutral
+            K = cfg.gain_units
+            span = float(np.log(cfg.gain_span))
+            ramp = (np.zeros(1, np.float32) if K == 1
+                    else np.linspace(-span / 2, span / 2, K, dtype=np.float32))
+            ramp = torch.from_numpy(np.broadcast_to(ramp[:, None], (K, N)).copy())
+            self.log_gain = nn.Parameter(ramp)
+            self.log_inv_gain = nn.Parameter(-ramp)
 
     def _init_neural_syntax(self, g):
         """The neural-syntax modules (``codec.py:122-134`` and the syntax
@@ -201,6 +220,31 @@ class CodecModel(nn.Module):
             (N - M) + N, N, 2 * (N - M), generator=g)
         self.gm = GaussianModel()
 
+    def _gain_vectors(self, rate) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(gain, inverse gain) at a continuous rate index, clipped to
+        [0, K − 1]: the log rows of ⌊r⌋ and ⌊r⌋ + 1 interpolated, then
+        exp, so an integer rate takes its learned row as is.  A scalar
+        rate gives (N,) vectors, a (B,) rate (B, N, 1, 1)."""
+        K = self.cfg.gain_units
+        r = torch.as_tensor(rate, dtype=torch.float32, device=self.log_gain.device)
+        r = torch.clamp(r, 0.0, float(K - 1))
+        lo = torch.clamp(torch.floor(r).long(), 0, K - 1)
+        hi = torch.clamp(lo + 1, max=K - 1)
+        a = (r - lo.float())[..., None]
+        g = torch.exp((1 - a) * self.log_gain[lo] + a * self.log_gain[hi])
+        ig = torch.exp((1 - a) * self.log_inv_gain[lo] + a * self.log_inv_gain[hi])
+        if r.dim():
+            g, ig = g[:, :, None, None], ig[:, :, None, None]
+        return g, ig
+
+    def _gained(self, t: torch.Tensor, rate, inverse: bool) -> torch.Tensor:
+        """``t`` (B, N, h, w) times the gain (or the inverse gain) at
+        ``rate`` (None: rate 0); ``t`` itself without gain units."""
+        if not self.cfg.gain_units:
+            return t
+        v = self._gain_vectors(0.0 if rate is None else rate)[1 if inverse else 0]
+        return t * (v[:, None, None] if v.dim() == 1 else v)
+
     def support(self, y_hat_slices: Sequence[torch.Tensor]):
         """The decoded slices slice ``len(y_hat_slices)`` conditions on."""
         k = self.cfg.max_support_slices
@@ -215,11 +259,13 @@ class CodecModel(nn.Module):
 
     def forward(
         self, x: torch.Tensor, training: bool = False, *,
-        noise_fn: Optional[NoiseFn] = None, stop_base_grad: bool = False,
+        noise_fn: Optional[NoiseFn] = None, stop_base_grad: bool = False, rate=None,
     ) -> CodecOutput:
         """The forward on NCHW ``x`` in [-1, 1]: eval mode, or
         ``training`` with the likelihoods' noise drawn by ``noise_fn``
-        (default: ``uniform_noise()``, torch's default generator)."""
+        (default: ``uniform_noise()``, torch's default generator).
+        ``rate``: the gain units' continuous rate index, a scalar or one
+        per image (None: rate 0); models without gain units ignore it."""
         if stop_base_grad:
             raise NotImplementedError(
                 "stop_base_grad trains the HAN tail only, which is not ported (ROADMAP A16)")
@@ -231,7 +277,7 @@ class CodecModel(nn.Module):
         b, _, h, w = x.shape
         num_pixels = b * h * w
 
-        z3 = self.g_a(x)
+        z3 = self._gained(self.g_a(x), rate, inverse=False)
         z = self.hyper_encode(z3)
         _, z_lik = self.entropy_bottleneck(z, training, noise_fn)
         z_hat = quantize_ste_offset(z, self.eb_medians()[None, :, None, None])
@@ -256,7 +302,8 @@ class CodecModel(nn.Module):
             )
 
         y_hat = torch.cat(y_hat_slices, dim=1)
-        x_tilde = self._decode_tail(self.g_s(y_hat), syntax_rounded)
+        x_tilde = self._decode_tail(self.g_s(self._gained(y_hat, rate, inverse=True)),
+                                    syntax_rounded)
 
         bpp_y = _bpp(torch.cat(y_liks, dim=1), num_pixels)
         if cfg.count_hyper_bpp:
@@ -347,8 +394,11 @@ class CodecModel(nn.Module):
 
     # ------------------------------------------------ bitstream sub-passes
 
-    def analyze(self, x: torch.Tensor) -> torch.Tensor:
-        return self.g_a(x)
+    def analyze(self, x: torch.Tensor, rate=None) -> torch.Tensor:
+        """x → z3, gained where the model has gain units: the coded
+        latent is the gained one, so only ``synthesize`` sees the rate
+        again."""
+        return self._gained(self.g_a(x), rate, inverse=False)
 
     def hyper_encode(self, z3: torch.Tensor) -> torch.Tensor:
         """z3 → z; the U-Net hyper's skips are not part of the message."""
@@ -389,9 +439,11 @@ class CodecModel(nn.Module):
         lrp_in = torch.cat([mean_support, y_hat_slice], dim=1)
         return y_hat_slice + 0.5 * torch.tanh(self.lrp_transforms[i](lrp_in))
 
-    def synthesize(self, y_hat: torch.Tensor, syntax_rounded: torch.Tensor):
-        """y_hat (+ syntax vector (B, M, 1, 1)) → reconstruction."""
-        return self._decode_tail(self.g_s(y_hat), syntax_rounded)
+    def synthesize(self, y_hat: torch.Tensor, syntax_rounded: torch.Tensor, rate=None):
+        """y_hat (+ syntax vector (B, M, 1, 1)) → reconstruction; ``rate``
+        selects the inverse gain of a gain-unit model."""
+        return self._decode_tail(self.g_s(self._gained(y_hat, rate, inverse=True)),
+                                 syntax_rounded)
 
     # ------------------------------------- entroformer checkerboard passes
 

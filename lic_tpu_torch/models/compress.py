@@ -12,10 +12,18 @@ the wavefront coder (``:440-487``, ``:776-1136``).  The wire format is the
 JAX package's, byte for byte:
 
   magic 'LTC2' | u8 name-len | name | u32 digest | u16 H | u16 W
-  (original size) | u16 syntax-len | i16 syntax[M] | u32 z_len | z blob |
-  per blob: u32 len | blob
+  (original size) | u16 syntax-len | i16 syntax[M] | [f32 rate] |
+  u32 z_len | z blob | per blob: u32 len | blob
 
-charm: the digest is the crc32 of the factorized CDF tables, z is coded
+The rate field is there for gain-unit models only: each image's
+continuous rate index, so any decoder of the checkpoint applies the
+matching inverse gain.  The coded latent is the gained one, so only
+``analyze`` and ``synthesize`` see the rate; a batch may mix rates, each
+image's riding through the model passes beside it (``_passes``).
+
+charm: the digest is the crc32 of the factorized CDF tables (from the
+host pmf table, ``entropy.factorized.xla_pmf_table``: the JAX package's
+bits on any device, ROADMAP §C7), z is coded
 by the host ``FactorizedCoder`` and y by the host
 ``Rans16InterleavedCodec`` as one 128-lane interleaved stream per image:
 slice after slice, each slice's symbols in NHWC (h, w, c) order; for the
@@ -68,7 +76,7 @@ import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -192,10 +200,21 @@ def ns_lane_count(total_syms: int) -> int:
 
 class ChannelCoder:
     """Real-bitstream coder for one ``CodecModel`` (a charm model with a
-    decodable hyper, or a neural-syntax model), on the model's device."""
+    decodable hyper, or a neural-syntax model), on the model's device.
+    ``rate``: the default gain-unit rate index of a variable-rate model
+    (None: 0); a rate given to a model without gain units raises."""
 
-    def __init__(self, model: CodecModel, name: str = ""):
+    def __init__(self, model: CodecModel, name: str = "", rate: Optional[float] = None):
         cfg = model.cfg
+        self.has_gain = cfg.gain_units > 0
+        if rate is not None and not self.has_gain:
+            raise ValueError(
+                "rate= was given but this model has no gain units "
+                "(cfg.gain_units == 0) — it would be silently ignored; "
+                "use a variable-rate preset (e.g. source_net_vr) or drop "
+                "the rate"
+            )
+        self.rate = 0.0 if rate is None else float(rate)
         self.is_ns = cfg.family == "neural_syntax"
         self.is_entro = not self.is_ns and cfg.context == "entroformer"
         if not self.is_ns and cfg.hyper not in _DECODABLE:
@@ -346,23 +365,45 @@ class ChannelCoder:
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.device, torch.float32, memory_format=torch.channels_last)
 
-    @torch.no_grad()
-    def compress(self, x: torch.Tensor) -> bytes:
-        """x: (1, 3, H, W) in [−1, 1], any size (padded to /64 inside;
-        the original size rides the header)."""
-        if x.shape[0] != 1:
-            raise ValueError("compress takes one image; use compress_batch")
-        return self.compress_batch(x)[0]
+    def _rates(self, rates: Optional[Sequence[float]], b: int) -> Optional[torch.Tensor]:
+        """The (B,) rate indexes of a batch on the device (the coder's
+        rate where None); None for a model without gain units, where a
+        rate raises."""
+        if rates is not None and not self.has_gain:
+            raise ValueError("rate= was given but this model has no gain units")
+        if not self.has_gain:
+            return None
+        rates = [self.rate] * b if rates is None else [float(r) for r in rates]
+        if len(rates) != b:
+            raise ValueError(f"{len(rates)} rates for {b} images")
+        return torch.tensor(rates, dtype=torch.float32, device=self.device)
 
     @torch.no_grad()
-    def compress_batch(self, xs: torch.Tensor) -> List[bytes]:
+    def compress(self, x: torch.Tensor, rate: Optional[float] = None) -> bytes:
+        """x: (1, 3, H, W) in [−1, 1], any size (padded to /64 inside;
+        the original size rides the header).  ``rate``: this image's
+        gain-unit rate index (default the coder's), e.g. from
+        ``serving.solve_rate_for_bpp``."""
+        if x.shape[0] != 1:
+            raise ValueError("compress takes one image; use compress_batch")
+        return self.compress_batch(x, None if rate is None else [rate])[0]
+
+    @torch.no_grad()
+    def compress_batch(self, xs: torch.Tensor,
+                       rates: Optional[Sequence[float]] = None) -> List[bytes]:
         """Compress B same-sized images (B, 3, H, W): the model in passes
         of ``pass_batch`` images, the host rANS encodes in a thread pool
-        (the C coder releases the interpreter lock)."""
+        (the C coder releases the interpreter lock).  ``rates``: one
+        gain-unit rate index per image (gain-unit models; default the
+        coder's rate); a batch may mix them."""
         b, _, h, w = xs.shape
+        rate_t = self._rates(rates, b)
         xs, _ = pad_to_multiple(self._to_device(xs), 64)
         p = pass_batch(*xs.shape[2:], self.device)
-        z3 = _passes(self.model.analyze, p, xs)
+        if rate_t is None:
+            z3 = _passes(self.model.analyze, p, xs)
+        else:
+            z3 = _passes(self.model.analyze, p, xs, rate_t)
         if self.is_ns:
             return self._compress_ns(z3, p, h, w)
         z_sym16, z_hat = self._z_enc(z3, p)
@@ -372,6 +413,7 @@ class ChannelCoder:
         syntax_np = syntax.reshape(b, -1).cpu().numpy().astype(np.int16)
         z_np = z_sym16.permute(0, 2, 3, 1).cpu().numpy()  # NHWC for the host
         sym_np, rows_np = sym.cpu().numpy(), rows.cpu().numpy()
+        rates_host = [None] * b if rate_t is None else rate_t.tolist()
         counts = self._step_counts(z3.shape[2], z3.shape[3])
 
         def encode(i):
@@ -379,7 +421,7 @@ class ChannelCoder:
             y_blob = self.lane_codec.encode(
                 sym_np[i], rows_np[i], counts, CHARM_LANES
             )
-            return self._pack(h, w, syntax_np[i], z_blob, [y_blob])
+            return self._pack(h, w, syntax_np[i], z_blob, [y_blob], rates_host[i])
 
         return self._pool_map(encode, b)
 
@@ -388,13 +430,15 @@ class ChannelCoder:
         with ThreadPoolExecutor(max_workers=min(n, os.cpu_count() or 1)) as pool:
             return list(pool.map(fn, range(n)))
 
-    def _pack(self, h, w, syntax, z_blob, blobs) -> bytes:
+    def _pack(self, h, w, syntax, z_blob, blobs, rate: Optional[float] = None) -> bytes:
         out = bytearray(MAGIC)
         name = self.name.encode("utf-8")[:255]
         out += struct.pack("<B", len(name)) + name
         out += struct.pack("<I", self.digest)
         out += struct.pack("<HH", h, w)
         out += struct.pack("<H", syntax.size) + syntax.tobytes()
+        if self.has_gain:
+            out += struct.pack("<f", rate)
         for blob in (z_blob, *blobs):
             out += struct.pack("<I", len(blob)) + blob
         return bytes(out)
@@ -458,8 +502,11 @@ class ChannelCoder:
                 :, :, :orig_h, :orig_w]
         z_shape = (1, h // 64, w // 64, self.z_coder.medians.shape[0])
 
-        z_syms, payloads = [], []
+        z_syms, payloads, rates = [], [], []
         for data, (off, _, _, _) in zip(blobs, heads):
+            if self.has_gain:
+                rates.append(struct.unpack_from("<f", data, off)[0])
+                off += 4
             z_blob, y_blob = self._blobs(data, off, 2)
             z_syms.append(self.z_coder.decode_symbols(z_blob, z_shape))
             n_lanes, pay = Rans16InterleavedCodec.parse(y_blob)
@@ -481,7 +528,11 @@ class ChannelCoder:
         syn = torch.from_numpy(
             np.stack([hd[3] for hd in heads]).astype(np.float32)
         ).reshape(b, -1, 1, 1).to(self.device)
-        rec = _passes(self.model.synthesize, p, y_hat, syn)
+        if self.has_gain:  # each image's header rate
+            rate_t = torch.tensor(rates, dtype=torch.float32, device=self.device)
+            rec = _passes(self.model.synthesize, p, y_hat, syn, rate_t)
+        else:
+            rec = _passes(self.model.synthesize, p, y_hat, syn)
         return rec[:, :, :orig_h, :orig_w]
 
     def _check_final(self, lanes, ends) -> None:

@@ -1,6 +1,6 @@
 """Preset table of the port: the ``neural_syntax``, ``source_net``,
-``source_net_wam``, ``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``
-and ``entroformer_cb_full`` rows, built from the port's
+``source_net_wam``, ``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``,
+``entroformer_cb_full`` and ``source_net_vr`` rows, built from the port's
 ``config.CodecConfig``.
 
 Each row must equal ``lic_tpu.models.presets.PRESETS[name]``; a test holds
@@ -86,6 +86,17 @@ PRESETS: Dict[str, CodecConfig] = {
         entro_heads=6,
         entro_dim_mult=2,
     ),
+    # variable-rate source_net: 4 learned gain-unit pairs span the
+    # reference's λ family {0.0025, 0.0067, 0.013, 0.05} from one
+    # checkpoint (train with TrainConfig.lmbda_list)
+    "source_net_vr": CodecConfig(
+        family="charm",
+        transform="plain",
+        hyper="classic_dual",
+        swatten=False,
+        syntax="basic",
+        gain_units=4,
+    ),
 }
 
 # the JAX package's other presets → the ROADMAP item that ports each
@@ -96,7 +107,6 @@ NOT_YET_PORTED: Dict[str, str] = {
     "net_unet": "A16",
     "net_unet_1": "A16",
     "net_unet_005_5": "A16",
-    "source_net_vr": "A16",
 }
 
 

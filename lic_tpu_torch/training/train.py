@@ -22,9 +22,13 @@ Under ``torch.distributed`` pass the model wrapped in
 ``DistributedDataParallel`` (``parallel.distributed``): each rank takes
 its share of the batch and DDP averages the gradients.
 
+Gain-unit models with ``lmbda_list`` train multi-rate: each step draws a
+unit k uniformly from [0, K) with the state's own ``rate_generator`` and
+optimizes λ_k·255²·D + R at rate k, so one checkpoint learns K operating
+points.
+
 Not ported (ROADMAP A16): the HAN post-processing phase
-(``post_processing_phase=True``, ``freeze_partition``) and multi-rate
-training of gain units (``lmbda_list``).
+(``post_processing_phase=True``, ``freeze_partition``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from . import schedule as schedules
 from .adam import Adam
 from .loss import ms_ssim, rate_distortion_loss
 
-_A16 = "the HAN post-processing tail and gain units are not ported (ROADMAP A16)"
+_A16 = "the HAN post-processing tail is not ported (ROADMAP A16)"
 
 
 def _unwrap(model: nn.Module) -> nn.Module:
@@ -146,6 +150,7 @@ class TrainState:
     model: nn.Module            # the codec, or its DDP wrapper
     optimizer: CodecOptimizer
     generator: torch.Generator  # the noise draws
+    rate_generator: torch.Generator  # multi-rate training's unit draws (CPU)
     step: int = 0
 
 
@@ -153,20 +158,37 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
                     optimizer: CodecOptimizer) -> Callable:
     """→ ``train_step(state, batch, on_phase=None) -> metrics``.
     ``on_phase(name)``, where given, is called at "start", "forward",
-    "backward" and "optimizer" (the end of each phase), for timing."""
-    if train_cfg.lmbda_list:
-        raise NotImplementedError(f"lmbda_list (multi-rate training): {_A16}")
+    "backward" and "optimizer" (the end of each phase), for timing.
+    With ``train_cfg.lmbda_list`` (gain-unit models, one λ per unit) each
+    step trains at a unit drawn from ``state.rate_generator``; the
+    metrics' ``rate`` says which."""
+    gain_units = _unwrap(model).cfg.gain_units
+    multi_rate = bool(train_cfg.lmbda_list)
+    if multi_rate and gain_units == 0:
+        raise ValueError(
+            "lmbda_list was given but the model has no gain units — the "
+            "run would silently train single-rate at lmbda_list unused"
+        )
+    if multi_rate and len(train_cfg.lmbda_list) != gain_units:
+        raise ValueError(
+            f"lmbda_list has {len(train_cfg.lmbda_list)} entries for "
+            f"{gain_units} gain units"
+        )
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         mark = on_phase or (lambda name: None)
         mark("start")
+        rate, lmbda = None, train_cfg.lmbda
+        if multi_rate:
+            k = int(torch.randint(gain_units, (), generator=state.rate_generator))
+            rate, lmbda = float(k), train_cfg.lmbda_list[k]
         optimizer.zero_grad()
-        out = state.model(batch, training=True, noise_fn=uniform_noise(state.generator))
+        out = state.model(batch, training=True, noise_fn=uniform_noise(state.generator),
+                          rate=rate)
         msssim = (ms_ssim(out.x_tilde, batch, data_range=2.0)
                   if train_cfg.loss_type != "mse" else None)
-        loss = rate_distortion_loss(out.bpp, out.mse, train_cfg.lmbda, train_cfg.loss_type,
-                                    msssim)
+        loss = rate_distortion_loss(out.bpp, out.mse, lmbda, train_cfg.loss_type, msssim)
         aux = _unwrap(state.model).entropy_aux_loss()
         mark("forward")
         (loss + aux).backward()
@@ -174,18 +196,23 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
         finite = optimizer.step_if_finite()
         mark("optimizer")
         state.step += 1
-        return {"loss": loss.detach(), "bpp": out.bpp.detach(), "mse": out.mse.detach(),
-                "aux": aux.detach(), "skipped": torch.tensor(float(not finite))}
+        metrics = {"loss": loss.detach(), "bpp": out.bpp.detach(), "mse": out.mse.detach(),
+                   "aux": aux.detach(), "skipped": torch.tensor(float(not finite))}
+        if multi_rate:
+            metrics["rate"] = torch.tensor(rate)
+        return metrics
 
     return train_step
 
 
 def create_state(model: nn.Module, optimizer: CodecOptimizer, seed: int = 0) -> TrainState:
     """The state at step 0; the noise generator lives on the model's
-    device, seeded with ``seed + 2`` (the JAX package's rng seed)."""
+    device, seeded with ``seed + 2`` (the JAX package's rng seed), the
+    rate generator on the CPU, seeded with ``seed + 3``."""
     device = next(_unwrap(model).parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed + 2)
-    return TrainState(model=model, optimizer=optimizer, generator=gen)
+    rate_gen = torch.Generator().manual_seed(seed + 3)
+    return TrainState(model=model, optimizer=optimizer, generator=gen, rate_generator=rate_gen)
 
 
 def train(

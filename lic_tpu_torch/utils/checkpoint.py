@@ -14,7 +14,7 @@ torch state.
   model owns the module, and its leaves are the model's own.
 * ``CheckpointManager`` keeps the trainer's state per epoch with
   ``torch.save``: the model's state dict, both optimizers' state, the
-  schedule's count, the step and the noise generator's state.
+  schedule's count, the step and the noise and rate generators' states.
 """
 
 from __future__ import annotations
@@ -102,7 +102,8 @@ class CheckpointManager:
     def save(self, state, step: int) -> None:
         model = getattr(state.model, "module", state.model)
         payload = {"model": model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                   "step": state.step, "generator": state.generator.get_state()}
+                   "step": state.step, "generator": state.generator.get_state(),
+                   "rate_generator": state.rate_generator.get_state()}
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))
@@ -124,4 +125,6 @@ class CheckpointManager:
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         state.generator.set_state(payload["generator"])
+        if "rate_generator" in payload:  # files written before multi-rate training
+            state.rate_generator.set_state(payload["rate_generator"])
         return state

@@ -19,6 +19,7 @@ conversion applies the inverse of the layout rules of
 * ``nn.Embed``'s ``embedding`` (the entroformer's
   ``relative_attention_bias``) to the parameter of that name;
 * every other leaf (GDN β/Γ, entropy-bottleneck tensors, biases, the
+  gain units' (K, N) ``log_gain`` / ``log_inv_gain``, the
   ``relative_position_bias_table``, which keeps the reference's
   ((2ws-1)², nh) layout, and WMSA's (2ws-1, 2ws-1, nh)
   ``relative_position_params``) as is.

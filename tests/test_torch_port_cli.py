@@ -151,7 +151,6 @@ def test_c5_streams_decode_alike_in_any_batch(coder):
 
 
 @pytest.mark.parametrize("flag", [["--progressive"], ["--truncate_planes", "2"],
-                                  ["--rate", "1.0"], ["--target_bpp", "0.5"],
                                   ["--post_processing"]])
 def test_codec_a16_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="A16"):
@@ -159,7 +158,7 @@ def test_codec_a16_flags_raise(tmp_path, flag):
                    "--weight_path", "unused.npz", *flag])
 
 
-@pytest.mark.parametrize("flag", [["--rate", "1.0"], ["--post_processing"]])
+@pytest.mark.parametrize("flag", [["--post_processing"]])
 def test_eval_a16_flags_raise(tmp_path, flag):
     from lic_tpu_torch.cli import eval as teval
 

@@ -879,3 +879,41 @@ def test_decompress_batch_of_single_streams_is_bitidentical(source_net_on_card):
     alone = torch.cat([coder.decompress(s) for s in singles])
     chunks = torch.cat([coder.decompress_batch(singles[:4]), coder.decompress_batch(singles[4:])])
     assert torch.equal(together, alone) and torch.equal(together, chunks)
+
+
+def test_mixed_rate_batch_on_the_card_equals_per_image(cuda_device):
+    """``source_net_vr`` on the card: a mixed-rate ``compress_batch``
+    gives each image's ``compress`` alone at its rate, and its decode is
+    the batch decode of those streams, bit for bit."""
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models.compress import ChannelCoder
+
+    model = build_model("source_net_vr", seed=0)
+    x = _cl(torch.from_numpy(smooth_images(np.random.default_rng(1), 3, 128, 128)), cuda_device)
+    coder = ChannelCoder(model, name="source_net_vr")
+    rates = [0.0, 1.5, 3.0]
+    blobs = coder.compress_batch(x, rates=rates)
+    assert blobs == [coder.compress(x[i : i + 1], rate=r) for i, r in enumerate(rates)]
+    assert len(blobs[0]) < len(blobs[2])
+    together = coder.decompress_batch(blobs)
+    assert torch.equal(together, torch.cat([coder.decompress(b) for b in blobs]))
+
+
+def test_eb_table_on_the_card_equals_the_cpu(cuda_device):
+    """The factorized prior's pmf table, CDFs and digest from a model on
+    the card equal those of the same weights on the CPU (ROADMAP §C7)."""
+    from lic_tpu_torch.models.compress import ChannelCoder
+
+    cpu = build_model("source_net", device="cpu", seed=3)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name, p in cpu.entropy_bottleneck.named_parameters():
+            if name.startswith("factor_"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    card = build_model("source_net", seed=3)
+    card.load_state_dict(cpu.state_dict())
+    t_cpu, t_card = cpu.eb_pmf_table(-128, 127), card.eb_pmf_table(-128, 127)
+    assert t_card.device.type == "cpu" and torch.equal(t_card, t_cpu)
+    c_cpu, c_card = ChannelCoder(cpu), ChannelCoder(card)
+    assert np.array_equal(c_card.z_coder.codec.cdfs, c_cpu.z_coder.codec.cdfs)
+    assert c_card.digest == c_cpu.digest

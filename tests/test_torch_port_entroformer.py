@@ -17,12 +17,12 @@
   JAX coder's, and ``.ltc`` streams byte for byte both ways, each decoded
   by the other package within 1e-4 of its forward.
 
-The coders use the JAX init of the entropy bottleneck as it is (the
-cross-package CLI test does the same): its quantized CDF tables set the
-digest, and woken EB leaves can move one CDF entry by one between the
-packages' float rounding (ROADMAP §C7).  ``test_woken_eb_cdf_tables_equal_jax``
-holds the tables equal with the EB leaves woken, as in a trained
-checkpoint: it fails while §C7 is open (a strict xfail).
+The models' zero-init leaves are woken with seeded values, the entropy
+bottleneck's ``factor_i`` included, as in a trained checkpoint: its
+quantized CDF tables set the digest, so the ``.ltc`` streams cross only
+where the port's pmf table is JAX's bit for bit (ROADMAP §C7, closed by
+``entropy/xla_f32.py``).  ``test_woken_eb_cdf_tables_equal_jax`` holds
+the tables equal for six more seeds of the EB's factors.
 """
 
 import dataclasses
@@ -65,15 +65,12 @@ def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=ATOL)
 
 
-def _wake(tree, seed, keep=()):
-    """Small seeded values for every all-zero leaf outside ``keep``."""
+def _wake(tree, seed):
+    """Small seeded values for every all-zero leaf."""
     rng = np.random.default_rng(seed)
-    out = jax.tree.map(
+    return jax.tree.map(
         lambda a: np.array(a) if np.any(a)
         else (rng.standard_normal(a.shape) * 0.05).astype(np.float32), tree)
-    for k in keep:
-        out[k] = jax.tree.map(np.array, tree[k])
-    return out
 
 
 def _pair(name, seed=0):
@@ -81,7 +78,7 @@ def _pair(name, seed=0):
     init = jax.jit(lambda k: jm.init(
         {"params": k, "noise": jax.random.PRNGKey(1)}, jnp.zeros((1, 64, 64, 3)),
         training=True))
-    params = _wake(init(jax.random.PRNGKey(seed))["params"], 7, keep=("entropy_bottleneck",))
+    params = _wake(init(jax.random.PRNGKey(seed))["params"], 7)
     tm = build_model(name, device="cpu", n_override=N)
     tm.load_state_dict(params_from_flax(params, PRESETS[name]))
     return jm, params, tm
@@ -313,17 +310,19 @@ def test_ltc_streams_cross_both_ways(coders):
     assert tc.compress(_nchw(x[1:])) == tb[1]
 
 
-@pytest.mark.xfail(strict=True, reason="ROADMAP §C7: woken entropy-bottleneck weights give "
-                   "the packages different factorized CDF tables")
 def test_woken_eb_cdf_tables_equal_jax(cb):
     """The factorized prior's quantized CDF tables (the ``.ltc`` digest)
     with the EB's zero-init leaves (its ``factor_i``) set to seeded values,
     as a trained checkpoint has them, for six seeds: equal in both
-    packages.  Open fault (ROADMAP §C7): the pmf tables differ in the last
-    float bits, and at most seeds a quantized CDF entry moves by one."""
+    packages (ROADMAP §C7: the port's pmf table is XLA's float32, computed
+    on the host by ``entropy/xla_f32.py``)."""
     jm, params, _ = cb
     for seed in range(11, 17):
-        woken = dict(params, entropy_bottleneck=_wake(params["entropy_bottleneck"], seed))
+        rng = np.random.default_rng(seed)
+        eb = {k: (rng.standard_normal(v.shape) * 0.05).astype(np.float32)
+              if k.startswith("factor_") else v
+              for k, v in params["entropy_bottleneck"].items()}
+        woken = dict(params, entropy_bottleneck=eb)
         tm = build_model("entroformer_cb", device="cpu", n_override=N)
         tm.load_state_dict(params_from_flax(woken, PRESETS["entroformer_cb"]))
         pmf_j = jm.apply({"params": woken}, -Z_RANGE, Z_RANGE - 1,
@@ -333,5 +332,5 @@ def test_woken_eb_cdf_tables_equal_jax(cb):
             pmf_t = tm.eb_pmf_table(-Z_RANGE, Z_RANGE - 1)
             med_t = tm.eb_medians()
         want = JFactorizedCoder(np.asarray(pmf_j), np.asarray(med_j), -Z_RANGE).codec.cdfs
-        got = FactorizedCoder(pmf_t.numpy(), med_t.numpy(), -Z_RANGE).codec.cdfs
+        got = FactorizedCoder(pmf_t.numpy(), med_t.detach().numpy(), -Z_RANGE).codec.cdfs
         np.testing.assert_array_equal(got, want, err_msg=f"EB woken with seed {seed}")

@@ -235,11 +235,3 @@ def test_evaluate_folder_matches_jax(pair, tmp_path):
         np.testing.assert_allclose(at[k], aj[k], rtol=RTOL, err_msg=k)
     assert [l.split(":")[0] for l in lines_t] == [l.split(":")[0] for l in lines_j]
     assert lines_t[-1].startswith("AVG: bpp=")
-
-
-def test_eval_rate_raises_naming_a16(pair):
-    _, _, tm = pair
-    x = torch.zeros(1, 3, 64, 64).contiguous(memory_format=torch.channels_last)
-    for fn in (evaluate_image, content_adaptive_finetune):
-        with pytest.raises(NotImplementedError, match="A16"):
-            fn(tm, x, EvalConfig(rate=1.0))

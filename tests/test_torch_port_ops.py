@@ -71,13 +71,14 @@ def test_default_build_without_cuda_raises(monkeypatch):
 
 
 def test_import_leaves_jax_unloaded():
-    """Importing every module of ``lic_tpu_torch`` in a fresh interpreter
-    loads no ``jax``/``flax`` and no module of ``lic_tpu`` (the JAX
-    package), not even one that imports no jax."""
+    """Importing every module of ``lic_tpu_torch`` (``serving`` too) in a
+    fresh interpreter loads no ``jax``/``flax`` and no module of
+    ``lic_tpu`` (the JAX package), not even one that imports no jax."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import lic_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(lic_tpu_torch.__path__, 'lic_tpu_torch.')]\n"
+        "assert 'lic_tpu_torch.serving.service' in mods, mods\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'lic_tpu'))\n"
