@@ -182,7 +182,29 @@ Each phase prints one line:
    rates cycling through those of [vr], then their 24 decompresses; every
    stream equals ``compress`` and every decode ``decompress`` bit for
    bit, no error, the launches those of the batches the service formed;
-   p50/p95 latency, mean batch and requests/s.
+   p50/p95 latency, mean batch and requests/s;
+18. [c8] (``source_net``, ``source_net_vr`` at rate 1.5, EB woken): one
+   512×768 stream written by the card coder in its pass of 8, decoded by
+   the CPU model of the same weights: the decode equals the card's within
+   1e-4 or raises the final-state check (which of the two is printed),
+   never other pixels; beside it the σ-rows of the decoder's passes on the
+   CPU against the card's, on the card's stream, per slice;
+19. [prog] (``source_net``, EB woken; one 512×768 and one 480×640 image,
+   which pads): ``ProgressiveCoder`` with both digit models, compress and
+   the full decompress with exact launches, the full decode within 1e-4
+   of the forward in the coder's passes, a decode at every truncation
+   point (MSE no worse than the step before's, 1% slack), a cut blob
+   raising; planes, bytes per truncation point, ms and the host's share;
+   ``cli.codec.main --progressive`` and ``--truncate_planes`` on a PNG;
+20. [han] (``source_net`` with the HAN tail, its zero-init leaves woken):
+   the stages and the tail's stages at 128×128 against the CPU model
+   within 1e-4, the B = 8 512×768 forward + roundtrip with exact launches
+   (the tail takes no kernel), ms with and without the tail, peak memory,
+   ``evaluate_image`` at B = 1, the CLIs' ``--post_processing``;
+   [han_train] one phase-2 step (B = 8 crops of 256×256): every base leaf
+   bit-identical without optimizer state, every HAN leaf with a gradient
+   moved, no kernel backward, ms by phase, peak memory.  ``[wall]
+   c8_prog_han_s=`` times 18-20, and each of their lines its seconds.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
 it replaces, launches on the main paths, max error, times and bound (B1 as
@@ -246,6 +268,15 @@ VR_LMBDAS = (0.0025, 0.0067, 0.013, 0.05)
 # threads, alternating between two sizes (480×640 pads to 512×640)
 SERVE_REQUESTS, SERVE_THREADS = 24, 4
 SERVE_SIZES = ((512, 768), (480, 640))
+# [c8]: a card-written 512×768 stream (the card coder's pass of 8) decoded
+# by the CPU model of the same weights
+C8_PRESETS = ("source_net", "source_net_vr")
+# [prog]: the progressive coder on source_net, one image of each size
+# (480×640 pads to 512×640), both digit models
+PROG_SIZES = ((512, 768), (480, 640))
+PROG_DIGITS = ("gaussian", "static")
+# [han]: source_net with the HAN post-processing tail
+HAN_SMALL = 128
 # [entro], [ns]: the entroformer checkerboard and neural-syntax paths,
 # driven as the four ChARM paths are (``_drive``)
 ENTRO_PATHS = ("entroformer_cb", "entroformer_cb_full")
@@ -318,6 +349,17 @@ EXPECTED = {
     **{f"eval:net_unet_ha_hs_dec@{h}x{w}": {"gdn": 9, "conv5s2": 2, "convk_s1": 60,
                                            "wba": 20, "wba_plain_route": 5}
        for h, w in EVAL_SIZES},
+    # [prog]: compress (g_a; h_a.c0, both h_s.c2 and slice 0's two c0 in B6)
+    # then the full decompress (both h_s.c2, slice 0's c0s, g_s), one pass
+    # of 8 each; the planes are coded on the host
+    **{f"prog:{dm}@{h}x{w}": {"gdn": 7, "conv5s2": 3, "convk_s1": 9}
+       for dm in PROG_DIGITS for h, w in PROG_SIZES},
+    # [han]: the tail's 64-channel convs take no kernel slot (C_in 3, 64,
+    # 128, 320), so source_net's launches; its phase-2 training step runs
+    # the base's kernels forward only
+    "han:source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14},
+    "eval:han@512x768": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
+    "train:han_phase2": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
     "tune:source_net": {"gdn": 7 * TUNE_ITERS, "conv5s2": 3 * TUNE_ITERS,
                         "convk_s1": 5 * TUNE_ITERS},
     "tune:source_net_wam": {"gdn": 7 * TUNE_ITERS, "conv5s2": 3 * TUNE_ITERS,
@@ -705,6 +747,17 @@ def main() -> int:
     launches.update(_drive_vr(dev, counted, conv_calls, gdn_calls, train_shapes))
     torch.cuda.empty_cache()
     _say("wall", c7_vr_serve_s=f"{time.perf_counter() - t_vr:.1f}")
+
+    # ---- [c8], [prog], [han], [han_train]: card streams on the CPU, the
+    # progressive coder and the HAN tail
+    t_new = time.perf_counter()
+    _c8(dev)
+    torch.cuda.empty_cache()
+    launches.update(_drive_prog(dev, counted))
+    torch.cuda.empty_cache()
+    launches.update(_drive_han(dev, counted, conv_calls, gdn_calls, train_shapes))
+    torch.cuda.empty_cache()
+    _say("wall", c8_prog_han_s=f"{time.perf_counter() - t_new:.1f}")
 
     # ---- 5. source_net in bf16 and at is_high, one forward each; [c3]
     # source_net_wam at is_high, with and without fuse_proj
@@ -2476,6 +2529,425 @@ def _serve(model, dev, counters):
          streams_equal_compress=True, decodes_equal_decompress=True,
          batches_formed=json.dumps([f"{k}{n}@{h}x{w}" for k, h, w, n in formed]),
          launches=runs["serve:source_net_vr"])
+    return runs
+
+
+def _c8(dev):
+    """[c8] for each of ``C8_PRESETS`` (EB woken, as in [c7]): one 512×768
+    stream written by the card coder in its pass of 8 (``source_net_vr``
+    at rate 1.5), decoded by the CPU model of the same weights.  The CPU
+    decode either equals the card's within ``RECON_TOL`` or raises the
+    final-state check's ``ValueError``; other pixels fail the phase, and
+    so does a raise where no σ-row differs.  Beside it, the σ-rows of the
+    decoder's passes on the CPU against the card's, on the card's stream
+    (``tools.batch_probe.rows_card_vs_cpu``)."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import ChannelCoder, pass_batch
+    from lic_tpu_torch.tools.batch_probe import rows_card_vs_cpu
+
+    for preset in C8_PRESETS:
+        t0 = time.perf_counter()
+        card = build_model(preset, device=dev, seed=SEED)
+        cpu = build_model(preset, device="cpu", seed=SEED)
+        woken = _wake_eb(card, cpu)
+        c_card, c_cpu = ChannelCoder(card, name=preset), ChannelCoder(cpu, name=preset)
+        x = torch.from_numpy(smooth_images(np.random.default_rng(SEED + 13), 1, H, W)).to(
+            dev).contiguous(memory_format=torch.channels_last)
+        rate = 1.5 if c_card.has_gain else None
+        blob = c_card.compress(x, rate=rate)
+        rec_card = c_card.decompress(blob).cpu()
+        rows = rows_card_vs_cpu(card, cpu, c_card, c_cpu, x, rate=rate)
+        t1 = time.perf_counter()
+        try:
+            rec_cpu = c_cpu.decompress(blob)
+            outcome, diff = "equal", float((rec_cpu - rec_card).abs().max())
+        except ValueError as e:
+            if "final-state" not in str(e):
+                raise
+            outcome, diff = "raised the final-state check", None
+        cpu_s = time.perf_counter() - t1
+        if diff is not None and diff > RECON_TOL:
+            raise AssertionError(f"c8 {preset}: the CPU decode returned other pixels ({diff})")
+        if diff is None and not rows["rows"]:
+            raise AssertionError(f"c8 {preset}: the CPU decode raised with no σ-row differing")
+        _say("c8", preset=preset, size=f"{H}x{W}", pass_batch_card=pass_batch(H, W, dev),
+             pass_batch_cpu=pass_batch(H, W, torch.device("cpu")),
+             rate=rate, eb_leaves_woken=woken, stream_bytes=len(blob),
+             sigma_rows_differing=rows["rows"], of_symbols=rows["symbols"],
+             rows_differing_by_slice=json.dumps(rows["steps"]), cpu_decode=repr(outcome),
+             cpu_vs_card_recon_max_diff="n/a" if diff is None else f"{diff:.3g}",
+             cpu_decode_s=f"{cpu_s:.2f}", seconds=f"{time.perf_counter() - t0:.1f}")
+        del card, cpu, c_card, c_cpu
+
+
+def _host_timer(coder):
+    """Wrap the host coding calls of a ``ProgressiveCoder`` (z-coder,
+    trit-plane coder) to add their seconds into the returned dict's
+    ``"s"``."""
+    spent = {"s": 0.0}
+    plane = coder.gauss if coder.gauss is not None else coder.trit
+    for obj, names in ((coder.z_coder, ("encode_symbols", "decode_symbols")),
+                       (plane, ("encode", "decode"))):
+        for name in names:
+            inner = getattr(obj, name)
+
+            def timed(*a, _inner=inner, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _inner(*a, **k)
+                finally:
+                    spent["s"] += time.perf_counter() - t0
+            setattr(obj, name, timed)
+    return spent
+
+
+def _drive_prog(dev, counters):
+    """[prog] ``ProgressiveCoder`` over ``source_net`` (EB woken) on one
+    seeded image of each of ``PROG_SIZES``, both digit models: compress
+    then the full decompress with counters zeroed just before and read
+    just after (exact launches); the full decode within ``RECON_TOL`` of
+    the eval forward in the coder's passes (``_pass_forward``); a decode
+    at every truncation point, each MSE against the image no worse than
+    the step before's by 1% (``tests/test_progressive.py``); the blob
+    cut by 3 bytes raises; the planes, bytes per truncation point, ms of
+    compress and full decompress (median of 3) and the host share (the
+    host's trit-plane and z coding over the wall time).  Where PIL
+    imports, ``cli.codec.main --progressive`` and ``--truncate_planes``
+    on a PNG.  → {run: launches}."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.data.pad import pad_to_multiple
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import pass_batch
+    from lic_tpu_torch.models.progressive import ProgressiveCoder
+
+    model = build_model("source_net", device=dev, seed=SEED)
+    woken = _wake_eb(model)
+    runs = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for i, (h, w) in enumerate(PROG_SIZES):
+        x = torch.from_numpy(smooth_images(np.random.default_rng(SEED + 12 + i), 1, h, w)).to(
+            dev).contiguous(memory_format=torch.channels_last)
+        xp, _ = pad_to_multiple(x, 64)
+        ref = _pass_forward(model, xp)[:, :, :h, :w]
+        for dm in PROG_DIGITS:
+            t_phase = time.perf_counter()
+            run = f"prog:{dm}@{h}x{w}"
+            coder = ProgressiveCoder(model, name="source_net", digit_model=dm)
+            host = _host_timer(coder)
+            _zero(counters)
+            blob = coder.compress(x)
+            rec = coder.decompress(blob)
+            runs[run] = _read(counters)
+            rec_err = float((rec - ref).abs().max())
+            if rec_err > RECON_TOL:
+                raise AssertionError(f"{run}: full decode {rec_err} off the forward")
+            pts = coder.truncation_points(blob)
+            mses = [float(torch.mean((coder.decompress(blob, n) - x) ** 2)) for n, _ in pts]
+            worse = [k for k in range(1, len(mses)) if mses[k] > mses[k - 1] * 1.01]
+            if worse:
+                raise AssertionError(f"{run}: MSE rose at planes {worse}: {mses}")
+            try:
+                coder.decompress(blob[:-3])
+                raise AssertionError(f"{run}: a blob cut by 3 bytes decoded")
+            except ValueError:
+                pass
+            times = {"compress": [], "decompress": []}
+            shares = {"compress": [], "decompress": []}
+            for _ in range(3):
+                for kind, fn in (("compress", lambda: coder.compress(x)),
+                                 ("decompress", lambda: coder.decompress(blob))):
+                    host["s"] = 0.0
+                    _, dt = timed(fn)
+                    times[kind].append(dt)
+                    shares[kind].append(host["s"] / dt)
+            med = {k: sorted(v)[1] for k, v in times.items()}
+            share = {k: sorted(v)[1] for k, v in shares.items()}
+            planes = [len(p) for p in coder.parse(blob)[4]]
+            _say("prog", preset="source_net", size=f"{h}x{w}", digit_model=dm,
+                 eb_leaves_woken=woken, pass_batch=pass_batch(*xp.shape[2:], dev),
+                 planes_by_slice=json.dumps(planes), stream_bytes=len(blob),
+                 bpp=f"{len(blob) * 8 / (h * w):.4f}",
+                 bytes_by_truncation_point=json.dumps([b for _, b in pts]),
+                 mse_by_truncation_point=json.dumps([float(f"{m:.5g}") for m in mses]),
+                 full_decode_vs_forward=f"{rec_err:.3g}", truncated_blob_raises=True,
+                 launches=runs[run], compress_ms=f"{med['compress'] * 1e3:.1f}",
+                 decompress_ms=f"{med['decompress'] * 1e3:.1f}",
+                 host_share_compress=f"{share['compress']:.3f}",
+                 host_share_decompress=f"{share['decompress']:.3f}",
+                 seconds=f"{time.perf_counter() - t_phase:.1f}", weights="UNTRAINED")
+    _cli_flags(model, "prog")
+    return runs
+
+
+def _cli_flags(model, phase):
+    """Where PIL imports: the codec CLI on the card with this slice's flags,
+    on a seeded 480×640 PNG under ``build/smoke_cli_<phase>`` and the
+    model's weights saved as a ``.npz``.  ``prog``: ``--progressive``
+    compress, then decompress with ``--truncate_planes 2`` and with all
+    planes, the decodes of the sizes of the image and the full one equal
+    to ``ProgressiveCoder.decompress`` (uint8); ``han``:
+    ``--post_processing`` compress and decompress, and ``cli.eval.main
+    --post_processing`` (its ``AVG:`` line)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        _say(f"{phase}_cli", pil="absent")
+        return
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.cli import codec as cli_codec, eval as cli_eval
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.utils.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", f"smoke_cli_{phase}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "png"))
+    img = smooth_images(np.random.default_rng(SEED + 14), 1, 480, 640)[0].transpose(1, 2, 0)
+    png = os.path.join(root, "png", "a.png")
+    Image.fromarray(np.clip((img + 1) * 127.5 + 0.5, 0, 255).astype(np.uint8)).save(png)
+    weights = os.path.join(root, "w.npz")
+    save_params(weights, model)
+    device = next(model.parameters()).device.type
+    common = ["--weight_path", weights, "--preset", "source_net", "--device", device]
+    out = io.StringIO()
+    line = {}
+    with contextlib.redirect_stdout(out):
+        if phase == "prog":
+            from lic_tpu_torch.data.datasets import load_image_uint8, normalize_pm1, to_batch
+            from lic_tpu_torch.models.progressive import ProgressiveCoder
+
+            cli_codec.main(["compress", png, os.path.join(root, "a.ltcp"), *common,
+                            "--progressive"])
+            for n in (2, None):
+                extra = [] if n is None else ["--truncate_planes", str(n)]
+                cli_codec.main(["decompress", os.path.join(root, "a.ltcp"),
+                                os.path.join(root, f"a{n}.png"), *common, "--progressive",
+                                *extra])
+            with open(os.path.join(root, "a.ltcp"), "rb") as fd:
+                blob = fd.read()
+            coder = ProgressiveCoder(model, name="source_net")
+            x = to_batch(normalize_pm1(load_image_uint8(png))[None], device)
+            same_bytes = blob == coder.compress(x)
+            for n in (2, None):
+                want = cli_codec.to_uint8(coder.decompress(blob, n)[0].permute(1, 2, 0).cpu()
+                                          .numpy())
+                got = np.asarray(Image.open(os.path.join(root, f"a{n}.png")))
+                if not (same_bytes and np.array_equal(got, want)):
+                    raise AssertionError(f"prog cli: bytes equal {same_bytes}, decode at "
+                                         f"{n} planes differs from decompress")
+            line = dict(stream_bytes=len(blob), planes=coder.truncation_points(blob)[-1][0],
+                        cli_bytes_equal_compress=True, truncate_planes_2_equal=True)
+        else:
+            cli_codec.main(["compress", png, os.path.join(root, "a.ltc"), *common,
+                            "--post_processing"])
+            cli_codec.main(["decompress", os.path.join(root, "a.ltc"),
+                            os.path.join(root, "a_rec.png"), *common, "--post_processing"])
+            cli_eval.main(["--data_path", os.path.join(root, "png"), "--weight_path", weights,
+                           "--preset", "source_net", "--post_processing", "--device", device])
+            size = Image.open(os.path.join(root, "a_rec.png")).size[::-1]
+            avg = [l for l in out.getvalue().splitlines() if l.startswith("AVG:")]
+            if size != img.shape[:2] or len(avg) != 1:
+                raise AssertionError(f"han cli: decoded size {size}, AVG lines {avg}")
+            line = dict(decoded_size=f"{size[0]}x{size[1]}", eval_avg=repr(avg[0]))
+    torch.cuda.synchronize()
+    _say(f"{phase}_cli", device=device, **line, seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def _wake_han(*models):
+    """Seeded values for the HAN's all-zero leaves that ``_wake_zero_leaves``
+    leaves (its biases, the LAM and CSAM scales γ), the same on every
+    model given: at γ = 0 layer and channel-spatial attention add exactly
+    0.  → leaves woken per model."""
+    import torch
+
+    for m in models:
+        g = torch.Generator().manual_seed(SEED + 4)
+        woken = 0
+        with torch.no_grad():
+            for _, p in m.han.named_parameters():
+                if not p.any():
+                    fan_in = p[0].numel() if p.dim() > 1 else 4
+                    p.copy_(torch.randn(p.shape, generator=g) * 0.5 * fan_in ** -0.5)
+                    woken += 1
+    return woken
+
+
+def _drive_han(dev, counters, conv_calls, gdn_calls, shapes):
+    """[han] ``source_net`` with ``post_processing=True`` (every all-zero HAN
+    leaf woken, the same on the card and the CPU): the stages at
+    ``HAN_SMALL``² against the CPU model (``_small_stages``, then the
+    tail's: the generated conv's RGB, the HAN features on the CPU's RGB,
+    the tail's output), within ``RECON_TOL``; the main path, the B = 8
+    512×768 eval forward + ``compress_batch`` → ``decompress_batch`` with
+    exact launches (its B2/B3/B6 calls recorded for 6-7), the decode within
+    ``RECON_TOL`` of the forward in the coder's passes; the forward's ms
+    with and without the tail and its peak memory; ``evaluate_image`` at
+    B = 1 (launches, finite metrics); the CLIs' ``--post_processing``.
+    [han_train]: one phase-2 step (``freeze_partition``, AdamW, the
+    gradient cut at the HAN input) on B = 8 256×256 crops: exact launches
+    and no backward through a kernel, every base leaf bit-identical with
+    no optimizer state, every HAN leaf with a gradient moved; ms by phase
+    and peak memory; its kernel shapes into [grad].  → {run: launches}."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.evaluation import evaluate_image
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import ChannelCoder
+    from lic_tpu_torch.training import (create_state, freeze_partition, make_optimizer,
+                                        make_train_step)
+
+    t_phase = time.perf_counter()
+    model = build_model("source_net", device=dev, seed=SEED, post_processing=True)
+    cpu = build_model("source_net", device="cpu", seed=SEED, post_processing=True)
+    woken = _wake_zero_leaves(model, cpu) + _wake_han(model, cpu)
+    x_np = smooth_images(np.random.default_rng(SEED), BATCH, H, W)
+    x = torch.from_numpy(x_np).to(dev).contiguous(memory_format=torch.channels_last)
+    small = torch.from_numpy(x_np[:1, :, :HAN_SMALL, :HAN_SMALL].copy())
+
+    def on_gpu(t):
+        return t.to(dev).contiguous(memory_format=torch.channels_last)
+
+    base_err = _small_stages("source_net+han", model, cpu, small, on_gpu)
+    with torch.no_grad():
+        z3 = cpu.analyze(small)
+        xt = cpu.g_s(cpu(small).extras["y_hat"])
+        syn = cpu.syntax_from_latent(z3)
+        rgb_c = cpu._decode_tail(xt, syn, use_post_processing=False)
+        stages_c = {"rgb": rgb_c, "han": cpu.han(rgb_c), "tail": cpu._decode_tail(xt, syn)}
+        stages_g = {"rgb": model._decode_tail(on_gpu(xt), on_gpu(syn), use_post_processing=False),
+                    "han": model.han(on_gpu(rgb_c)),
+                    "tail": model._decode_tail(on_gpu(xt), on_gpu(syn))}
+    han_err = {k: float((stages_g[k].cpu() - v).abs().max()) for k, v in stages_c.items()}
+    han_mag = {k: float(v.abs().max()) for k, v in stages_c.items()}
+    if max(han_err.values()) > RECON_TOL:
+        raise AssertionError(f"han: the tail's stages on the card are off the CPU's: {han_err}")
+    del cpu
+
+    run = "han:source_net"
+    coder = ChannelCoder(model, name="source_net+han")
+    hooks = _record_conv_slots(model, conv_calls, run) + _record_gdn(model, gdn_calls, run)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    with torch.no_grad():
+        out = model(x)
+    peak_fwd = torch.cuda.max_memory_allocated() / 2 ** 30
+    blobs = coder.compress_batch(x)
+    rec = coder.decompress_batch(blobs)
+    runs = {run: _read(counters)}
+    for h in hooks:
+        h.remove()
+    _hooks_agree(run, runs[run], conv_calls, gdn_calls)
+    if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
+        raise AssertionError("han: non-finite forward output")
+    rec_err = float((rec - _pass_forward(model, x)).abs().max())
+    if rec_err > RECON_TOL:
+        raise AssertionError(f"han: decoded recon differs from the forward: {rec_err}")
+    mp = BATCH * H * W / 1e6
+    with torch.no_grad():
+        fwd_ms = _cuda_ms(lambda: model(x), 3)
+        base_ms = _cuda_ms(lambda: model(x, use_post_processing=False), 3)
+    rt = sorted(_cuda_ms(lambda: coder.decompress_batch(coder.compress_batch(x)), 1) / 1e3
+                for _ in range(3))[1]
+
+    erun = "eval:han@512x768"
+    _zero(counters)
+    r = evaluate_image(model, x[:1])
+    runs[erun] = _read(counters)
+    if not all(np.isfinite(r[k]) for k in ("bpp", "psnr", "mse", "msssim")):
+        raise AssertionError(f"{erun}: non-finite metrics {r}")
+    secs = sorted(evaluate_image(model, x[:1])["seconds"] for _ in range(3))
+    _say("han", preset="source_net", post_processing=True, leaves_woken=woken,
+         small_vs_cpu_max_err=f"{max(base_err.values()):.3g}",
+         tail_stages_vs_cpu=json.dumps({k: float(f"{v:.3g}") for k, v in han_err.items()}),
+         tail_stage_max_abs=json.dumps({k: round(v, 3) for k, v in han_mag.items()}),
+         launches=runs[run], bpp_est=f"{float(out.bpp):.4f}", recon_max_err=f"{rec_err:.3g}",
+         forward_ms=f"{fwd_ms:.2f}", forward_without_tail_ms=f"{base_ms:.2f}",
+         forward_mps=f"{mp / fwd_ms * 1e3:.2f}", forward_peak_mem_gib=f"{peak_fwd:.2f}",
+         roundtrip_s=f"{rt:.3f}", eval_b1_launches=runs[erun],
+         eval_b1_ms=f"{secs[1] * 1e3:.2f}", eval_psnr=f"{r['psnr']:.3f}",
+         batch=BATCH, shape=f"{H}x{W}", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         weights="UNTRAINED")
+    del out, rec, coder
+    _cli_flags(model, "han")
+
+    # [han_train]: the HAN-only phase
+    t_phase = time.perf_counter()
+    run = "train:han_phase2"
+    model.train()
+    tc = TrainConfig()
+    labels = freeze_partition(model, True)
+    opt = make_optimizer(model, tc, steps_per_epoch=1000, post_processing_phase=True)
+    state = create_state(model, opt, tc.seed)
+    step_fn = make_train_step(model, tc, opt, post_processing_phase=True)
+    batch = _train_batch(dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    hooks = _record_conv_slots(model, shapes["conv"], run) + _record_train_shapes(model, shapes)
+    ev = {}
+
+    def mark(name):
+        ev[name] = torch.cuda.Event(enable_timing=True)
+        ev[name].record()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    metrics = step_fn(state, batch, on_phase=mark)
+    runs[run] = _read(counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for h in hooks:
+        h.remove()
+    back = {k: c.backwards for k, c in counters.items() if hasattr(c, "backwards")}
+    if any(back.values()):
+        raise AssertionError(f"{run}: a kernel's backward ran behind the HAN input: {back}")
+    if not torch.isfinite(metrics["loss"]) or float(metrics["skipped"]):
+        raise AssertionError(f"{run}: loss {float(metrics['loss'])}, "
+                             f"skipped {float(metrics['skipped'])}")
+    held = {id(p) for p in opt.main_params}
+    moved = dead = 0
+    for name, p in model.named_parameters():
+        if labels[name] == "freeze":
+            if not torch.equal(p, before[name]) or id(p) in held or p in opt.main.state:
+                raise AssertionError(f"{run}: base leaf {name} moved or took optimizer state")
+        elif p.grad is not None and p.grad.any():
+            if torch.equal(p, before[name]):
+                raise AssertionError(f"{run}: HAN leaf {name} took a gradient and did not move")
+            moved += 1
+        else:
+            dead += 1
+    phases = ("start", "forward", "backward", "optimizer")
+    ms = [ev[a].elapsed_time(ev[b]) for a, b in zip(phases, phases[1:])]
+    _say("han_train", preset="source_net", training_phase=2, batch=TRAIN_BATCH, crop=TRAIN_CROP,
+         loss=f"{float(metrics['loss']):.4f}", launches=runs[run], backwards=back,
+         base_leaves_bitidentical=sum(v == "freeze" for v in labels.values()),
+         han_leaves_moved=moved, han_leaves_zero_gradient=dead,
+         step_ms=f"{sum(ms):.2f}", forward_ms=f"{ms[0]:.2f}", backward_ms=f"{ms[1]:.2f}",
+         optimizer_ms=f"{ms[2]:.2f}", peak_mem_gib=f"{peak:.2f}",
+         note="one step: its first, cuDNN's choices included",
+         seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del model, opt, state, step_fn
     return runs
 
 

@@ -19,12 +19,19 @@ gain-unit rate index (continuous: 1.5 interpolates units 1 and 2);
 (``serving.solve_rate_for_bpp``) and overrides ``--rate``.  The rate
 rides each stream's header, so decompress needs neither flag.
 
-It runs on the card unless ``--device cpu`` is given.  ``--progressive``,
-``--truncate_planes`` and ``--post_processing`` raise
-``NotImplementedError``: trit-plane streams and the HAN tail are not
-ported (ROADMAP A16).  PIL reads and writes the files;
-``compress_images`` and ``decompress_streams``, the directory mode's
-core, take arrays and blobs.
+Progressive streams (``.ltcp``, ChARM presets): ``--progressive`` codes
+one file as a scalable trit-plane stream (``models.progressive``), whose
+compress prints the bytes, bpp and every truncation point (planes → bpp);
+its decompress takes at most ``--truncate_planes`` planes, slice-major
+(all by default).  Progressive coding is single-file: a directory input
+raises ``ValueError``.
+
+``--post_processing`` builds the model with the HAN tail (the weights of a
+phase-2 checkpoint); the coders' decodes then run it.
+
+It runs on the card unless ``--device cpu`` is given.  PIL reads and
+writes the files; ``compress_images`` and ``decompress_streams``, the
+directory mode's core, take arrays and blobs.
 """
 
 from __future__ import annotations
@@ -37,7 +44,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm")
-_A16_FLAGS = ("progressive", "truncate_planes", "post_processing")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preset", default="net_ga")
     p.add_argument("--high", action="store_true")
     p.add_argument("--post_processing", action="store_true",
-                   help="the HAN tail (not ported: ROADMAP A16)")
+                   help="build the model with the HAN post-processing tail "
+                        "(required for phase-2 checkpoints)")
     p.add_argument("--batch", type=int, default=8,
                    help="max images per device batch in directory mode")
     p.add_argument("--rate", type=float, default=None,
@@ -60,9 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "image (variable-rate presets; bisection on the "
                         "estimated bpp — overrides --rate)")
     p.add_argument("--progressive", action="store_true",
-                   help="trit-plane streams (not ported: ROADMAP A16)")
+                   help="scalable trit-plane bitstream (ChARM presets, one "
+                        "file): one stream decodes at every plane-boundary "
+                        "truncation (lic_tpu_torch.models.progressive)")
     p.add_argument("--truncate_planes", type=int, default=None,
-                   help="trit-plane truncation (not ported: ROADMAP A16)")
+                   help="decompress using at most this many trit planes "
+                        "(progressive streams; slice-major count)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the card (default) or on the CPU")
     return p
@@ -128,19 +138,23 @@ def decompress_streams(coder, items: Sequence[Tuple[str, bytes]],
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for flag in _A16_FLAGS:
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag}: trit-plane streams and the HAN tail are not ported "
-                "(ROADMAP A16)")
+    if args.progressive and os.path.isdir(args.input):
+        raise ValueError("--progressive codes single files: a .ltcp stream has no "
+                         "directory batch mode")
 
     from ..data.datasets import load_image_uint8, normalize_pm1, to_batch
     from ..models import build_model
     from ..models.compress import ChannelCoder
     from ..utils.checkpoint import load_params
 
-    model = build_model(args.preset, device=args.device, is_high=args.high)
+    model = build_model(args.preset, device=args.device, is_high=args.high,
+                        post_processing=args.post_processing)
     load_params(args.weight_path, model)
+    if args.progressive:
+        from ..models.progressive import ProgressiveCoder
+
+        _run_progressive(args, ProgressiveCoder(model, name=args.preset))
+        return
     coder = ChannelCoder(model, name=args.preset, rate=args.rate)
 
     if os.path.isdir(args.input):
@@ -170,6 +184,34 @@ def main(argv=None) -> None:
         img = to_uint8(coder.decompress(blob)[0].permute(1, 2, 0).cpu().numpy())
         Image.fromarray(img).save(args.output)
         print(f"{args.input} → {args.output}: {img.shape[1]}x{img.shape[0]}")
+
+
+def _run_progressive(args, coder) -> None:
+    """Single-file progressive compress / decompress (``.ltcp``)."""
+    from ..data.datasets import load_image_uint8, normalize_pm1, to_batch
+
+    if args.command == "compress":
+        img = normalize_pm1(load_image_uint8(args.input))
+        blob = coder.compress(to_batch(img[None], coder.device))
+        with open(args.output, "wb") as fd:
+            fd.write(blob)
+        h, w = img.shape[:2]
+        pts = coder.truncation_points(blob)
+        print(f"{args.input} → {args.output}: {len(blob)} bytes "
+              f"({len(blob) * 8 / (h * w):.4f} bpp), {pts[-1][0]} planes; "
+              "truncation points (planes → bpp): "
+              + ", ".join(f"{p}→{b * 8 / (h * w):.3f}" for p, b in pts))
+    else:
+        from PIL import Image
+
+        with open(args.input, "rb") as fd:
+            blob = fd.read()
+        rec = coder.decompress(blob, max_planes=args.truncate_planes)
+        img = to_uint8(rec[0].permute(1, 2, 0).cpu().numpy())
+        Image.fromarray(img).save(args.output)
+        tag = ("" if args.truncate_planes is None
+               else f" (truncated to {args.truncate_planes} planes)")
+        print(f"{args.input} → {args.output}: {img.shape[1]}x{img.shape[0]}{tag}")
 
 
 def _run_dir(args, coder) -> None:

@@ -10,8 +10,9 @@ is a ``.npz`` of either package; ``--pre_processing`` tunes g_a per image
 (content-adaptive encoding); ``--write_bitstreams DIR`` writes each
 image's ``.ltc`` file, coded with the checkpoint's weights; ``--rate``
 picks a variable-rate preset's operating point for both.
-``--post_processing`` (the HAN tail) raises ``NotImplementedError``: it is
-not ported (ROADMAP A16).
+``--post_processing`` builds the model with the HAN tail (a phase-2
+checkpoint): the evaluation and the bitstreams' decodes run it, the
+content-adaptive tune does not.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="finetune λ (reference default, eval_net.py:236)")
     p.add_argument("--high", action="store_true")
     p.add_argument("--post_processing", action="store_true",
-                   help="the HAN tail (not ported: ROADMAP A16)")
+                   help="build the model with the HAN post-processing tail")
     p.add_argument("--pre_processing", action="store_true",
                    help="content-adaptive per-image encoder finetuning")
     p.add_argument("--tune_iter", type=int, default=100)
@@ -45,9 +46,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.post_processing:
-        raise NotImplementedError(
-            "--post_processing: the HAN tail is not ported (ROADMAP A16)")
 
     from ..config import EvalConfig
     from ..data.datasets import list_images
@@ -57,7 +55,8 @@ def main(argv=None) -> None:
     from ..models.compress import ChannelCoder
     from ..utils.checkpoint import load_params
 
-    model = build_model(args.preset, device=args.device, is_high=args.high)
+    model = build_model(args.preset, device=args.device, is_high=args.high,
+                        post_processing=args.post_processing)
     load_params(args.weight_path, model)
     if args.rate is not None and model.cfg.gain_units == 0:
         raise SystemExit(

@@ -10,7 +10,10 @@ processes: launch it under ``torchrun`` (one process per card), or give
 ``--process_id`` on every process; each rank then loads
 ``batch_size / num_processes`` crops a step.  ``--weight_path`` loads a
 ``.npz`` of either package; at the end the parameters are written to
-``<checkpoint_dir>/final.npz`` (rank 0).
+``<checkpoint_dir>/final.npz`` (rank 0).  ``--post_processing`` builds the
+model with the HAN tail and trains the tail alone (phase 2); its
+``--weight_path`` load is non-strict, so a base checkpoint without HAN
+leaves warm-starts it (the tail keeps its init).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--high", action="store_true",
                    help="high-rate capacity N=384/M=32")
     p.add_argument("--post_processing", action="store_true",
-                   help="train only the HAN post-processing phase (not ported: ROADMAP A16)")
+                   help="train only the HAN post-processing phase")
     p.add_argument("--loss_type", choices=("mse", "msssim"), default="mse")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_devices", type=int, default=None,
@@ -60,12 +63,9 @@ def main(argv=None) -> None:
     from ..data import ImageFolderDataset, train_iterator
     from ..models import build_model
     from ..parallel import init_distributed, local_device, wrap_ddp
-    from ..training import train
+    from ..training import freeze_partition, train
     from ..utils.checkpoint import load_params, save_params
 
-    if args.post_processing:
-        raise NotImplementedError(
-            "--post_processing: the HAN tail is not ported (ROADMAP A16)")
     device = local_device(cpu=args.device == "cpu")
     rank, world = init_distributed(args.coordinator_address, args.num_processes,
                                    args.process_id, device)
@@ -74,9 +74,14 @@ def main(argv=None) -> None:
     if args.batch_size % world:
         raise ValueError(f"batch {args.batch_size} does not split over {world} processes")
 
-    model = build_model(args.preset, device=device, seed=args.seed, is_high=args.high)
+    model = build_model(args.preset, device=device, seed=args.seed, is_high=args.high,
+                        post_processing=args.post_processing)
     if args.weight_path:
-        load_params(args.weight_path, model)
+        # phase-2 warm start: a base checkpoint has no HAN leaves, so the
+        # load is non-strict (the tail keeps its init)
+        load_params(args.weight_path, model, strict=not args.post_processing)
+    if model.cfg.post_processing:  # before the DDP wrap, which takes the trained leaves
+        freeze_partition(model, args.post_processing)
     tc = TrainConfig(
         lmbda=args.lmbda, lr=args.lr, batch_size=args.batch_size,
         crop_size=args.crop_size, epochs=args.epochs,
@@ -90,6 +95,7 @@ def main(argv=None) -> None:
             wrap_ddp(model), it, tc,
             steps_per_epoch=args.steps_per_epoch,
             checkpoint_dir=args.checkpoint_dir if rank == 0 else None,
+            post_processing_phase=args.post_processing,
             epochs=args.epochs,
             log_fn=print if rank == 0 else (lambda line: None),
         )

@@ -14,9 +14,10 @@ functions take ``(model, params, ...)`` these take ``(model, ...)``, and
 ``content_adaptive_finetune`` returns a tuned copy of the model where the
 JAX one returns tuned parameters.  ``EvalConfig.rate`` picks a
 variable-rate model's operating point, in the eval forward and in the
-tune forward alike.  The HAN post-processing tail is not ported (ROADMAP
-A16): a model with ``post_processing`` cannot be built
-(``models.codec.check_supported``).
+tune forward alike.  On a model with the HAN post-processing tail the
+evaluation runs it, and the tune does not: its loss is taken on the
+pre-HAN reconstruction (``use_post_processing=False``), as the
+reference sets ``net.post_processing = False`` for the per-image overfit.
 """
 
 from __future__ import annotations
@@ -108,6 +109,7 @@ def content_adaptive_finetune(
     anew and the post-step hook of ``layers.conv_direct`` keeps the split
     current through the steps.
 
+    The tune forward skips the HAN tail (``use_post_processing=False``).
     The likelihoods' noise comes from ``noise_fn`` (default: a
     ``torch.Generator`` on the image's device seeded 0; the JAX package
     draws from ``PRNGKey(0)``, so the bits differ).  ``on_phase(name)``,
@@ -129,7 +131,8 @@ def content_adaptive_finetune(
         mark("start")
         opt.param_groups[0]["lr"] = lr(step)
         opt.zero_grad(set_to_none=True)
-        out = tuned(padded, training=True, noise_fn=noise_fn, rate=eval_cfg.rate)
+        out = tuned(padded, training=True, noise_fn=noise_fn, use_post_processing=False,
+                    rate=eval_cfg.rate)
         loss = eval_cfg.lmbda * d_scale * out.mse + out.bpp
         mark("forward")
         loss.backward()

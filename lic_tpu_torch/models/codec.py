@@ -34,12 +34,22 @@ space.  The latent is scaled by the gain after g_a, so everything
 downstream codes the gained latent, and ŷ by the inverse gain before g_s.
 A scalar rate serves the batch; a (B,) rate one operating point per image.
 
+Post-processing (``cfg.post_processing``, ``:238-247``, ``_decode_tail``
+``:300-339``): the HAN tail (``models.han.HANHead``) on the generated
+conv's RGB output, then a second per-image generated 1x1 conv
+(``conv_weights_gen_han``, syntax → 3 × 64) and the DIV2K mean shift.
+Every forward takes ``use_post_processing`` (False skips the tail, as
+the content-adaptive tune does) and ``stop_base_grad`` (the gradient cut
+at the HAN input, for the HAN-only training phase); ``synthesize`` runs
+the tail, so the coders' decodes do.  The HAN parameters are built last,
+so a seed gives a post-processing model the base weights of the model
+without it.
+
 The charm configs also build a ``PredictionModelSyntax`` that no charm
 forward calls (``config.py:88``, ``codec.py:115-119``); it is not part of
 a charm model, ``utils.params`` skips its subtree there, and
-``utils.checkpoint`` carries it in the ``.npz`` files.  The other hypers,
-``stop_base_grad`` and the HAN tail raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+``utils.checkpoint`` carries it in the ``.npz`` files.  The other hypers
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from ..layers import Conv2d, SWAtten, gelu
 from ..layers.entroformer import EntroformerConfig, EntroformerContext, anchor_map
 from ..ops import bypass_round, quantize_ste_offset, ste_round, uniform_noise
 from ..ops.rounding import NoiseFn, additive_noise
+from .han import HANHead, mean_shift
 from .hyper import (
     ClassicHyperAnalysis,
     ClassicHyperSynthesis,
@@ -102,7 +113,6 @@ def check_supported(cfg: CodecConfig) -> None:
         (cfg.syntax not in ("basic", "wam") or not cfg.syntax_decoder,
          f"syntax {cfg.syntax!r} without its decoder (ROADMAP A16)"),
         (not charm and not cfg.code_syntax, "neural syntax without code_syntax"),
-        (cfg.post_processing, "the HAN post-processing tail (ROADMAP A16)"),
         (charm and cfg.context == "charm" and not cfg.lrp,
          "charm without LRP (ROADMAP A16)"),
     ]
@@ -129,6 +139,11 @@ class CodecModel(nn.Module):
         self, cfg: CodecConfig, *, generator: Optional[torch.Generator] = None
     ):
         super().__init__()
+        if cfg.post_processing and cfg.syntax == "none":
+            raise ValueError(
+                "post_processing=True needs a syntax stream: the HAN tail's "
+                "second generated conv consumes the syntax vector"
+            )
         check_supported(cfg)
         self.cfg = cfg
         N, M = cfg.N, cfg.M
@@ -144,7 +159,17 @@ class CodecModel(nn.Module):
         self.conv_weights_gen = ConvGenerator(M, M, generator=g)
         if self.is_ns:
             self._init_neural_syntax(g)
-            return
+        else:
+            self._init_charm(g)
+        if cfg.post_processing:
+            self.han = HANHead(is_high=cfg.is_high, generator=g)
+            self.conv_weights_gen_han = ConvGenerator(M, 64, generator=g)
+
+    def _init_charm(self, g):
+        """The hyper, the entropy models and the ChARM slice stacks or the
+        entroformer context (``codec.py:136-296``)."""
+        cfg = self.cfg
+        N = cfg.N
         if cfg.hyper == "classic_dual":
             self.h_a = ClassicHyperAnalysis(N, generator=g)
             self.h_mean_s = ClassicHyperSynthesis(N, generator=g)
@@ -250,29 +275,44 @@ class CodecModel(nn.Module):
         k = self.cfg.max_support_slices
         return list(y_hat_slices) if k < 0 else list(y_hat_slices[:k])
 
-    def _decode_tail(self, x_tilde, syntax_rounded):
+    def _decode_tail(self, x_tilde, syntax_rounded, use_post_processing=True,
+                     stop_base_grad=False):
+        """g_s output → RGB through the per-image generated conv (+ tanh),
+        then, on a post-processing model unless ``use_post_processing`` is
+        False, the HAN tail, the second generated conv and the mean shift.
+        ``stop_base_grad`` detaches the HAN's inputs (the RGB image and the
+        syntax vector): no gradient reaches the base network."""
         w = self.conv_weights_gen(syntax_rounded)
         x_bf = batch_conv(w, x_tilde)
-        return torch.tanh(x_bf) if self.cfg.tanh_after_syntax else x_bf
+        if self.cfg.tanh_after_syntax:
+            x_bf = torch.tanh(x_bf)
+        if stop_base_grad:
+            x_bf, syntax_rounded = x_bf.detach(), syntax_rounded.detach()
+        if not (self.cfg.post_processing and use_post_processing):
+            return x_bf
+        feats = self.han(x_bf)
+        out = batch_conv(self.conv_weights_gen_han(syntax_rounded), feats)
+        return mean_shift(out, sign=1).contiguous(memory_format=torch.channels_last)
 
     # ------------------------------------------------------------ forward
 
     def forward(
         self, x: torch.Tensor, training: bool = False, *,
-        noise_fn: Optional[NoiseFn] = None, stop_base_grad: bool = False, rate=None,
+        noise_fn: Optional[NoiseFn] = None, use_post_processing: bool = True,
+        stop_base_grad: bool = False, rate=None,
     ) -> CodecOutput:
         """The forward on NCHW ``x`` in [-1, 1]: eval mode, or
         ``training`` with the likelihoods' noise drawn by ``noise_fn``
         (default: ``uniform_noise()``, torch's default generator).
-        ``rate``: the gain units' continuous rate index, a scalar or one
-        per image (None: rate 0); models without gain units ignore it."""
-        if stop_base_grad:
-            raise NotImplementedError(
-                "stop_base_grad trains the HAN tail only, which is not ported (ROADMAP A16)")
+        ``use_post_processing`` / ``stop_base_grad``: see
+        ``_decode_tail``.  ``rate``: the gain units' continuous rate index,
+        a scalar or one per image (None: rate 0); models without gain
+        units ignore it."""
         if training and noise_fn is None:
             noise_fn = uniform_noise()
+        tail = dict(use_post_processing=use_post_processing, stop_base_grad=stop_base_grad)
         if self.is_ns:
-            return self._forward_neural_syntax(x, training, noise_fn)
+            return self._forward_neural_syntax(x, training, noise_fn, tail)
         cfg = self.cfg
         b, _, h, w = x.shape
         num_pixels = b * h * w
@@ -285,7 +325,7 @@ class CodecModel(nn.Module):
         syntax_rounded = self.syntax_from_latent(z3)
         if self.is_entro:
             return self._entroformer_entropy(x, z3, latent_scales, latent_means, z_lik,
-                                             syntax_rounded, training, noise_fn)
+                                             syntax_rounded, training, noise_fn, tail)
 
         y_hat_slices, y_liks, mus, sigmas = [], [], [], []
         for i, y_slice in enumerate(z3.chunk(cfg.num_slices, dim=1)):
@@ -303,7 +343,7 @@ class CodecModel(nn.Module):
 
         y_hat = torch.cat(y_hat_slices, dim=1)
         x_tilde = self._decode_tail(self.g_s(self._gained(y_hat, rate, inverse=True)),
-                                    syntax_rounded)
+                                    syntax_rounded, **tail)
 
         bpp_y = _bpp(torch.cat(y_liks, dim=1), num_pixels)
         if cfg.count_hyper_bpp:
@@ -323,7 +363,7 @@ class CodecModel(nn.Module):
         )
 
     def _entroformer_entropy(self, x, z3, latent_scales, latent_means, z_lik,
-                             syntax_rounded, training, noise_fn) -> CodecOutput:
+                             syntax_rounded, training, noise_fn, tail) -> CodecOutput:
         """Checkerboard entropy coding of y: anchors from the hyper alone,
         non-anchors from the anchors rounded about their μ; each pass runs
         the context once (``run``, as the JAX codec calls ``_run``)."""
@@ -337,7 +377,7 @@ class CodecModel(nn.Module):
         sigma = anchor * s1 + (1 - anchor) * s2
         _, y_lik = self.gaussian_conditional(z3, sigma, mu, training, noise_fn)
         y_hat = ste_round(z3 - mu) + mu
-        x_tilde = self._decode_tail(self.g_s(y_hat), syntax_rounded)
+        x_tilde = self._decode_tail(self.g_s(y_hat), syntax_rounded, **tail)
         num_pixels = b * h * w
         bpp_y = _bpp(y_lik, num_pixels)
         bpp_z = (_bpp(z_lik, num_pixels) if self.cfg.count_hyper_bpp
@@ -348,7 +388,7 @@ class CodecModel(nn.Module):
             extras={"y_hat": y_hat, "means": mu, "scales": sigma},
         )
 
-    def _forward_neural_syntax(self, x, training, noise_fn) -> CodecOutput:
+    def _forward_neural_syntax(self, x, training, noise_fn, tail) -> CodecOutput:
         M = self.cfg.M
         b, _, h, w = x.shape
         num_pixels = b * h * w
@@ -373,7 +413,7 @@ class CodecModel(nn.Module):
         content_lik = self.gm(content_in, sigma_c, mu_c)
         mu_s, sigma_s = self.prediction_model_syntax(h2)
         syntax_lik = self.gm(syntax_in, sigma_s, mu_s)
-        x_tilde = self._decode_tail(self.g_s(content_rounded), syntax_rounded)
+        x_tilde = self._decode_tail(self.g_s(content_rounded), syntax_rounded, **tail)
 
         bpp_z = _bpp(z2_lik, num_pixels)
         bpp_y = _bpp(content_lik, num_pixels)
@@ -440,8 +480,9 @@ class CodecModel(nn.Module):
         return y_hat_slice + 0.5 * torch.tanh(self.lrp_transforms[i](lrp_in))
 
     def synthesize(self, y_hat: torch.Tensor, syntax_rounded: torch.Tensor, rate=None):
-        """y_hat (+ syntax vector (B, M, 1, 1)) → reconstruction; ``rate``
-        selects the inverse gain of a gain-unit model."""
+        """y_hat (+ syntax vector (B, M, 1, 1)) → reconstruction, through
+        the HAN tail where the model has one; ``rate`` selects the inverse
+        gain of a gain-unit model."""
         return self._decode_tail(self.g_s(self._gained(y_hat, rate, inverse=True)),
                                  syntax_rounded)
 

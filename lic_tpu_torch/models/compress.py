@@ -198,6 +198,28 @@ def ns_lane_count(total_syms: int) -> int:
     return max(n, 8)
 
 
+def factorized_z_coder(model: CodecModel) -> Tuple[FactorizedCoder, torch.Tensor, int]:
+    """The hyper stream's coder of a charm model: ``FactorizedCoder`` over
+    the entropy bottleneck's pmf table on [−Z_RANGE, Z_RANGE) about its
+    medians (the host table, the JAX package's bits on any device), the
+    medians as (1, C, 1, 1) on the model's device, and the weights digest,
+    crc32 of the quantized CDF tables."""
+    with torch.no_grad():
+        medians = model.eb_medians().detach().float()
+        pmf = model.eb_pmf_table(-Z_RANGE, Z_RANGE - 1)
+    coder = FactorizedCoder(pmf.cpu().numpy(), medians.cpu().numpy(), -Z_RANGE)
+    digest = zlib.crc32(coder.codec.cdfs.tobytes()) & 0xFFFFFFFF
+    return coder, medians[None, :, None, None], digest
+
+
+def z_encode(model: CodecModel, z3: torch.Tensor, med: torch.Tensor, p: int):
+    """z3 → (z symbols int16, ẑ): the hyper encoder in passes of ``p``
+    images, z rounded about the medians."""
+    z = _passes(model.hyper_encode, p, z3)
+    sym = torch.clamp(torch.round(z - med), -_SYM_CLIP, _SYM_CLIP)
+    return sym.to(torch.int16), sym + med
+
+
 class ChannelCoder:
     """Real-bitstream coder for one ``CodecModel`` (a charm model with a
     decodable hyper, or a neural-syntax model), on the model's device.
@@ -233,14 +255,8 @@ class ChannelCoder:
         if self.is_ns:
             self._init_neural_syntax()
             return
-        with torch.no_grad():
-            medians = model.eb_medians().detach().float()
-            pmf = model.eb_pmf_table(-Z_RANGE, Z_RANGE - 1)
-        self.z_coder = FactorizedCoder(
-            pmf.cpu().numpy(), medians.cpu().numpy(), -Z_RANGE
-        )
+        self.z_coder, self.med, self.digest = factorized_z_coder(model)
         self.y_coder = GaussianCoder()
-        self.med = medians[None, :, None, None]
         self.tab = torch.as_tensor(
             self.y_coder.scale_table, dtype=torch.float32, device=self.device
         )
@@ -249,8 +265,6 @@ class ChannelCoder:
         self.dev_rans = DeviceRans16Interleaved(
             cdfs, offsets, CHARM_LANES, device=self.device
         )
-        # weights digest: crc32 of the quantized factorized-prior CDF tables
-        self.digest = zlib.crc32(self.z_coder.codec.cdfs.tobytes()) & 0xFFFFFFFF
 
     def _init_neural_syntax(self):
         with torch.no_grad():
@@ -270,9 +284,7 @@ class ChannelCoder:
     # ------------------------------------------------------ device passes
 
     def _z_enc(self, z3, p):
-        z = _passes(self.model.hyper_encode, p, z3)
-        sym = torch.clamp(torch.round(z - self.med), -_SYM_CLIP, _SYM_CLIP)
-        return sym.to(torch.int16), sym + self.med
+        return z_encode(self.model, z3, self.med, p)
 
     def _slices_pass(self, z_hat, p, y=None, payload=None):
         """The whole slice chain (the entroformer's two passes where the

@@ -17,6 +17,20 @@ checkerboard passes or the wavefront loop, in passes of ``pass_batch``
 images) that differ between each image alone and the batch.  Model calls
 straight at B = 1 and B = 8 may differ (cuDNN picks its algorithms by
 shape); the coder's passes must not.
+
+    python -m lic_tpu_torch.tools.batch_probe --card_vs_cpu [--preset ...]
+
+compares the card with the CPU instead (ROADMAP §C8): for each preset with
+a coder, built at full width on both (the entropy bottleneck's all-zero
+``factor_i`` woken with seeded values, as a trained checkpoint has them),
+the card encodes a batch of 512×768 images in its passes of 8, and the
+CPU model with the same weights runs the decoder's side of the σ path
+(``rows_card_vs_cpu``) on the card's ẑ and the card's symbols, one image
+per pass: each drain step's scale-table rows against the card's.  Then
+the CPU coder decodes each of the card's streams (``cpu_decode_outcomes``):
+equal to the card's decode within 1e-4, raised at the final-state check,
+or other pixels.  One JSON line per preset gives the rows that differ,
+per slice, checkerboard pass or wavefront, and the outcomes.
 """
 
 from __future__ import annotations
@@ -54,6 +68,98 @@ def coder_rows_differing(model, coder, x) -> int:
                 return coder._slices_pass(z_hat[i:j], p, y=z3[i:j])[1]
         b = x.shape[0]
         return int((rows(0, b) != torch.cat([rows(i, i + 1) for i in range(b)])).sum())
+
+
+def wake_eb(model, seed: int = 2) -> int:
+    """Seeded values (0.05·N(0, 1)) for the entropy bottleneck's all-zero
+    leaves (its ``factor_i``), as a trained checkpoint has them; the same
+    for every model given the same seed.  → leaves woken."""
+    g = torch.Generator().manual_seed(seed)
+    woken = 0
+    with torch.no_grad():
+        for p in model.entropy_bottleneck.parameters():
+            if not p.any():
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+                woken += 1
+    return woken
+
+
+def rows_card_vs_cpu(card, cpu, coder_card, coder_cpu, x, rate=None) -> dict:
+    """The decoder's σ path on the CPU against the card's, on the card's
+    stream: the card encodes ``x`` (its coder's passes), then the CPU
+    coder runs its decode loop (slices, checkerboard passes or
+    wavefronts) on the card's ẑ (or integer z2) with each drain replaced
+    by the card's symbols of that step, so no row that differs can spread.
+    ``rate``: a gain-unit model's rate index for every image.  → {"steps": [rows differing per drain step], "rows": total, "symbols":
+    total, "first_step": index of the first step with a difference or
+    None}."""
+    from ..models import compress
+
+    p = compress.pass_batch(*x.shape[2:], x.device)
+    b = x.shape[0]
+    with torch.no_grad():
+        if rate is None:
+            z3 = compress._passes(card.analyze, p, x)
+        else:
+            rates = torch.full((b,), float(rate), device=x.device)
+            z3 = compress._passes(card.analyze, p, x, rates)
+        if coder_card.is_ns:
+            z2 = torch.round(compress._passes(card.ns_hyper_encode, p, z3))
+            z2_int = z2.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32)
+            h2 = coder_card._ns_hyper(z2_int, p)[0]
+            y = torch.round(z3[:, card.cfg.M :]).to(torch.int32)
+            res, rows, _, _ = coder_card._wavefronts(h2, p, y_known=y)
+            card_syms = [r.reshape(b, -1).cpu() for r in res]
+            card_rows = [r.reshape(b, -1).cpu().to(torch.int32) for r in rows]
+            counts = [len(ps) * (card.cfg.N - card.cfg.M)
+                      for ps, _ in compress.wavefront_groups(*h2.shape[2:])]
+        else:
+            _, z_hat = coder_card._z_enc(z3, p)
+            sym, rows, _, _ = coder_card._slices_pass(z_hat, p, y=z3)
+            counts = coder_card._step_counts(*z3.shape[2:])
+            card_syms = list(sym.cpu().to(torch.int32).split(counts, dim=1))
+            card_rows = list(rows.cpu().to(torch.int32).split(counts, dim=1))
+    replay, seen = iter(card_syms), []
+
+    def drain(dev, lanes, payload, rows_flat, s_tot):
+        seen.append(rows_flat[:, :s_tot].to(torch.int32).clone())
+        return lanes, next(replay)
+
+    inner = compress.rans_drain
+    compress.rans_drain = drain
+    try:
+        with torch.no_grad():
+            words = torch.zeros((b, 2 * 256 + 8), dtype=torch.int32)
+            if coder_cpu.is_ns:
+                h2_cpu = coder_cpu._ns_hyper(z2_int, 1)[0]
+                coder_cpu._wavefronts(h2_cpu, 1, payload=words, n_lanes=256)
+            else:
+                coder_cpu._slices_pass(z_hat.cpu(), 1, payload=words)
+    finally:
+        compress.rans_drain = inner
+    steps = [int((c[:, :n] != r).sum()) for c, r, n in zip(card_rows, seen, counts)]
+    return {"steps": steps, "rows": sum(steps), "symbols": b * sum(counts),
+            "first_step": next((i for i, n in enumerate(steps) if n), None)}
+
+
+def cpu_decode_outcomes(coder_card, coder_cpu, x, tol: float = 1e-4) -> dict:
+    """Each image of ``x`` coded by the card coder (one ``compress_batch``)
+    and decoded alone by the CPU coder: → counts of "equal" (within
+    ``tol`` of the card's decode), "raised" (the final-state check) and
+    "other" (other pixels)."""
+    blobs = coder_card.compress_batch(x)
+    recs = coder_card.decompress_batch(blobs).cpu()
+    out = {"equal": 0, "raised": 0, "other": 0}
+    for i, blob in enumerate(blobs):
+        try:
+            rec = coder_cpu.decompress(blob)
+        except ValueError as e:
+            if "final-state" not in str(e):
+                raise
+            out["raised"] += 1
+            continue
+        out["equal" if float((rec - recs[i : i + 1]).abs().max()) <= tol else "other"] += 1
+    return out
 
 
 def stage_differences(model, coder, x) -> dict:
@@ -139,6 +245,8 @@ def main() -> None:
     ap.add_argument("--preset", nargs="+", default=list(PRESETS))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--card_vs_cpu", action="store_true",
+                    help="the decoder's σ rows on the CPU against the card's (§C8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("batch_probe needs a CUDA device")
@@ -153,6 +261,23 @@ def main() -> None:
     dev = torch.device("cuda")
     x = torch.from_numpy(smooth_images(np.random.default_rng(args.seed), args.batch, 512, 768))
     x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    if args.card_vs_cpu:
+        for preset in args.preset:
+            card = build_model(preset, device=dev, seed=args.seed)
+            cpu = build_model(preset, device="cpu", seed=args.seed)
+            woken = 0
+            if not card.is_ns:
+                woken = wake_eb(card)
+                wake_eb(cpu)
+            c_card, c_cpu = ChannelCoder(card, name=preset), ChannelCoder(cpu, name=preset)
+            r = rows_card_vs_cpu(card, cpu, c_card, c_cpu, x)
+            print(json.dumps({"preset": preset, "batch": args.batch, "size": "512x768",
+                              "eb_leaves_woken": woken, "card_vs_cpu_rows_differing": r,
+                              "cpu_decode_outcomes": cpu_decode_outcomes(c_card, c_cpu, x)}),
+                  flush=True)
+            del card, cpu
+            torch.cuda.empty_cache()
+        return
     for preset in args.preset:
         model = build_model(preset, device=dev, seed=args.seed)
         counts = stage_differences(model, ChannelCoder(model, name=preset), x)

@@ -37,6 +37,12 @@ prints:
 * ``PHASES``: host-clock seconds of the roundtrip's phases, unprofiled,
   and the forward's and the roundtrip's megapixels per second.
 
+With ``--post_processing`` the preset carries the HAN tail: the stages
+add ``tail`` (the generated conv, the HAN, the second generated conv) and
+``HAN`` lines time each piece of the head (head conv, each residual
+group, ``body_tail``, the LAM stack and attention, ``last_conv``, CSAM,
+``last``).
+
 With ``--tune STEPS`` it profiles content-adaptive encoding instead
 (``evaluation.content_adaptive_finetune`` of the batch's first image,
 B = 1, after one unprofiled step): the step's milliseconds by phase (CUDA
@@ -274,7 +280,37 @@ def _stages(model, x, out) -> Dict[str, object]:
             })
     stages.update({"g_s": lambda: model.g_s(y_hat),
                    "synthesize": lambda: model.synthesize(y_hat, syn)})
+    if model.cfg.post_processing:
+        x_t = model.g_s(y_hat)
+        stages["tail"] = lambda: model._decode_tail(x_t, syn)
     return stages
+
+
+def _han_pieces(han, x_bf) -> Dict[str, float]:
+    """CUDA-event milliseconds of each piece of ``HANHead`` on its input."""
+    from ..models.han import mean_shift
+
+    out, h = {}, mean_shift(x_bf, sign=-1)
+
+    def timed(name, fn):
+        out[name] = _cuda_ms(fn)
+        return fn()
+
+    x = timed("head", lambda: han.head(h))
+    res, stages = x, []
+    for i in range(han.n_resgroups):
+        g = getattr(han, f"group{i}")
+        res = timed(f"group{i}", lambda: g(res))
+        stages.append(res)
+    res = timed("body_tail", lambda: han.body_tail(res))
+    stages.append(res)
+    st = timed("stack", lambda: torch.stack(stages[::-1], dim=1))
+    la = timed("la", lambda: han.la(st))
+    out2 = timed("last_conv", lambda: han.last_conv(la))
+    out1 = timed("csa", lambda: han.csa(res))
+    fused = torch.cat([out1, out2], dim=1)
+    timed("last", lambda: han.last(fused))
+    return out
 
 
 def _wavefront_split(coder, x, blobs) -> None:
@@ -317,6 +353,8 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=768)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--post_processing", action="store_true",
+                    help="build the preset with the HAN tail and time its pieces")
     ap.add_argument("--tune", type=int, default=0, metavar="STEPS",
                     help="profile STEPS content-adaptive tune steps (B = 1) instead")
     args = ap.parse_args()
@@ -335,7 +373,8 @@ def main() -> None:
     ).stdout.strip())
     set_numerics_flags()
     dev = torch.device("cuda")
-    model = build_model(args.preset, device=dev, seed=args.seed)
+    model = build_model(args.preset, device=dev, seed=args.seed,
+                        post_processing=args.post_processing)
     x = torch.from_numpy(smooth_images(
         np.random.default_rng(args.seed), args.batch, args.height, args.width,
     )).to(dev).contiguous(memory_format=torch.channels_last)
@@ -374,6 +413,11 @@ def main() -> None:
                 t = _cuda_ms(lambda: child(h))
                 h = child(h)
                 print(f"LAYER {tname}.{cname:8s} out={tuple(h.shape)} {t:9.3f} ms")
+        if model.cfg.post_processing:
+            x_bf = model._decode_tail(model.g_s(y_hat), model.syntax_from_latent(model.analyze(x)),
+                                      use_post_processing=False)
+            for name, t in _han_pieces(model.han, x_bf).items():
+                print(f"HAN {name:10s} {t:9.3f} ms")
 
         _profiled("forward", lambda: model(x), 3, args.out, top=15)
     _profiled("roundtrip", lambda: coder.decompress_batch(coder.compress_batch(x)),

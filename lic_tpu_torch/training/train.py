@@ -27,8 +27,15 @@ unit k uniformly from [0, K) with the state's own ``rate_generator`` and
 optimizes λ_k·255²·D + R at rate k, so one checkpoint learns K operating
 points.
 
-Not ported (ROADMAP A16): the HAN post-processing phase
-(``post_processing_phase=True``, ``freeze_partition``).
+Two-phase training of a model with the HAN post-processing tail
+(``train_net_unet.py:125-134``): ``freeze_partition`` freezes the group
+not being trained, by ``requires_grad``, so autograd records nothing for
+it and ``make_optimizer`` leaves it out (no Adam state, no weight decay:
+each frozen leaf stays bit for bit).  Phase 1 trains everything but the
+tail (``POST_PROCESSING_KEYS``), phase 2 (``post_processing_phase``) the
+tail alone, with optax's ``adamw`` defaults (weight decay 1e-4) at the
+``pp_milestones`` schedule; its step cuts the gradient at the HAN input
+(``stop_base_grad``) and takes the bpp and the aux loss as constants.
 """
 
 from __future__ import annotations
@@ -47,7 +54,9 @@ from . import schedule as schedules
 from .adam import Adam
 from .loss import ms_ssim, rate_distortion_loss
 
-_A16 = "the HAN post-processing tail is not ported (ROADMAP A16)"
+POST_PROCESSING_KEYS = ("han", "conv_weights_gen_han")
+# optax.adamw's default decay, which the JAX package's HAN phase takes
+PP_WEIGHT_DECAY = 1e-4
 
 
 def _unwrap(model: nn.Module) -> nn.Module:
@@ -62,8 +71,23 @@ def aux_labels(model: nn.Module) -> Dict[str, str]:
             for n, _ in _unwrap(model).named_parameters()}
 
 
-def freeze_partition(*args, **kwargs):
-    raise NotImplementedError(f"freeze_partition: {_A16}")
+def partition_labels(model: nn.Module, post_processing: bool) -> Dict[str, str]:
+    """'train' / 'freeze' by parameter name: ``post_processing=False``
+    trains everything but the HAN tail (the reference's ``base_params``),
+    True the tail alone (``post_processing_params``)."""
+    return {n: "train" if (n.split(".")[0] in POST_PROCESSING_KEYS) == post_processing
+            else "freeze" for n, _ in _unwrap(model).named_parameters()}
+
+
+def freeze_partition(model: nn.Module, post_processing: bool) -> Dict[str, str]:
+    """Set ``requires_grad`` by ``partition_labels`` (before
+    ``make_optimizer``, and before a ``DistributedDataParallel`` wrap):
+    no gradient reaches a frozen leaf, and the optimizer does not hold
+    it.  → the labels."""
+    labels = partition_labels(model, post_processing)
+    for n, p in _unwrap(model).named_parameters():
+        p.requires_grad_(labels[n] == "train")
+    return labels
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
@@ -79,15 +103,21 @@ class CodecOptimizer:
     rate on the main group, Adam at ``aux_lr`` on the ``quantiles``.
     ``count`` is the number of updates applied, the schedule's step."""
 
-    def __init__(self, model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int):
+    def __init__(self, model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int,
+                 post_processing_phase: bool = False):
         labels = aux_labels(model)
         named = [(n, p) for n, p in _unwrap(model).named_parameters() if p.requires_grad]
         self.main_params = [p for n, p in named if labels[n] == "main"]
         self.aux_params = [p for n, p in named if labels[n] == "aux"]
-        self.main = Adam(self.main_params, lr=train_cfg.lr, weight_decay=train_cfg.weight_decay)
-        # a model without an EntropyBottleneck has no aux group
+        if post_processing_phase:
+            milestones, decay = train_cfg.pp_milestones, PP_WEIGHT_DECAY
+        else:
+            milestones, decay = train_cfg.lr_milestones, train_cfg.weight_decay
+        self.main = Adam(self.main_params, lr=train_cfg.lr, weight_decay=decay)
+        # a model without an EntropyBottleneck (or with it frozen) has no
+        # aux group
         self.aux = Adam(self.aux_params, lr=train_cfg.aux_lr) if self.aux_params else None
-        self.lr = schedules.multistep(train_cfg.lr, train_cfg.lr_milestones, steps_per_epoch,
+        self.lr = schedules.multistep(train_cfg.lr, milestones, steps_per_epoch,
                                       train_cfg.lr_gamma)
         self.max_norm = train_cfg.grad_clip_norm
         self.count = 0
@@ -140,9 +170,10 @@ class CodecOptimizer:
 
 def make_optimizer(model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int,
                    post_processing_phase: bool = False) -> CodecOptimizer:
-    if post_processing_phase:
-        raise NotImplementedError(f"post_processing_phase: {_A16}")
-    return CodecOptimizer(model, train_cfg, steps_per_epoch)
+    """The optimizer over the parameters that require a gradient (see
+    ``freeze_partition``); the HAN phase takes AdamW at the ``pp_milestones``
+    schedule."""
+    return CodecOptimizer(model, train_cfg, steps_per_epoch, post_processing_phase)
 
 
 @dataclass
@@ -155,13 +186,15 @@ class TrainState:
 
 
 def make_train_step(model: nn.Module, train_cfg: TrainConfig,
-                    optimizer: CodecOptimizer) -> Callable:
+                    optimizer: CodecOptimizer, post_processing_phase: bool = False) -> Callable:
     """→ ``train_step(state, batch, on_phase=None) -> metrics``.
     ``on_phase(name)``, where given, is called at "start", "forward",
     "backward" and "optimizer" (the end of each phase), for timing.
     With ``train_cfg.lmbda_list`` (gain-unit models, one λ per unit) each
     step trains at a unit drawn from ``state.rate_generator``; the
-    metrics' ``rate`` says which."""
+    metrics' ``rate`` says which.  ``post_processing_phase``: the forward
+    cuts the gradient at the HAN input and the bpp and aux loss enter the
+    loss as constants (phase 2 trains the tail alone)."""
     gain_units = _unwrap(model).cfg.gain_units
     multi_rate = bool(train_cfg.lmbda_list)
     if multi_rate and gain_units == 0:
@@ -185,11 +218,14 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig,
             rate, lmbda = float(k), train_cfg.lmbda_list[k]
         optimizer.zero_grad()
         out = state.model(batch, training=True, noise_fn=uniform_noise(state.generator),
-                          rate=rate)
+                          rate=rate, stop_base_grad=post_processing_phase)
         msssim = (ms_ssim(out.x_tilde, batch, data_range=2.0)
                   if train_cfg.loss_type != "mse" else None)
-        loss = rate_distortion_loss(out.bpp, out.mse, lmbda, train_cfg.loss_type, msssim)
+        bpp = out.bpp.detach() if post_processing_phase else out.bpp
+        loss = rate_distortion_loss(bpp, out.mse, lmbda, train_cfg.loss_type, msssim)
         aux = _unwrap(state.model).entropy_aux_loss()
+        if post_processing_phase:
+            aux = aux.detach()
         mark("forward")
         (loss + aux).backward()
         mark("backward")
@@ -228,14 +264,18 @@ def train(
     """Epoch-structured training as the reference training script runs it: a
     ``[Epoch %04d TRAIN] Loss: … bpp: … mse: …`` line per epoch (and into
     ``checkpoint_dir/train_log.txt``), a checkpoint every
-    ``ckpt_every_epochs``; 10 non-finite losses in a row abort."""
+    ``ckpt_every_epochs``; 10 non-finite losses in a row abort.  A model
+    with the HAN tail trains one of its two groups (``freeze_partition``;
+    ``post_processing_phase`` picks the tail, ``pp_epochs`` by default)."""
     from ..utils.checkpoint import CheckpointManager
 
+    if _unwrap(model).cfg.post_processing:
+        freeze_partition(model, post_processing_phase)
     optimizer = make_optimizer(model, train_cfg, steps_per_epoch, post_processing_phase)
     state = create_state(model, optimizer, train_cfg.seed)
-    step_fn = make_train_step(model, train_cfg, optimizer)
+    step_fn = make_train_step(model, train_cfg, optimizer, post_processing_phase)
     ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
-    n_epochs = epochs or train_cfg.epochs
+    n_epochs = epochs or (train_cfg.pp_epochs if post_processing_phase else train_cfg.epochs)
     _unwrap(model).train()
     nan_streak = 0
     for epoch in range(n_epochs):

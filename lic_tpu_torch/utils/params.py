@@ -18,6 +18,8 @@ conversion applies the inverse of the layout rules of
 * ``nn.LayerNorm``'s ``scale`` to torch's ``weight`` (its ``bias`` as is);
 * ``nn.Embed``'s ``embedding`` (the entroformer's
   ``relative_attention_bias``) to the parameter of that name;
+* the HAN's ``CSAMModule`` kernel: flax's (3, 3, 3, 1, 1) to the port's
+  (3, 3, 3) taps;
 * every other leaf (GDN β/Γ, entropy-bottleneck tensors, biases, the
   gain units' (K, N) ``log_gain`` / ``log_inv_gain``, the
   ``relative_position_bias_table``, which keeps the reference's
@@ -48,6 +50,7 @@ from torch import nn
 from ..config import CodecConfig
 from ..layers import Conv2d, ConvTranspose2d, Linear, SubpelConv2d
 from ..models.codec import CodecModel
+from ..models.han import CSAMModule
 from ..models.presets import PRESETS
 
 SKIPPED_PREFIX = "prediction_model_syntax/"
@@ -116,6 +119,8 @@ def to_torch_layout(module: nn.Module, pname: str, a: np.ndarray) -> torch.Tenso
         a = a[::-1, ::-1].transpose(2, 3, 0, 1)  # → (in, out, k, k)
     elif pname == "weight" and isinstance(module, Linear):
         a = a.T
+    elif pname == "conv" and isinstance(module, CSAMModule):
+        a = a[..., 0, 0]
     # a fresh C-ordered copy: a flipped 1×1 kernel counts as contiguous to
     # numpy but keeps its negative strides
     return torch.from_numpy(np.array(a, np.float32, order="C"))
@@ -131,6 +136,8 @@ def to_flax_layout(module: nn.Module, pname: str, t: torch.Tensor) -> np.ndarray
         a = a.transpose(2, 3, 0, 1)[::-1, ::-1]  # (in, out, k, k) → flipped HWIO
     elif pname == "weight" and isinstance(module, Linear):
         a = a.T
+    elif pname == "conv" and isinstance(module, CSAMModule):
+        a = a[..., None, None]
     return np.array(a, np.float32, order="C")
 
 

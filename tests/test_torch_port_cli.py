@@ -14,8 +14,10 @@ with the JAX package's initial weights in a ``.npz`` that both load.
 * fault C5, cross-batch σ-indexes: three images encoded one at a time
   decode together, and encoded together decode one at a time, to
   bit-identical reconstructions;
-* every flag of ROADMAP A16 raises ``NotImplementedError`` naming A16; a
-  truncated file and a wrong ``--preset`` raise ``ValueError``;
+* a truncated file and a wrong ``--preset`` raise ``ValueError`` (the
+  ``--progressive``, ``--truncate_planes`` and ``--post_processing``
+  flags are held in ``test_torch_port_progressive.py`` and
+  ``test_torch_port_han.py``);
 * ``cli.eval.main`` on a folder: its ``AVG:`` line's bpp, PSNR and MS-SSIM
   within 1e-4 (relative) of the JAX CLI's.
 """
@@ -148,22 +150,6 @@ def test_c5_streams_decode_alike_in_any_batch(coder):
         for (n1, r1), (n3, r3) in zip(recs_1, recs_3):
             assert n1 == n3
             np.testing.assert_array_equal(r1, r3)
-
-
-@pytest.mark.parametrize("flag", [["--progressive"], ["--truncate_planes", "2"],
-                                  ["--post_processing"]])
-def test_codec_a16_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="A16"):
-        tcli.main(["compress", str(tmp_path / "x.png"), str(tmp_path / "x.ltc"),
-                   "--weight_path", "unused.npz", *flag])
-
-
-@pytest.mark.parametrize("flag", [["--post_processing"]])
-def test_eval_a16_flags_raise(tmp_path, flag):
-    from lic_tpu_torch.cli import eval as teval
-
-    with pytest.raises(NotImplementedError, match="A16"):
-        teval.main(["--data_path", str(tmp_path), "--weight_path", "unused.npz", *flag])
 
 
 def test_truncated_file_and_wrong_preset_raise(tmp_path, weights, tiny_preset):

@@ -1,7 +1,10 @@
 """The port's hand-written kernels against their plain versions, on the
 card: B1 (rANS drain; every lane count and both table routes), B2 (GDN), B3 (5×5 stride-2 conv), B4/B5 (window
 attention, head widths 8, 24 and 48) and B6 (stride-1 conv), and the
-gradients of B2-B6 through their autograd.Functions.  Every test here is
+gradients of B2-B6 through their autograd.Functions; then the paths
+around them: tuning, C5, mixed rates, the EB table, a ``.ltcp`` stream
+written on the card and decoded on the CPU, and the HAN tail on the card
+against its CPU run.  Every test here is
 marked ``cuda`` and skips without CUDA.  fp32 tolerance: atol/rtol 1e-5
 (sums in another order than cuDNN's / cuBLAS's); a repeat call of B2-B6 is
 bit-identical; B1 is bit-exact.  Gradients: within 1e-5 of float64 as a
@@ -917,3 +920,72 @@ def test_eb_table_on_the_card_equals_the_cpu(cuda_device):
     c_cpu, c_card = ChannelCoder(cpu), ChannelCoder(card)
     assert np.array_equal(c_card.z_coder.codec.cdfs, c_cpu.z_coder.codec.cdfs)
     assert c_card.digest == c_cpu.digest
+
+
+@pytest.mark.parametrize("digit_model", ["gaussian", "static"])
+def test_ltcp_roundtrip_on_the_card_and_decoded_on_the_cpu(cuda_device, digit_model, capsys):
+    """A ``.ltcp`` stream written on the card: its full decode on the card
+    equals the card's eval forward within 1e-4 (the coder's passes of 8);
+    the CPU model of the same weights either decodes it within 1e-4 of the
+    card at every truncation point or raises at the host codec's
+    final-state check (ROADMAP §C8); which one is printed."""
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models.compress import _passes, pass_batch
+    from lic_tpu_torch.models.progressive import ProgressiveCoder
+    from lic_tpu_torch.tools.batch_probe import wake_eb
+
+    card = build_model("source_net", seed=0)
+    cpu = build_model("source_net", device="cpu", seed=0)
+    wake_eb(card)
+    wake_eb(cpu)
+    x = _cl(torch.from_numpy(smooth_images(np.random.default_rng(2), 1, 256, 384)), cuda_device)
+    coder = ProgressiveCoder(card, name="source_net", digit_model=digit_model)
+    blob = coder.compress(x)
+    with torch.no_grad():
+        ref = _passes(lambda t: card(t).x_tilde, pass_batch(256, 384, x.device), x)
+    assert float((coder.decompress(blob) - ref).abs().max()) <= 1e-4
+    cpu_coder = ProgressiveCoder(cpu, name="source_net", digit_model=digit_model)
+    outcome = "equal"
+    for n, _ in coder.truncation_points(blob):
+        try:
+            got = cpu_coder.decompress(blob, n)
+        except ValueError as e:
+            assert "final-state" in str(e)
+            outcome = f"raised at {n} planes"
+            break
+        assert float((got - coder.decompress(blob, n).cpu()).abs().max()) <= 1e-4, n
+    with capsys.disabled():
+        print(f"\n[c8 ltcp] {digit_model}: the CPU decode of the card's stream: {outcome}")
+
+
+def test_han_head_on_the_card_equals_its_cpu_run(cuda_device):
+    """``HANHead`` (every zero-init leaf woken) on the card against the same
+    weights on the CPU: within 1e-4 of the output's largest magnitude, in
+    eval; the input gradient of a random cotangent in the training
+    forward (each RCAB checkpointed) likewise, in float64 on both sides:
+    in fp32 a ReLU whose input lies within rounding of 0 can take the other
+    branch on one device and move the gradient by more."""
+    from lic_tpu_torch.models.han import HANHead
+
+    g = torch.Generator().manual_seed(1)
+    cpu = HANHead(generator=g)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if not p.any():
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    card = HANHead().to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = _randn(g, 2, 3, 64, 96)
+    ct = _randn(g, 2, 64, 64, 96)
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(_cl(x, cuda_device)).cpu()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    grads = []
+    for m, dev in ((cpu, torch.device("cpu")), (card, cuda_device)):
+        m.double().train()
+        xi = _cl(x.double(), dev).requires_grad_(True)
+        m(xi).backward(_cl(ct.double(), dev))
+        grads.append(xi.grad.cpu())
+    assert float((grads[1] - grads[0]).abs().max()) <= 1e-4 * float(grads[0].abs().max())

@@ -2,9 +2,12 @@
 the deconv probe equals ``F.conv_transpose2d`` (atol 1e-5: another
 summation order), the profile's device busy time is the union of the
 device intervals in a trace, the build's ``ptxas`` summary keeps each
-kernel's register and spill counts, and the kernel probe still finds the
-lines of the B1 and B2 sources it attaches to."""
+kernel's register and spill counts, the kernel probe still finds the
+lines of the B1 and B2 sources it attaches to, and the batch probe's
+card-vs-CPU rows count nothing between two equal models and the rows a
+perturbed σ path moves."""
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -87,3 +90,58 @@ def test_kernel_probe_attaches_to_the_kernel_sources():
     assert gdn_variant_source("no_mma") != gdn_variant_source("kernel")
     with pytest.raises(ValueError, match="no gdn variant"):
         gdn_variant_source("other")
+
+
+@pytest.mark.parametrize("preset", ["source_net", "entroformer_cb", "neural_syntax"])
+def test_rows_card_vs_cpu_counts_the_decoders_rows(preset):
+    """``batch_probe.rows_card_vs_cpu`` with both sides on the CPU: no row
+    differs; with the 'CPU' side's σ path perturbed, the rows it counts
+    are those the perturbation moves, from the first step on."""
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import ChannelCoder
+    from lic_tpu_torch.tools.batch_probe import rows_card_vs_cpu, wake_eb
+
+    torch.set_num_threads(2)
+    a = build_model(preset, device="cpu", n_override=32)
+    b = build_model(preset, device="cpu", n_override=32)
+    if not a.is_ns:
+        assert wake_eb(a) == wake_eb(b) > 0
+    x = torch.from_numpy(smooth_images(np.random.default_rng(0), 2, 64, 128))
+    same = rows_card_vs_cpu(a, b, ChannelCoder(a), ChannelCoder(b), x)
+    assert same["rows"] == 0 and same["first_step"] is None
+    assert same["symbols"] == 2 * 4 * 8 * (32 - (16 if a.is_ns else 0))
+    assert len(same["steps"]) == {"source_net": 4, "entroformer_cb": 2,
+                                  "neural_syntax": 2 * 3 + 8}[preset]
+    cb = ChannelCoder(b)
+    with torch.no_grad():  # σ at init sits on one row; move it
+        if preset == "source_net":
+            b.cc_scale_transforms[1].c2.bias.add_(1.0)
+        elif preset == "entroformer_cb":
+            cb.tab.mul_(2.0)
+        else:
+            for p in b.prediction_model.parameters():
+                p.mul_(1.5)
+    moved = rows_card_vs_cpu(a, b, ChannelCoder(a), cb, x)
+    assert moved["rows"] == sum(moved["steps"]) > 0
+    if preset == "source_net":  # slice 1's σ head: slice 0's rows stay
+        assert moved["first_step"] == 1 and moved["steps"][0] == 0
+
+
+def test_cpu_decode_outcomes_counts_equal_and_raised():
+    """``batch_probe.cpu_decode_outcomes`` with both coders on the CPU:
+    every stream decodes equal; with the decoder's scale table moved, the
+    decodes raise at the final-state check (none returns other pixels)."""
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import ChannelCoder
+    from lic_tpu_torch.tools.batch_probe import cpu_decode_outcomes
+
+    torch.set_num_threads(2)
+    m = build_model("source_net", device="cpu", n_override=32)
+    x = torch.from_numpy(smooth_images(np.random.default_rng(1), 2, 64, 64))
+    assert cpu_decode_outcomes(ChannelCoder(m), ChannelCoder(m), x) == {
+        "equal": 2, "raised": 0, "other": 0}
+    cb = ChannelCoder(m)
+    cb.tab.mul_(0.5)
+    assert cpu_decode_outcomes(ChannelCoder(m), cb, x) == {"equal": 0, "raised": 2, "other": 0}

@@ -331,10 +331,20 @@ def test_training_forward_and_gradients_match_jax(jax_training_run):
 
 
 def test_training_forward_needs_noise_and_rejects_stop_base_grad():
+    # stop_base_grad cuts the gradient at the HAN input: the distortion's
+    # gradient reaches the HAN tail and no base leaf
+    pp = build_model("source_net", device="cpu", n_override=32, post_processing=True)
+    xr = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (1, 3, 64, 64))
+                          .astype(np.float32))
+    pp(xr, training=True, noise_fn=uniform_noise(torch.Generator().manual_seed(1)),
+       stop_base_grad=True).mse.backward()
+    for name, p in pp.named_parameters():
+        tail = name.split(".")[0] in ("han", "conv_weights_gen_han")
+        assert tail or p.grad is None, name
+    assert pp.han.head.weight.grad.abs().max() > 0
+    assert pp.conv_weights_gen_han.fc2.bias.grad.abs().max() > 0
     tm = build_model("source_net", device="cpu", n_override=32)
     x = torch.zeros(1, 3, 64, 64)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tm(x, training=True, stop_base_grad=True)
     # the noise comes from the noise_fn given: the same generator state,
     # the same draws
     draw = lambda: uniform_noise(torch.Generator().manual_seed(3))
