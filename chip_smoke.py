@@ -204,7 +204,26 @@ Each phase prints one line:
    [han_train] one phase-2 step (B = 8 crops of 256×256): every base leaf
    bit-identical without optimizer state, every HAN leaf with a gradient
    moved, no kernel backward, ms by phase, peak memory.  ``[wall]
-   c8_prog_han_s=`` times 18-20, and each of their lines its seconds.
+   c8_prog_han_s=`` times 18-20, and each of their lines its seconds;
+21. [unet] (``net_ha``, ``net_unet_ha_hs``, ``net_unet_ha_hs_1``: the
+   U-Net hyper, whose decoder reads the encoder's skips; ``net_unet``,
+   ``net_unet_1``, ``net_unet_005_5``: the uncoded latent U-Net; no
+   coder takes them): the stages at 128×128 against the CPU model (z3,
+   the hyper's scales and means from the latent, slice 0's μ and σ, the
+   synthesis) within 1e-4, the B = 8 512×768 eval forward with exact
+   launches (B2-B6 in their slots, the U-Net hyper's attentions on the
+   plain route), ms and peak memory, ``ChannelCoder`` and
+   ``ProgressiveCoder`` raising the JAX package's ``ValueError``;
+   [unet_eval] ``evaluate_image`` at B = 1 for ``net_unet_ha_hs`` and
+   ``net_unet``, and 3 tune steps of ``net_unet`` (g_a alone moved);
+   [unet_train] one training step each of ``net_unet_ha_hs``,
+   ``net_unet`` and ``net_unet_ha_hs_1`` (B = 8 crops of 256×256): exact
+   launches and backwards, every leaf with a gradient moved,
+   ``net_unet_ha_hs_1``'s unread syntax model bit-identical, ms by phase,
+   peak memory, the kernel shapes into [grad]; [unet_cli] the train CLI
+   with no ``--preset`` (2 steps on PNGs it writes): it builds
+   ``net_unet_ha_hs``, as the JAX trainer does.  ``[wall] unet_s=``
+   times 21.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
 it replaces, launches on the main paths, max error, times and bound (B1 as
@@ -277,6 +296,13 @@ PROG_SIZES = ((512, 768), (480, 640))
 PROG_DIGITS = ("gaussian", "static")
 # [han]: source_net with the HAN post-processing tail
 HAN_SMALL = 128
+# [unet], [unet_train], [unet_eval]: the U-Net-hyper and latent-U-Net
+# presets, which no coder takes; the tune's steps and the train CLI's
+UNET_PRESETS = ("net_ha", "net_unet_ha_hs", "net_unet_ha_hs_1", "net_unet", "net_unet_1",
+                "net_unet_005_5")
+UNET_TRAIN = ("net_unet_ha_hs", "net_unet", "net_unet_ha_hs_1")
+UNET_EVAL = ("net_unet_ha_hs", "net_unet")
+UNET_TUNE_ITERS, UNET_CLI_STEPS = 3, 2
 # [entro], [ns]: the entroformer checkerboard and neural-syntax paths,
 # driven as the four ChARM paths are (``_drive``)
 ENTRO_PATHS = ("entroformer_cb", "entroformer_cb_full")
@@ -364,6 +390,34 @@ EXPECTED = {
                         "convk_s1": 5 * TUNE_ITERS},
     "tune:source_net_wam": {"gdn": 7 * TUNE_ITERS, "conv5s2": 3 * TUNE_ITERS,
                             "convk_s1": 61 * TUNE_ITERS, "wba": 16 * TUNE_ITERS},
+    # [unet]: one B = 8 eval forward each.  The rich transforms, SWAtten and
+    # the WAM syntax model launch what net_unet_ha_hs_dec's forward does;
+    # the U-Net hyper's convs take no slot (C_in 96, 128, 256, 512 or
+    # strided) and its 5 window attentions (7 with two decoders) the plain
+    # route; the latent U-Net launches nothing (3×3s at 48-256 channels,
+    # plain attention).  net_unet_ha_hs_1 runs no syntax model (nothing
+    # reads it: g_s gives RGB), so 16 B4 calls; net_ha has the plain
+    # transforms: source_net's g_a / g_s, and slice 0's two c0s in B6
+    "unet:net_ha": {"gdn": 7, "conv5s2": 3, "convk_s1": 2, "wba": 4, "wba_plain_route": 5},
+    "unet:net_unet_ha_hs": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20,
+                            "wba_plain_route": 5},
+    "unet:net_unet_ha_hs_1": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 16,
+                              "wba_plain_route": 7},
+    **{f"unet:{p}": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20}
+       for p in ("net_unet", "net_unet_1", "net_unet_005_5")},
+    # [unet_train]: the forward of one step at B = 8, 256×256 (each kernel
+    # launch with its backward); [unet_eval]: one B = 1 forward, and the
+    # tune's steps
+    "train:net_unet_ha_hs": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20,
+                             "wba_plain_route": 5},
+    "train:net_unet": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20},
+    "train:net_unet_ha_hs_1": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 16,
+                               "wba_plain_route": 7},
+    "eval:net_unet_ha_hs@512x768": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20,
+                                    "wba_plain_route": 5},
+    "eval:net_unet@512x768": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20},
+    "tune:net_unet": {"gdn": 9 * UNET_TUNE_ITERS, "conv5s2": 2 * UNET_TUNE_ITERS,
+                      "convk_s1": 60 * UNET_TUNE_ITERS, "wba": 20 * UNET_TUNE_ITERS},
 }
 TRAIN_BATCH, TRAIN_CROP, TRAIN_STEPS = 8, 256, 6
 # a gradient through a kernel's autograd.Function against autograd of the
@@ -758,6 +812,13 @@ def main() -> int:
     launches.update(_drive_han(dev, counted, conv_calls, gdn_calls, train_shapes))
     torch.cuda.empty_cache()
     _say("wall", c8_prog_han_s=f"{time.perf_counter() - t_new:.1f}")
+
+    # ---- [unet], [unet_train], [unet_eval]: the U-Net-hyper and latent
+    # U-Net presets
+    t_unet = time.perf_counter()
+    launches.update(_drive_unet(dev, counted, conv_calls, attn_calls, gdn_calls, train_shapes))
+    torch.cuda.empty_cache()
+    _say("wall", unet_s=f"{time.perf_counter() - t_unet:.1f}")
 
     # ---- 5. source_net in bf16 and at is_high, one forward each; [c3]
     # source_net_wam at is_high, with and without fuse_proj
@@ -1510,7 +1571,11 @@ def _grad_checks(shapes, dev, g):
                  shape=xs, c_out=cout, k=k, bias=has_bias, act=act, residual=has_res,
                  train_calls=by_run, **band)
         worst[slot] = max(worst.get(slot, 0.0), e)
+    plain_route = 0
     for (route, xs, ws, nh, masked), n in sorted(shapes["attn"].items(), key=str):
+        if route == "plain":  # the U-Net hyper's: the plain version, no kernel backward
+            plain_route += n
+            continue
         b, hp, wp, c = xs
         nn_ = ws * ws
         mask = window_attn.shift_mask(hp, wp, ws, ws // 2, 0, 0, dev) if masked else None
@@ -1534,6 +1599,7 @@ def _grad_checks(shapes, dev, g):
     if set(worst) != {"gdn", "conv5s2", "convk_s1", "wba", "wba_proj"}:
         raise AssertionError(f"[grad] covered only {sorted(worst)}")
     _say("grad_summary", **{k: f"{v:.3g}" for k, v in worst.items()}, tol=GRAD_TOL,
+         plain_route_attention_calls_not_kernels=plain_route,
          note="worst share of range off float64, conv weight gradients aside")
 
 
@@ -1870,6 +1936,12 @@ def _stages(m, xin, z_hat=None, z2_int=None, y_hat=None, syn=None):
         mu_s, sg_s = m.ns_syntax_params(h2)
         return dict(st, z2=z2, z2_int=z2_int, h2=h2, mu_c=mu_c, log_sigma_c=torch.log(sg_c),
                     mu_s=mu_s, log_sigma_s=torch.log(sg_s))
+    if m.cfg.hyper in ("unet", "latent_unet"):
+        # the hyper reads the latent (and the U-Net hyper's decoder the
+        # encoder's skips), not a rounded ẑ
+        scales, means, _ = m.hyper_forward(z3)
+        return dict(st, scales=scales, means=means,
+                    **dict(zip(("mu0", "sigma0"), m.charm_entropy_params(means, scales, [], 0))))
     if z_hat is None:
         med = m.eb_medians()[None, :, None, None]
         z_hat = torch.round(m.hyper_encode(z3) - med) + med
@@ -2949,6 +3021,233 @@ def _drive_han(dev, counters, conv_calls, gdn_calls, shapes):
          seconds=f"{time.perf_counter() - t_phase:.1f}")
     del model, opt, state, step_fn
     return runs
+
+
+def _drive_unet(dev, counters, conv_calls, attn_calls, gdn_calls, shapes):
+    """[unet] each of ``UNET_PRESETS`` at full width, its all-zero weights
+    woken: the stages at 128×128 against the CPU model (``_small_stages``:
+    z3, the hyper's scales and means, slice 0's μ and σ, the synthesis),
+    the B = 8 512×768 eval forward with exact launches (its B2, B3/B6 and
+    B4 calls recorded for 6-7), finite, ms and peak memory, and
+    ``ChannelCoder`` and ``ProgressiveCoder`` raising the JAX package's
+    ``ValueError``; [unet_eval] for ``UNET_EVAL``, ``evaluate_image`` at
+    B = 1 on 512×768 (launches, finite metrics) and for ``net_unet``
+    ``UNET_TUNE_ITERS`` tune steps (launches and backwards, g_a alone
+    moved).  [unet_train]: one training step of each of ``UNET_TRAIN``
+    (B = 8 crops of 256×256, ``TrainConfig``'s defaults): exact launches
+    and backwards, every leaf with a gradient moved (and
+    ``net_unet_ha_hs_1``'s unread syntax model bit-identical, with no
+    optimizer state), ms by phase, peak memory, its kernel shapes into
+    [grad].  Then the train CLI with no ``--preset``, ``UNET_CLI_STEPS``
+    steps on seeded PNGs (where PIL imports): the preset it built.
+    → {run: launches}."""
+    import numpy as np
+    import torch
+
+    from lic_tpu_torch.config import EvalConfig, TrainConfig
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.evaluation import content_adaptive_finetune, evaluate_image
+    from lic_tpu_torch.layers import window_attn
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.models.compress import ChannelCoder
+    from lic_tpu_torch.models.progressive import ProgressiveCoder
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    x_np = smooth_images(np.random.default_rng(SEED), BATCH, H, W)
+    x = torch.from_numpy(x_np).to(dev).contiguous(memory_format=torch.channels_last)
+    small = torch.from_numpy(x_np[:1, :, :128, :128].copy())
+    mp = BATCH * H * W / 1e6
+    runs = {}
+
+    def on_gpu(t):
+        return t.to(dev).contiguous(memory_format=torch.channels_last)
+
+    for preset in UNET_PRESETS:
+        t_phase = time.perf_counter()
+        run = f"unet:{preset}"
+        model = build_model(preset, device=dev, seed=SEED)
+        cpu = build_model(preset, device="cpu", seed=SEED)
+        woken = _wake_zero_leaves(model, cpu)
+        err = _small_stages(preset, model, cpu, small, on_gpu)
+        del cpu
+        hooks = _record_conv_slots(model, conv_calls, run) + _record_gdn(model, gdn_calls, run)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        with torch.no_grad():
+            out = model(x)
+        runs[run] = _read(counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for h in hooks:
+            h.remove()
+        _hooks_agree(run, runs[run], conv_calls, gdn_calls)
+        for key, n in window_attn.window_attention.calls.items():
+            attn_calls.setdefault(key, {})[run] = n
+        if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
+            raise AssertionError(f"{run}: non-finite forward output")
+        if out.x_tilde.shape != (BATCH, 3, H, W):
+            raise AssertionError(f"{run}: shape {tuple(out.x_tilde.shape)}")
+        with torch.no_grad():
+            fwd_ms = _cuda_ms(lambda: model(x), 2)
+        for coder in (ChannelCoder, ProgressiveCoder):
+            try:
+                coder(model, name=preset)
+            except ValueError as e:
+                if f"hyper path '{model.cfg.hyper}' is not decodable" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{run}: {coder.__name__} took a preset it cannot decode")
+        _say("unet", preset=preset, hyper=model.cfg.hyper, leaves_woken=woken,
+             small_vs_cpu_max_err=f"{max(err.values()):.3g}", launches=runs[run],
+             bpp_est=f"{float(out.bpp):.4f}", bpp_z=f"{float(out.bpp_z):.4f}", finite=True,
+             forward_ms=f"{fwd_ms:.2f}", forward_mps=f"{mp / fwd_ms * 1e3:.2f}",
+             forward_peak_mem_gib=f"{peak:.2f}", coders_refuse=True, batch=BATCH,
+             shape=f"{H}x{W}", seconds=f"{time.perf_counter() - t_phase:.1f}",
+             weights="UNTRAINED")
+        del out
+        if preset in UNET_EVAL:
+            t_phase = time.perf_counter()
+            erun = f"eval:{preset}@{H}x{W}"
+            _zero(counters)
+            r = evaluate_image(model, x[:1])
+            runs[erun] = _read(counters)
+            if not all(np.isfinite(r[k]) for k in ("bpp", "psnr", "mse", "msssim")):
+                raise AssertionError(f"{erun}: non-finite metrics {r}")
+            line = dict(preset=preset, eval_b1_launches=runs[erun],
+                        eval_b1_ms=f"{r['seconds'] * 1e3:.2f}", eval_bpp=f"{r['bpp']:.4f}")
+            if preset == "net_unet":
+                trun = f"tune:{preset}"
+                before = {k: v.clone() for k, v in model.state_dict().items()}
+                _zero(counters)
+                t0 = time.perf_counter()
+                tuned = content_adaptive_finetune(model, x[:1], EvalConfig(
+                    tune_iters=UNET_TUNE_ITERS, tune_lr_drop_step=UNET_TUNE_ITERS))
+                torch.cuda.synchronize()
+                tune_s = time.perf_counter() - t0
+                runs[trun] = _read(counters)
+                back = {k: c.backwards for k, c in counters.items() if hasattr(c, "backwards")}
+                want = {k: runs[trun][k] for k in back}
+                moved = {k for k, v in tuned.state_dict().items() if not torch.equal(v, before[k])}
+                if back != want or not moved or any(not k.startswith("g_a.") for k in moved):
+                    raise AssertionError(f"{trun}: backwards {back}, launches {want}, "
+                                         f"moved outside g_a: {sorted(moved)[:3]}")
+                line.update(tune_steps=UNET_TUNE_ITERS, tune_launches=runs[trun],
+                            tune_g_a_leaves_moved=len(moved),
+                            tune_ms_per_step=f"{tune_s / UNET_TUNE_ITERS * 1e3:.1f}")
+                del tuned
+            _say("unet_eval", **line, seconds=f"{time.perf_counter() - t_phase:.1f}")
+        del model
+        torch.cuda.empty_cache()
+
+    batch = _train_batch(dev)
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    for preset in UNET_TRAIN:
+        t_phase = time.perf_counter()
+        run = f"train:{preset}"
+        model = build_model(preset, device=dev, seed=SEED).train()
+        tc = TrainConfig()
+        opt = make_optimizer(model, tc, steps_per_epoch=1000)
+        state = create_state(model, opt, tc.seed)
+        step_fn = make_train_step(model, tc, opt)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        hooks = _record_conv_slots(model, shapes["conv"], run) + _record_train_shapes(model, shapes)
+        ev = {}
+
+        def mark(name):
+            ev[name] = torch.cuda.Event(enable_timing=True)
+            ev[name].record()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        metrics = step_fn(state, batch, on_phase=mark)
+        runs[run] = _read(counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for h in hooks:
+            h.remove()
+        back = {k: counters[k].backwards for k in kernels}
+        if back != {k: runs[run][k] for k in kernels}:
+            raise AssertionError(f"{run}: backwards {back} != launches {runs[run]}")
+        if not (torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["aux"])) \
+                or float(metrics["skipped"]):
+            raise AssertionError(f"{run}: loss {float(metrics['loss'])}, "
+                                 f"skipped {float(metrics['skipped'])}")
+        unread = set(model.unread_parameters())
+        moved = still = 0
+        for name, p in model.named_parameters():
+            if name in unread:
+                if p.grad is not None or not torch.equal(p, before[name]) or p in opt.main.state:
+                    raise AssertionError(f"{run}: unread leaf {name} took a gradient or moved")
+            elif p.grad is not None and p.grad.any():
+                if torch.equal(p, before[name]):
+                    raise AssertionError(f"{run}: {name} took a gradient and did not move")
+                moved += 1
+            else:
+                still += 1
+        phases = ("start", "forward", "backward", "optimizer")
+        first_ms = sum(ev[a].elapsed_time(ev[b]) for a, b in zip(phases, phases[1:]))
+        # a second step, timed by phase: the first includes cuDNN's choices
+        step_fn(state, batch, on_phase=mark)
+        torch.cuda.synchronize()
+        ms = [ev[a].elapsed_time(ev[b]) for a, b in zip(phases, phases[1:])]
+        _say("unet_train", preset=preset, batch=TRAIN_BATCH, crop=TRAIN_CROP,
+             loss=f"{float(metrics['loss']):.4f}", aux=f"{float(metrics['aux']):.4f}",
+             launches=runs[run], backwards=back, leaves_moved=moved,
+             leaves_zero_gradient=still, unread_leaves_bitidentical=len(unread),
+             aux_group=opt.aux is not None, step_ms=f"{sum(ms):.2f}",
+             forward_ms=f"{ms[0]:.2f}", backward_ms=f"{ms[1]:.2f}",
+             optimizer_ms=f"{ms[2]:.2f}", first_step_ms=f"{first_ms:.2f}",
+             peak_mem_gib=f"{peak:.2f}", images_per_s=f"{TRAIN_BATCH / sum(ms) * 1e3:.1f}",
+             seconds=f"{time.perf_counter() - t_phase:.1f}")
+        del model, opt, state, step_fn
+        torch.cuda.empty_cache()
+    _train_cli_default(dev)
+    return runs
+
+
+def _train_cli_default(dev):
+    """Where PIL imports: ``cli.train.main`` with no ``--preset`` for
+    ``UNET_CLI_STEPS`` steps (B = 2 crops of 256×256) on seeded 512×768
+    PNGs under ``build/smoke_cli_unet``; its ``final.npz`` loads strictly
+    into ``build_model("net_unet_ha_hs")``, the preset it built."""
+    try:
+        from PIL import Image
+    except ImportError:
+        _say("unet_cli", pil="absent")
+        return
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from lic_tpu_torch.cli import train as cli_train
+    from lic_tpu_torch.data import smooth_images
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.utils.checkpoint import load_params
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "smoke_cli_unet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "png"))
+    for i, img in enumerate(smooth_images(np.random.default_rng(SEED + 15), 2, H, W)):
+        Image.fromarray(np.clip((img.transpose(1, 2, 0) + 1) * 127.5 + 0.5, 0, 255)
+                        .astype(np.uint8)).save(os.path.join(root, "png", f"{i}.png"))
+    args = ["--train_data_path", os.path.join(root, "png"), "--batch_size", "2",
+            "--crop_size", str(TRAIN_CROP), "--epochs", "1",
+            "--steps_per_epoch", str(UNET_CLI_STEPS), "--checkpoint_dir",
+            os.path.join(root, "ck"), "--device", dev.type]
+    preset = cli_train.build_parser().parse_args(args).preset
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_train.main(args)
+    epoch = [l for l in out.getvalue().splitlines() if l.startswith("[Epoch")]
+    load_params(os.path.join(root, "ck", "final.npz"), build_model(preset, device=dev, seed=1))
+    if preset != "net_unet_ha_hs" or len(epoch) != 1:
+        raise AssertionError(f"unet_cli: built {preset}, epoch lines {epoch}")
+    shutil.rmtree(root, ignore_errors=True)
+    _say("unet_cli", preset_built=preset, steps=UNET_CLI_STEPS, epoch_line=repr(epoch[0]),
+         final_npz_loads_strictly=True, seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 if __name__ == "__main__":

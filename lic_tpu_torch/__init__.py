@@ -8,7 +8,11 @@ the eval-mode forward, the real bitstream roundtrip
 (``models.compress.ChannelCoder``), training (``training``,
 ``cli.train``), eval, the CLIs and, for the variable-rate
 ``source_net_vr``, rate control and the dynamic-batching
-``serving.CodecService``.  The kernels on those paths are written by hand
+``serving.CodecService``; and the forward, training and eval of the six
+presets no coder takes (``net_ha``, ``net_unet_ha_hs``,
+``net_unet_ha_hs_1``: the U-Net hyper whose decoder reads the encoder's
+skips; ``net_unet``, ``net_unet_1``, ``net_unet_005_5``: the uncoded
+latent U-Net).  The kernels on those paths are written by hand
 for Hopper and built from this package's sources at first use:
 
 * B1, the interleaved rANS drain, CUDA C++ (``csrc/rans_drain.cu``, wrapper

@@ -2,7 +2,7 @@
 ``train_net_unet.py:241-302``) on the port's trainer.
 
     python -m lic_tpu_torch.cli.train --train_data_path '/data/DIV2K/*.png' \\
-        --preset source_net --lmbda 0.0025 --batch_size 8
+        --preset net_unet_ha_hs --lmbda 0.0025 --batch_size 8
 
 It runs on the card unless ``--device cpu`` is given.  Data parallel over
 processes: launch it under ``torchrun`` (one process per card), or give
@@ -26,8 +26,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="lic_tpu_torch trainer")
     p.add_argument("--train_data_path", required=True,
                    help="folder or glob of training images (e.g. DIV2K)")
-    p.add_argument("--preset", default="source_net",
-                   help="model preset (see lic_tpu_torch.models.PRESETS)")
+    p.add_argument("--preset", default="net_unet_ha_hs",
+                   help="model preset (see lic_tpu_torch.models.PRESETS); the JAX "
+                        "trainer's default")
     p.add_argument("--lmbda", type=float, default=0.0025,
                    help="R-D tradeoff (reference default, train_net_unet.py:273)")
     p.add_argument("--lr", type=float, default=1e-4)

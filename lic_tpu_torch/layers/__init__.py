@@ -1,6 +1,6 @@
 """Layers (counterpart of ``lic_tpu.layers``): convs with kernels B3/B6,
 GDN with kernel B2, residual blocks, window attention with kernels B4/B5,
-the Swin blocks of ``SWAtten``."""
+the Swin blocks of ``SWAtten``, the latent U-Nets' ``SpatialTransformer``."""
 
 from .blocks import (
     AttentionBlock,
@@ -23,6 +23,13 @@ from .conv import (
 )
 from .conv_direct import conv5s2, conv5s2_plain, convk_s1, convk_s1_plain
 from .gdn import GDN, IGDN, gdn_fused, gdn_plain
+from .spatial_transformer import (
+    GEGLU,
+    BasicTransformerBlock,
+    CrossAttention,
+    FeedForward,
+    SpatialTransformer,
+)
 from .swin import WMSA, SwinBlock, SwinTransformerBlock, SWAtten
 from .win_attention import WinBasedAttention, WindowAttention, WinNoShiftAttention
 from .window_attn import (
@@ -34,6 +41,11 @@ from .window_attn import (
 
 __all__ = [
     "AttentionBlock",
+    "BasicTransformerBlock",
+    "CrossAttention",
+    "FeedForward",
+    "GEGLU",
+    "SpatialTransformer",
     "Conv2d",
     "ConvTranspose2d",
     "DepthwiseConv2d",

@@ -124,6 +124,13 @@ class Conv2d(nn.Module):
             return convk_s1(x, self.weight, self.bias, self.fused_act, residual)
         if slot == "conv5s2":
             y = conv5s2(x, self.weight, self.bias)
+        elif (x.device.type == "cpu" and self.stride > 1 and self.weight.shape[-1] == 1
+              and self.padding == 0):
+            # a strided 1×1 is a 1×1 on the subsampled map; torch's CPU
+            # (oneDNN) backward of the strided form on a channels_last input
+            # of 3 channels corrupts the heap (torch 2.13)
+            s = self.stride
+            y = F.conv2d(x[:, :, ::s, ::s], self.weight, self.bias, groups=self.groups)
         elif isinstance(self.padding, int):
             y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
                          groups=self.groups)
@@ -199,8 +206,9 @@ class ConvTranspose2d(nn.Module):
 class Linear(nn.Module):
     """``flax.linen.Dense`` with its init: LeCun truncated normal (fan-in)
     kernel and zero bias unless ``kernel_scale``/``fan_avg``/``bias_std``
-    select the ``ConvGenerator`` head's init (``syntax.py:107-114``).
-    The weight is torch's ``(out, in)``: the transpose of flax's kernel."""
+    select the ``ConvGenerator`` head's init (``syntax.py:107-114``);
+    ``bias=False`` is ``use_bias=False``.  The weight is torch's
+    ``(out, in)``: the transpose of flax's kernel."""
 
     def __init__(
         self,
@@ -210,13 +218,14 @@ class Linear(nn.Module):
         kernel_scale: float = 1.0,
         fan_avg: bool = False,
         bias_std: float = 0.0,
+        bias: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         fan = (in_features + out_features) / 2 if fan_avg else in_features
         variance_scaling_(self.weight, kernel_scale, fan, generator)
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         if bias_std:
             with torch.no_grad():
                 nn.init.normal_(self.bias, 0.0, bias_std, generator=generator)

@@ -4,11 +4,15 @@ checkerboard context) and the neural-syntax family, NCHW.
 Counterpart of ``lic_tpu/models/codec.py``:
 
 * charm — the classic dual hyper (``source_net``, ``source_net_wam``), the
-  ELIC hyper (``net_ga``, ``entroformer_cb*``) and the decodable U-Net
-  hyper (``net_unet_ha_hs_dec``); ``_CharmSliceStack`` (``:73-85``), the
-  hyper branches (``:141-162``, ``_hyper_forward`` ``:437-479``),
-  ``_forward_charm`` in eval and training mode (``:481-575``) and the
-  sub-passes ``ChannelCoder`` calls (``:589-649``);
+  ELIC hyper (``net_ga``, ``entroformer_cb*``), the decodable U-Net hyper
+  (``net_unet_ha_hs_dec``), the U-Net hyper whose decoder reads the
+  encoder's skips (``net_ha``, ``net_unet_ha_hs``, ``net_unet_ha_hs_1``)
+  and the uncoded latent U-Net (``net_unet``, ``net_unet_1``,
+  ``net_unet_005_5``: no z, no EntropyBottleneck, ``bpp_z`` 0);
+  ``_CharmSliceStack`` (``:73-85``), the hyper branches (``:141-175``,
+  ``_hyper_forward`` ``:437-479``), ``_forward_charm`` in eval and
+  training mode (``:481-575``) and the sub-passes ``ChannelCoder`` calls
+  (``:589-649``), which only the decodable hypers have;
 * the entroformer context (``context='entroformer'``): ``entro_context``
   (``:178-196``), ``_entroformer_entropy`` (``:698-750``: two
   checkerboard passes, anchors from the hyper alone, then the non-anchors
@@ -24,8 +28,9 @@ Counterpart of ``lic_tpu/models/codec.py``:
 The training forward is the eval one with U(-½, ½) noise in the
 likelihoods (the rounded values still feed the decoders, as in the JAX
 package).  Every noise tensor is drawn through one ``noise_fn(shape,
-dtype, device)``, in the JAX package's order: charm, z then slices 0-3;
-entroformer, z then y; neural syntax, z2, content, syntax.
+dtype, device)``, in the JAX package's order: charm, z then slices 0-3
+(the latent U-Net draws no z); entroformer, z then y; neural syntax, z2,
+content, syntax.
 
 Variable rate (``cfg.gain_units`` = K > 0, charm slices only,
 ``:249-296``): K learned (log-gain, log-inverse-gain) rows of N; a
@@ -45,17 +50,27 @@ the tail, so the coders' decodes do.  The HAN parameters are built last,
 so a seed gives a post-processing model the base weights of the model
 without it.
 
+The syntax machinery (``:99-113``, ``_decode_tail`` ``:322-328``): with
+``syntax_decoder`` (the default) g_s gives M channels and the per-image
+generated conv ``conv_weights_gen`` maps them to RGB; without it
+(``net_unet_ha_hs_1``) g_s gives RGB itself and no generated conv is
+built.  ``syntax="none"`` builds no syntax model either.  The JAX model
+still builds the syntax model of ``syntax_decoder=False``, and so does
+this one, though no forward reads it there: the forward skips it (as
+XLA drops it under ``jit``), its leaves take no gradient, and
+``unread_parameters`` names them for a ``DistributedDataParallel`` wrap.
+
 The charm configs also build a ``PredictionModelSyntax`` that no charm
 forward calls (``config.py:88``, ``codec.py:115-119``); it is not part of
 a charm model, ``utils.params`` skips its subtree there, and
-``utils.checkpoint`` carries it in the ``.npz`` files.  The other hypers
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``utils.checkpoint`` carries it in the ``.npz`` files.  What is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,7 +90,9 @@ from .hyper import (
     DecodableUnetHyperSynthesis,
     ElicHyperAnalysis,
     ElicHyperSynthesis,
+    LatentUnet,
     UnetHyperAnalysis,
+    UnetHyperSynthesis,
 )
 from .syntax import ConvGenerator, PredictionModelSyntax, SyntaxModel, batch_conv
 from .transforms import AnalysisTransform, SynthesisTransform
@@ -96,25 +113,31 @@ def _bpp(likelihood: torch.Tensor, num_pixels: int) -> torch.Tensor:
     return torch.sum(torch.log(likelihood)) / (-math.log(2.0) * num_pixels)
 
 
+CHARM_HYPERS = ("classic_dual", "elic", "unet", "unet_dec", "latent_unet")
+# hypers whose decoder reads nothing but coded data
+DECODABLE_HYPERS = ("classic_dual", "elic", "unet_dec")
+
+
 def check_supported(cfg: CodecConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not carry yet."""
+    """Raise ``ValueError`` for a config the JAX package rejects too, and
+    ``NotImplementedError`` for what this port does not carry yet."""
     charm = cfg.family == "charm"
     if cfg.family not in ("charm", "neural_syntax"):
         raise ValueError(f"unknown codec family {cfg.family!r}")
+    if charm and cfg.hyper not in CHARM_HYPERS:
+        raise ValueError(f"unknown charm hyper: {cfg.hyper}")
+    if charm and cfg.context not in ("charm", "entroformer"):
+        raise ValueError(f"unknown context {cfg.context!r}")
+    if cfg.syntax not in ("basic", "wam", "none"):
+        raise ValueError(f"unknown syntax {cfg.syntax!r}")
+    if not charm and (cfg.syntax == "none" or not cfg.code_syntax):
+        raise ValueError("the neural-syntax family codes its syntax stream: it needs a "
+                         "syntax model and code_syntax")
     gaps = [
         (cfg.transform not in ("plain", "plain_wam", "rich"),
-         f"transform {cfg.transform!r} (ROADMAP A16)"),
-        (charm and cfg.hyper not in ("classic_dual", "elic", "unet_dec"),
-         f"hyper {cfg.hyper!r} (ROADMAP A16)"),
-        (charm and cfg.hyper == "unet_dec" and not cfg.shared_hyper_decoder,
-         "two separate U-Net hyper decoders (ROADMAP A16)"),
-        (charm and cfg.context not in ("charm", "entroformer"),
-         f"context {cfg.context!r}"),
-        (cfg.syntax not in ("basic", "wam") or not cfg.syntax_decoder,
-         f"syntax {cfg.syntax!r} without its decoder (ROADMAP A16)"),
-        (not charm and not cfg.code_syntax, "neural syntax without code_syntax"),
+         f"transform {cfg.transform!r} (ROADMAP A16 (f))"),
         (charm and cfg.context == "charm" and not cfg.lrp,
-         "charm without LRP (ROADMAP A16)"),
+         "charm without LRP (ROADMAP A16 (f))"),
     ]
     for missing, what in gaps:
         if missing:
@@ -152,11 +175,17 @@ class CodecModel(nn.Module):
         self.is_entro = not self.is_ns and cfg.context == "entroformer"
         if cfg.gain_units and (self.is_ns or self.is_entro):
             raise ValueError("gain_units currently supports the charm slice family")
+        has_syntax = cfg.syntax != "none"
+        # g_s gives M channels for the generated conv, or RGB without it
+        gen_conv = has_syntax and cfg.syntax_decoder
         self.g_a = AnalysisTransform(N, cfg.transform, generator=g)
-        self.g_s = SynthesisTransform(N, M, cfg.transform, in_channels=cfg.content_channels,
-                                      generator=g)
-        self.syntax_model = SyntaxModel(M, M, cfg.syntax, generator=g)
-        self.conv_weights_gen = ConvGenerator(M, M, generator=g)
+        self.g_s = SynthesisTransform(N, M if gen_conv else 3, cfg.transform,
+                                      in_channels=cfg.content_channels, generator=g)
+        self.syntax_model = SyntaxModel(M, M, cfg.syntax, generator=g) if has_syntax else None
+        self.conv_weights_gen = ConvGenerator(M, M, generator=g) if gen_conv else None
+        # the forward computes the syntax vector only where something reads
+        # it: the generated conv, the HAN tail's, the neural-syntax stream
+        self.reads_syntax = gen_conv or (has_syntax and (cfg.post_processing or self.is_ns))
         if self.is_ns:
             self._init_neural_syntax(g)
         else:
@@ -170,6 +199,8 @@ class CodecModel(nn.Module):
         entroformer context (``codec.py:136-296``)."""
         cfg = self.cfg
         N = cfg.N
+        shared = cfg.shared_hyper_decoder
+        z_channels = None
         if cfg.hyper == "classic_dual":
             self.h_a = ClassicHyperAnalysis(N, generator=g)
             self.h_mean_s = ClassicHyperSynthesis(N, generator=g)
@@ -180,11 +211,24 @@ class CodecModel(nn.Module):
             self.h_mean_s = ElicHyperSynthesis(N, generator=g)
             self.h_scale_s = ElicHyperSynthesis(N, generator=g)
             z_channels = 192
-        else:  # unet_dec: one decoder pass, two heads (scales, means)
+        elif cfg.hyper in ("unet", "unet_dec"):
+            # one decoder pass with two heads (scales, means), or two decoders
             self.h_a = UnetHyperAnalysis(N, generator=g)
-            self.h_s = DecodableUnetHyperSynthesis(N, two_heads=True, generator=g)
+            if cfg.hyper == "unet":
+                dec = lambda two: UnetHyperSynthesis(N, N, two_heads=two, generator=g)
+            else:
+                dec = lambda two: DecodableUnetHyperSynthesis(N, two_heads=two, generator=g)
+            if shared:
+                self.h_s = dec(True)
+            else:
+                self.h_s_scale, self.h_s_means = dec(False), dec(False)
             z_channels = 512
-        self.entropy_bottleneck = EntropyBottleneck(z_channels, generator=g)
+        else:  # latent_unet: (scales, means) from the unquantized latent
+            variant = "conv1x1" if cfg.unet_variant == "conv1x1" else "res"
+            self.unet = LatentUnet(N, N, variant=variant, two_heads=shared, generator=g)
+            self.unet_b = None if shared else LatentUnet(N, N, variant=variant, generator=g)
+        if z_channels is not None:
+            self.entropy_bottleneck = EntropyBottleneck(z_channels, generator=g)
         self.gaussian_conditional = GaussianConditional()
         if self.is_entro:
             ed = cfg.entro_dim_mult * N
@@ -277,17 +321,20 @@ class CodecModel(nn.Module):
 
     def _decode_tail(self, x_tilde, syntax_rounded, use_post_processing=True,
                      stop_base_grad=False):
-        """g_s output → RGB through the per-image generated conv (+ tanh),
-        then, on a post-processing model unless ``use_post_processing`` is
-        False, the HAN tail, the second generated conv and the mean shift.
+        """g_s output → RGB through the per-image generated conv (+ tanh)
+        where the model has one (else g_s gave RGB), then, on a
+        post-processing model unless ``use_post_processing`` is False, the
+        HAN tail, the second generated conv and the mean shift.
         ``stop_base_grad`` detaches the HAN's inputs (the RGB image and the
         syntax vector): no gradient reaches the base network."""
-        w = self.conv_weights_gen(syntax_rounded)
-        x_bf = batch_conv(w, x_tilde)
-        if self.cfg.tanh_after_syntax:
-            x_bf = torch.tanh(x_bf)
+        x_bf = x_tilde
+        if self.conv_weights_gen is not None:
+            x_bf = batch_conv(self.conv_weights_gen(syntax_rounded), x_tilde)
+            if self.cfg.tanh_after_syntax:
+                x_bf = torch.tanh(x_bf)
         if stop_base_grad:
-            x_bf, syntax_rounded = x_bf.detach(), syntax_rounded.detach()
+            x_bf = x_bf.detach()
+            syntax_rounded = None if syntax_rounded is None else syntax_rounded.detach()
         if not (self.cfg.post_processing and use_post_processing):
             return x_bf
         feats = self.han(x_bf)
@@ -318,11 +365,8 @@ class CodecModel(nn.Module):
         num_pixels = b * h * w
 
         z3 = self._gained(self.g_a(x), rate, inverse=False)
-        z = self.hyper_encode(z3)
-        _, z_lik = self.entropy_bottleneck(z, training, noise_fn)
-        z_hat = quantize_ste_offset(z, self.eb_medians()[None, :, None, None])
-        latent_scales, latent_means = self.hyper_decode(z_hat)
-        syntax_rounded = self.syntax_from_latent(z3)
+        latent_scales, latent_means, z_lik = self.hyper_forward(z3, training, noise_fn)
+        syntax_rounded = self.syntax_from_latent(z3) if self.reads_syntax else None
         if self.is_entro:
             return self._entroformer_entropy(x, z3, latent_scales, latent_means, z_lik,
                                              syntax_rounded, training, noise_fn, tail)
@@ -346,7 +390,7 @@ class CodecModel(nn.Module):
                                     syntax_rounded, **tail)
 
         bpp_y = _bpp(torch.cat(y_liks, dim=1), num_pixels)
-        if cfg.count_hyper_bpp:
+        if z_lik is not None and cfg.count_hyper_bpp:
             bpp_z = _bpp(z_lik, num_pixels)
         else:
             bpp_z = torch.zeros((), device=x.device)
@@ -380,7 +424,7 @@ class CodecModel(nn.Module):
         x_tilde = self._decode_tail(self.g_s(y_hat), syntax_rounded, **tail)
         num_pixels = b * h * w
         bpp_y = _bpp(y_lik, num_pixels)
-        bpp_z = (_bpp(z_lik, num_pixels) if self.cfg.count_hyper_bpp
+        bpp_z = (_bpp(z_lik, num_pixels) if z_lik is not None and self.cfg.count_hyper_bpp
                  else torch.zeros((), device=x.device))
         return CodecOutput(
             x_tilde=x_tilde, bpp=bpp_y + bpp_z, mse=torch.mean((x_tilde - x) ** 2),
@@ -427,10 +471,45 @@ class CodecModel(nn.Module):
 
     def entropy_aux_loss(self) -> torch.Tensor:
         """The EntropyBottleneck's quantile loss; 0 for the neural-syntax
-        family, which has none."""
-        if self.is_ns:
-            return torch.zeros((), device=self.z2_sigma.device)
+        family and the latent U-Net, which have none."""
+        if not hasattr(self, "entropy_bottleneck"):
+            return torch.zeros((), device=next(self.parameters()).device)
         return self.entropy_bottleneck.aux_loss()
+
+    def unread_parameters(self) -> List[str]:
+        """Names of the parameters no forward reads: the syntax model of a
+        model whose g_s gives RGB (and that has no HAN tail)."""
+        if self.syntax_model is None or self.reads_syntax:
+            return []
+        return [f"syntax_model.{n}" for n, _ in self.syntax_model.named_parameters()]
+
+    def hyper_forward(self, z3: torch.Tensor, training: bool = False,
+                      noise_fn: Optional[NoiseFn] = None):
+        """The hyper path on the latent (``_hyper_forward``, ``:437-479``):
+        → (latent_scales, latent_means, z likelihoods or None).  The U-Net
+        hyper's decoder takes the encoder-side skips and not ẑ; the
+        latent U-Net codes nothing and draws no noise."""
+        hyper = self.cfg.hyper
+        if hyper == "latent_unet":
+            if self.unet_b is None:
+                return (*self.unet(z3), None)
+            return self.unet(z3), self.unet_b(z3), None
+        z = self.h_a(z3)
+        skips = ()
+        if hyper in ("unet", "unet_dec"):
+            z, *skips = z  # (z, middle, skip1, inp)
+        _, z_lik = self.entropy_bottleneck(z, training, noise_fn)
+        if hyper == "unet":  # the decoder's ẑ argument, which it does not read
+            return (*self._two_decoders(None, *skips), z_lik)
+        z_hat = quantize_ste_offset(z, self.eb_medians()[None, :, None, None])
+        return (*self.hyper_decode(z_hat), z_lik)
+
+    def _two_decoders(self, *args) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scales, means) from the two-head ``h_s``, or from ``h_s_scale``
+        and ``h_s_means``."""
+        if self.cfg.shared_hyper_decoder:
+            return self.h_s(*args)
+        return self.h_s_scale(*args), self.h_s_means(*args)
 
     # ------------------------------------------------ bitstream sub-passes
 
@@ -442,8 +521,16 @@ class CodecModel(nn.Module):
 
     def hyper_encode(self, z3: torch.Tensor) -> torch.Tensor:
         """z3 → z; the U-Net hyper's skips are not part of the message."""
+        self._decodable("hyper_encode")
         z = self.h_a(z3)
         return z[0] if self.cfg.hyper == "unet_dec" else z
+
+    def _decodable(self, what: str) -> None:
+        if self.cfg.hyper not in DECODABLE_HYPERS:
+            raise ValueError(
+                f"{what}: hyper path '{self.cfg.hyper}' is not decodable (its decoder "
+                "reads encoder-side activations, or nothing is coded); "
+                "use hyper_forward")
 
     def eb_medians(self) -> torch.Tensor:
         return self.entropy_bottleneck.medians
@@ -453,12 +540,16 @@ class CodecModel(nn.Module):
 
     def hyper_decode(self, z_hat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """z_hat → (latent_scales, latent_means)."""
+        self._decodable("hyper_decode")
         if self.cfg.hyper == "unet_dec":
-            return self.h_s(z_hat)
+            return self._two_decoders(z_hat)
         return self.h_scale_s(z_hat), self.h_mean_s(z_hat)
 
     def syntax_from_latent(self, z3: torch.Tensor) -> torch.Tensor:
-        """→ rounded syntax vector (B, M, 1, 1)."""
+        """→ rounded syntax vector (B, M, 1, 1); (B, 0, 1, 1) for a model
+        with no syntax model, whose streams carry an empty syntax field."""
+        if self.syntax_model is None:
+            return z3.new_zeros(z3.shape[0], 0, 1, 1)
         return bypass_round(self.syntax_model(z3[:, : self.cfg.M]))
 
     def charm_entropy_params(self, latent_means, latent_scales, support, i: int):

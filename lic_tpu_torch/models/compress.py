@@ -93,14 +93,12 @@ from ..coding import (
 )
 from ..data.pad import pad_to_multiple, padded_size
 from ..layers.entroformer import checkerboard_masks
-from .codec import CodecModel
+from .codec import DECODABLE_HYPERS, CodecModel
 
 MAGIC = b"LTC2"
 Z_RANGE = 128  # factorized-prior symbol support: [-128, 127] rel. medians
 _SYM_CLIP = 32000  # int16-safe symbol range (escapes code |s| > radius)
 CHARM_LANES = 128
-# hypers whose decoder reads nothing but coded data
-_DECODABLE = ("classic_dual", "elic", "unet_dec")
 
 
 def set_numerics_flags() -> None:
@@ -239,7 +237,7 @@ class ChannelCoder:
         self.rate = 0.0 if rate is None else float(rate)
         self.is_ns = cfg.family == "neural_syntax"
         self.is_entro = not self.is_ns and cfg.context == "entroformer"
-        if not self.is_ns and cfg.hyper not in _DECODABLE:
+        if not self.is_ns and cfg.hyper not in DECODABLE_HYPERS:
             raise ValueError(
                 f"hyper path '{cfg.hyper}' is not decodable: the "
                 "reference feeds encoder-side activations into its hyper "
@@ -422,7 +420,7 @@ class ChannelCoder:
         syntax = _passes(self.model.syntax_from_latent, p, z3)
         sym, rows, _, _ = self._slices_pass(z_hat, p, y=z3)
 
-        syntax_np = syntax.reshape(b, -1).cpu().numpy().astype(np.int16)
+        syntax_np = syntax.flatten(1).cpu().numpy().astype(np.int16)
         z_np = z_sym16.permute(0, 2, 3, 1).cpu().numpy()  # NHWC for the host
         sym_np, rows_np = sym.cpu().numpy(), rows.cpu().numpy()
         rates_host = [None] * b if rate_t is None else rate_t.tolist()
@@ -537,9 +535,10 @@ class ChannelCoder:
         p = pass_batch(h, w, self.device)
         _, _, y_hat, lanes = self._slices_pass(z_hat, p, payload=payload)
         self._check_final(lanes, ends)
+        # (B, M, 1, 1); M is 0 for a model without a syntax model
         syn = torch.from_numpy(
             np.stack([hd[3] for hd in heads]).astype(np.float32)
-        ).reshape(b, -1, 1, 1).to(self.device)
+        )[:, :, None, None].to(self.device)
         if self.has_gain:  # each image's header rate
             rate_t = torch.tensor(rates, dtype=torch.float32, device=self.device)
             rec = _passes(self.model.synthesize, p, y_hat, syn, rate_t)

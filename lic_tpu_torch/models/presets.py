@@ -1,11 +1,8 @@
-"""Preset table of the port: the ``neural_syntax``, ``source_net``,
-``source_net_wam``, ``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``,
-``entroformer_cb_full`` and ``source_net_vr`` rows, built from the port's
-``config.CodecConfig``.
+"""Preset table of the port: every row of the JAX package's table, built
+from the port's ``config.CodecConfig``.
 
 Each row must equal ``lic_tpu.models.presets.PRESETS[name]``; a test holds
-it to that.  Every other preset of the JAX package raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+it to that, field by field.
 """
 
 from __future__ import annotations
@@ -56,6 +53,23 @@ PRESETS: Dict[str, CodecConfig] = {
         swatten=True,
         syntax="wam",
     ),
+    # model/net_ha.py — plain transforms + split U-Net hyper + SWAtten
+    "net_ha": CodecConfig(
+        family="charm",
+        transform="plain",
+        hyper="unet",
+        swatten=True,
+        syntax="wam",
+    ),
+    # model/net_unet_ha_hs.py — the "full" model: rich transforms + U-Net
+    # hyper + SWAtten + WAM syntax; the trainer's default preset
+    "net_unet_ha_hs": CodecConfig(
+        family="charm",
+        transform="rich",
+        hyper="unet",
+        swatten=True,
+        syntax="wam",
+    ),
     # the decodable flagship: net_unet_ha_hs with the U-Net hyper's skip
     # pyramid re-synthesized from the coded z only
     "net_unet_ha_hs_dec": CodecConfig(
@@ -64,6 +78,49 @@ PRESETS: Dict[str, CodecConfig] = {
         hyper="unet_dec",
         swatten=True,
         syntax="wam",
+    ),
+    # model/net_unet_ha_hs_1.py — g_s outputs RGB directly (no generated
+    # conv), separate scale / means U-Net decoders
+    "net_unet_ha_hs_1": CodecConfig(
+        family="charm",
+        transform="rich",
+        hyper="unet",
+        shared_hyper_decoder=False,
+        swatten=True,
+        syntax="wam",
+        syntax_decoder=False,
+    ),
+    # model/Net_unet.py — rich transforms + the uncoded latent U-Net
+    # (SpatialTransformer U-Net on the unquantized latent; the reference's
+    # training entry point, train_net_unet.py:16)
+    "net_unet": CodecConfig(
+        family="charm",
+        transform="rich",
+        hyper="latent_unet",
+        unet_variant="res",
+        swatten=True,
+        syntax="wam",
+        count_hyper_bpp=False,     # nothing coded on the hyper path
+    ),
+    # model/Net_unet_1.py — net_unet with the Unet_new (1x1-conv) latent U-Net
+    "net_unet_1": CodecConfig(
+        family="charm",
+        transform="rich",
+        hyper="latent_unet",
+        unet_variant="conv1x1",
+        swatten=True,
+        syntax="wam",
+        count_hyper_bpp=False,
+    ),
+    # model/Net_unet_005_5.py — the λ = 0.05 twin, the 'res' U-Net
+    "net_unet_005_5": CodecConfig(
+        family="charm",
+        transform="rich",
+        hyper="latent_unet",
+        unet_variant="res",
+        swatten=True,
+        syntax="wam",
+        count_hyper_bpp=False,
     ),
     # the Entroformer path the reference implies but never ships: the
     # checkerboard masked-attention context over y, ELIC hyper
@@ -99,22 +156,7 @@ PRESETS: Dict[str, CodecConfig] = {
     ),
 }
 
-# the JAX package's other presets → the ROADMAP item that ports each
-NOT_YET_PORTED: Dict[str, str] = {
-    "net_ha": "A16",
-    "net_unet_ha_hs": "A16",
-    "net_unet_ha_hs_1": "A16",
-    "net_unet": "A16",
-    "net_unet_1": "A16",
-    "net_unet_005_5": "A16",
-}
-
-
 def get_config(name: str, **overrides) -> CodecConfig:
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"preset {name!r} is not ported yet (ROADMAP {NOT_YET_PORTED[name]})"
-        )
     cfg = PRESETS[name]
     return cfg.replace(**overrides) if overrides else cfg
 

@@ -44,9 +44,8 @@ import torch
 
 from ..coding.tritplane import GaussianTritCoder, TritPlaneCoder, num_planes_for
 from ..data.pad import pad_to_multiple, padded_size
-from .codec import CodecModel
+from .codec import DECODABLE_HYPERS, CodecModel
 from .compress import (
-    _DECODABLE,
     _from_nhwc_flat,
     _nhwc_flat,
     _passes,
@@ -69,7 +68,7 @@ class ProgressiveCoder:
         cfg = model.cfg
         if cfg.family != "charm" or cfg.context == "entroformer":
             raise ValueError("progressive coding covers the ChARM slice family")
-        if cfg.hyper not in _DECODABLE:
+        if cfg.hyper not in DECODABLE_HYPERS:
             raise ValueError(
                 f"hyper path '{cfg.hyper}' is not decodable (see "
                 "lic_tpu_torch.models.compress); progressive streams need a "
@@ -245,6 +244,6 @@ class ProgressiveCoder:
             supports.append(_passes(lambda ms, yh: model.charm_apply_lrp(ms, yh, i),
                                     p, msup, sym + mu))
         y_hat = torch.cat(supports, dim=1)
-        syn = torch.from_numpy(syntax.astype(np.float32)).reshape(1, -1, 1, 1).to(self.device)
+        syn = torch.from_numpy(syntax.astype(np.float32))[None, :, None, None].to(self.device)
         rec = _passes(model.synthesize, p, y_hat, syn)
         return rec[:, :, :h, :w]

@@ -65,9 +65,18 @@ def shard_batch(batch: torch.Tensor, rank: int, world_size: int) -> torch.Tensor
 
 def wrap_ddp(model: nn.Module) -> nn.Module:
     """``model`` in DDP when a process group of more than one rank is up,
-    else ``model`` itself."""
+    else ``model`` itself.  The parameters no forward reads (the model's
+    ``unread_parameters``: the syntax model of a model whose g_s gives
+    RGB) are left out of DDP: they never take a gradient, and DDP would
+    otherwise stop at the next step waiting for their reduction.  They
+    keep their values on every rank, as the optimizer skips a leaf
+    without a gradient."""
     if not (dist.is_initialized() and dist.get_world_size() > 1):
         return model
     dev = next(model.parameters()).device
+    unread = getattr(model, "unread_parameters", lambda: [])()
+    if unread:
+        nn.parallel.DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+            model, unread)
     return nn.parallel.DistributedDataParallel(
         model, device_ids=[dev.index] if dev.type == "cuda" else None)

@@ -3,7 +3,8 @@ B = 1 against B = 8, stage by stage, on one GPU (ROADMAP §C5).
 
     python -m lic_tpu_torch.tools.batch_probe [--preset source_net ...] [--batch 8]
 
-For each preset (any of the port's), built at full width (seed 0) with
+For each preset (by default every preset a coder takes: the
+neural-syntax family and the decodable hypers), built at full width (seed 0) with
 the coder's numerics flags, on a batch of smooth synthetic 512×768 images,
 each stage runs on the whole batch and on each image alone, fed the
 batched run's values: g_a, h_a, both hyper-decoder heads, then for a
@@ -42,7 +43,15 @@ import subprocess
 import numpy as np
 import torch
 
+from ..models.codec import DECODABLE_HYPERS
 from ..models.presets import PRESETS
+
+
+def decodable_presets():
+    """The presets a coder takes, chosen by their hyper path (and the
+    neural-syntax family's wavefront coder)."""
+    return [name for name, cfg in PRESETS.items()
+            if cfg.family == "neural_syntax" or cfg.hyper in DECODABLE_HYPERS]
 
 
 def coder_rows_differing(model, coder, x) -> int:
@@ -242,7 +251,8 @@ def stage_differences(model, coder, x) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", nargs="+", default=list(PRESETS))
+    ap.add_argument("--preset", nargs="+", default=decodable_presets(),
+                    help="default: every preset the coders take")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--card_vs_cpu", action="store_true",

@@ -9,13 +9,15 @@ Each rank takes its contiguous share of one seeded batch of
 ``smooth_images`` and its share of the same global noise draws (the
 EntropyBottleneck's along its B·H·W axis, each slice's along the batch),
 runs the training forward, ``loss + aux`` backward through DDP (NCCL on
-the cards, one per rank; gloo on the CPU), and sends rank 0's averaged
-gradients back.  The parent process then computes the gradient of the
-whole batch in one process (on the first card, or the CPU) and prints,
-per parameter group, the largest difference as a share of the gradient's
-range, and the ranks' backward times.  It exits 1 above ``--tol``.  The
-process group takes ``localhost`` and a free port: nothing here looks for
-a cluster.
+the cards, one per rank; gloo on the CPU), twice on the same batch and
+noise (DDP's second step is where a parameter that takes no gradient
+would stop it: ``net_unet_ha_hs_1``'s syntax model), and sends rank 0's
+averaged gradients of the second back.  The parent process then
+computes the gradient of the whole batch in one process (on the first
+card, or the CPU) and prints, per parameter group, the largest
+difference as a share of the gradient's range, and the ranks' backward
+times.  It exits 1 above ``--tol``.  The process group takes
+``localhost`` and a free port: nothing here looks for a cluster.
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ def shard_noise(world: int, rank: int):
 
 def local_grads(args, world: int, rank: int, device) -> Tuple[Dict[str, np.ndarray], float]:
     """``loss + aux`` gradients of this rank's share, through DDP when
-    ``world`` > 1; → ({parameter name: gradient} (DDP's average over
-    ranks), the backward's ms)."""
+    ``world`` > 1, the second of two backwards; → ({parameter
+    name: gradient} (DDP's average over ranks) for every parameter that
+    took one, the second backward's ms)."""
     from ..data import smooth_images
     from ..models import build_model
     from ..models.compress import set_numerics_flags
@@ -68,16 +71,19 @@ def local_grads(args, world: int, rank: int, device) -> Tuple[Dict[str, np.ndarr
     x = torch.from_numpy(smooth_images(np.random.default_rng(1), args.batch, args.size, args.size))
     x = shard_batch(x, rank, world).to(device).contiguous(memory_format=torch.channels_last)
     net = wrap_ddp(model)
-    out = net(x, training=True, noise_fn=shard_noise(world, rank))
-    loss = rate_distortion_loss(out.bpp, out.mse, 0.0025) + model.entropy_aux_loss()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss.backward()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    return {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()}, ms
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        out = net(x, training=True, noise_fn=shard_noise(world, rank))
+        loss = rate_distortion_loss(out.bpp, out.mse, 0.0025) + model.entropy_aux_loss()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss.backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()
+            if p.grad is not None}, ms
 
 
 def _worker(args, world, rank, port, q):
@@ -126,6 +132,9 @@ def run(args) -> dict:
     got = next(g for r, g, _, _ in results if r == 0)
     device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
     ref, ref_ms = local_grads(args, 1, 0, device)
+    if set(got) != set(ref):
+        raise RuntimeError(f"DDP and one process differ in which parameters took a "
+                           f"gradient: {sorted(set(got) ^ set(ref))[:5]}")
     worst = {}
     for name, r in ref.items():
         share = float(np.abs(got[name] - r).max() / max(float(np.abs(r).max()), 1e-30))
@@ -133,6 +142,7 @@ def run(args) -> dict:
         worst[group] = max(worst.get(group, 0.0), share)
     report = {
         "preset": args.preset, "world": args.world, "batch": args.batch, "size": args.size,
+        "params_with_gradient": len(ref),
         "device": args.device, "backend": "nccl" if args.device == "cuda" else "gloo",
         "max_share_of_range": max(worst.values()), "by_module": worst,
         "rank_backward_ms": sorted(ms for _, _, ms, _ in results),

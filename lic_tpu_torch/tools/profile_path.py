@@ -2,20 +2,25 @@
 
     python -m lic_tpu_torch.tools.profile_path [--preset net_unet_ha_hs_dec] [--out build/profile]
 
-``--preset`` (any preset of the port: ``source_net``, ``source_net_wam``,
-``net_ga``, ``net_unet_ha_hs_dec``, ``entroformer_cb``,
-``entroformer_cb_full``, ``neural_syntax``) at full width, random weights
+``--preset`` (any preset of the port) at full width, random weights
 from ``--seed``, a batch of ``--batch`` smooth synthetic images of
 ``--height`` × ``--width``, fp32 with the coder's numerics flags.  It
 prints:
 
 * the card: name, power limit and maximum SM clock from ``nvidia-smi``;
 * ``STAGE`` / ``LAYER`` lines: CUDA-event milliseconds of each stage of the
-  eval forward (g_a, the hyper analysis and synthesis, the syntax model,
-  g_s; for the entroformer the hyper embedding and each checkerboard
-  pass; for neural syntax the hyper, the syntax vector's parameters and
-  the spatial context) and of each layer of g_a and g_s (a
+  eval forward (g_a, the hyper path and its analysis and synthesis, the
+  syntax model, g_s; for the entroformer the hyper embedding and each
+  checkerboard pass; for neural syntax the hyper, the syntax vector's
+  parameters and the spatial context) and of each layer of g_a and g_s (a
   ``WinNoShiftAttention`` gate is one layer);
+* ``HYPER`` lines (latent U-Net presets): each ``SpatialTransformer`` of
+  the latent U-Net on the input the forward gave it (``st2`` twice: the
+  down and the up path), and its first block's self-attention core on
+  that input: the plain product the port runs (matmul, fp32 softmax,
+  matmul) beside ``F.scaled_dot_product_attention`` on the same q, k, v
+  (a yardstick only: nothing on the path calls it), with their largest
+  difference; each time the median of 9 means of 10 calls;
 * ``SLICE`` lines (ChARM presets), read inside the eval forward itself by
   CUDA events that
   forward pre- and post-hooks record: the 4-slice ChARM chain from its
@@ -36,6 +41,9 @@ prints:
   activity to the last);
 * ``PHASES``: host-clock seconds of the roundtrip's phases, unprofiled,
   and the forward's and the roundtrip's megapixels per second.
+
+A preset no coder takes (the ``unet`` and ``latent_unet`` hypers) has no
+roundtrip: only its forward is timed and profiled.
 
 With ``--post_processing`` the preset carries the HAN tail: the stages
 add ``tail`` (the generated conv, the HAN, the second generated conv) and
@@ -65,6 +73,7 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from ..models.codec import DECODABLE_HYPERS
 from ..models.presets import PRESETS
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -122,6 +131,13 @@ def _cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     _sync()
     return start.elapsed_time(end) / reps
+
+
+def _median_ms(fn, rounds: int = 9, reps: int = 10) -> float:
+    """The median over ``rounds`` of ``_cuda_ms(fn, reps)``: the sub-
+    millisecond pieces are launch-bound, and one mean of a few calls
+    moves by tens of percent with the host."""
+    return float(np.median([_cuda_ms(fn, reps) for _ in range(rounds)]))
 
 
 def _hooked_ms(model, x, spans: Dict[str, Tuple[torch.nn.Module, torch.nn.Module]],
@@ -261,14 +277,18 @@ def _stages(model, x, out) -> Dict[str, object]:
             "context": lambda: model.prediction_model(y_hat, h2, masked=True),
         })
     else:
-        med = model.eb_medians()[None, :, None, None]
-        z_hat = torch.round(model.hyper_encode(z3) - med) + med
-        scales, means = model.hyper_decode(z_hat)
-        stages.update({
-            "h_a": lambda: model.hyper_encode(z3),
-            "h_s (both)": lambda: model.hyper_decode(z_hat),
-            "syntax": lambda: model.syntax_from_latent(z3),
-        })
+        scales, means, _ = model.hyper_forward(z3)
+        stages["hyper"] = lambda: model.hyper_forward(z3)
+        if model.cfg.hyper in DECODABLE_HYPERS:
+            med = model.eb_medians()[None, :, None, None]
+            z_hat = torch.round(model.hyper_encode(z3) - med) + med
+            stages.update({"h_a": lambda: model.hyper_encode(z3),
+                           "h_s (both)": lambda: model.hyper_decode(z_hat)})
+        elif model.cfg.hyper == "unet":  # the decoder reads the encoder's skips
+            skips = model.h_a(z3)[1:]
+            stages.update({"h_a": lambda: model.h_a(z3),
+                           "h_s (both)": lambda: model._two_decoders(None, *skips)})
+        stages["syntax"] = lambda: model.syntax_from_latent(z3)
         if model.is_entro:
             h_emb = model.entro_embed_hyper(scales, means)
             y_in = y_hat * anchor_map(y_hat.shape[2], y_hat.shape[3], y_hat)
@@ -284,6 +304,56 @@ def _stages(model, x, out) -> Dict[str, object]:
         x_t = model.g_s(y_hat)
         stages["tail"] = lambda: model._decode_tail(x_t, syn)
     return stages
+
+
+def _latent_unet_pieces(model, z3) -> Dict[str, float]:
+    """CUDA-event milliseconds of each ``SpatialTransformer`` of the latent
+    U-Net(s) on the input the hyper forward gave it."""
+    from ..layers import SpatialTransformer
+
+    inputs = []
+    unets = [("unet", model.unet)] + ([("unet_b", model.unet_b)] if model.unet_b is not None else [])
+    hooks = [m.register_forward_pre_hook(
+                 lambda m, a, name=f"{u}.{n}": inputs.append((name, m, a[0])))
+             for u, net in unets for n, m in net.named_modules()
+             if isinstance(m, SpatialTransformer)]
+    model.hyper_forward(z3)
+    for h in hooks:
+        h.remove()
+    seen: Dict[str, int] = {}
+    out = {}
+    for name, m, a in inputs:
+        seen[name] = seen.get(name, 0) + 1
+        key = name if seen[name] == 1 else f"{name}#{seen[name]}"
+        plain_ms, sdpa_ms, diff = _attention_vs_sdpa(m, a)
+        out[f"{key} {tuple(a.shape)}"] = (f"{_median_ms(lambda: m(a)):9.3f} ms  attn1 plain "
+                                          f"{plain_ms:.3f} ms, sdpa {sdpa_ms:.3f} ms, "
+                                          f"max diff {diff:.3g}")
+    return out
+
+
+def _attention_vs_sdpa(st, x) -> Tuple[float, float, float]:
+    """The first block's self-attention core of ``SpatialTransformer`` ``st``
+    on its input ``x``: (plain ms, SDPA ms, max |difference|)."""
+    import torch.nn.functional as F
+
+    blk = st.block_0
+    attn = blk.attn1
+    t = blk.norm1(st.proj_in(st.norm(x)).flatten(2).transpose(1, 2))
+    b, n, _ = t.shape
+    h, d = attn.heads, attn.dim_head
+    q, k, v = (lin(t).view(b, n, h, d).transpose(1, 2)
+               for lin in (attn.to_q, attn.to_k, attn.to_v))
+
+    def plain():
+        sim = torch.matmul((q * d ** -0.5).float(), k.float().transpose(-1, -2))
+        return torch.matmul(F.softmax(sim, dim=-1), v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v)
+
+    diff = float((plain() - sdpa()).abs().max())
+    return _median_ms(plain), _median_ms(sdpa), diff
 
 
 def _han_pieces(han, x_bf) -> Dict[str, float]:
@@ -381,13 +451,15 @@ def main() -> None:
     if args.tune:
         _tune_profile(model, x[:1], args.tune, args.out)
         return
-    coder = ChannelCoder(model, name=args.preset)
+    decodable = model.is_ns or model.cfg.hyper in DECODABLE_HYPERS
+    coder = ChannelCoder(model, name=args.preset) if decodable else None
 
     with torch.no_grad():
         for _ in range(2):
             model(x)
         out = model(x)
-        coder.decompress_batch(coder.compress_batch(x))
+        if coder is not None:
+            coder.decompress_batch(coder.compress_batch(x))
         _sync()
         y_hat = out.extras["y_hat"]
         mp = x.shape[0] * x.shape[2] * x.shape[3] / 1e6
@@ -395,6 +467,9 @@ def main() -> None:
             ms = _cuda_ms(fn)
             print(f"STAGE {name:18s} {ms:9.3f} ms"
                   + (f"  {mp / ms * 1e3:.2f} MP/s" if name == "forward" else ""))
+        if model.cfg.hyper == "latent_unet":
+            for name, line in _latent_unet_pieces(model, model.analyze(x)).items():
+                print(f"HYPER {name:32s} {line}")
         if not (model.is_ns or model.is_entro):
             sl = _hooked_ms(model, x, _slice_spans(model))
             print(f"SLICE chain {sl.pop('chain'):.3f} ms (inside the forward)")
@@ -420,6 +495,10 @@ def main() -> None:
                 print(f"HAN {name:10s} {t:9.3f} ms")
 
         _profiled("forward", lambda: model(x), 3, args.out, top=15)
+    if coder is None:
+        print("PHASES none: no coder takes this preset")
+        print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return
     _profiled("roundtrip", lambda: coder.decompress_batch(coder.compress_batch(x)),
               1, args.out, top=15)
 

@@ -15,7 +15,8 @@ conversion applies the inverse of the layout rules of
 * ``nn.Dense`` kernels transposed to torch's ``(out, in)`` (the window
   attention's ``qkv`` and ``proj``, WMSA's ``embedding_layer`` and
   ``linear``, the Swin MLP's ``mlp_fc1``/``mlp_fc2``);
-* ``nn.LayerNorm``'s ``scale`` to torch's ``weight`` (its ``bias`` as is);
+* ``nn.LayerNorm``'s and ``nn.GroupNorm``'s ``scale`` to torch's
+  ``weight`` (the ``bias`` as is);
 * ``nn.Embed``'s ``embedding`` (the entroformer's
   ``relative_attention_bias``) to the parameter of that name;
 * the HAN's ``CSAMModule`` kernel: flax's (3, 3, 3, 1, 1) to the port's
@@ -36,7 +37,11 @@ and every flax leaf used, except the subtree of the
 ``PredictionModelSyntax`` that no charm forward calls (prefix
 ``SKIPPED_PREFIX``); a neural-syntax model owns that module, and its
 leaves are used like any other.  ``z2_sigma`` keeps the flax (1, 1, 1, N)
-layout.
+layout.  A module that a model calls twice (the latent U-Net's shared
+stage-2 ``SpatialTransformer`` and conv) is one flax subtree and one set
+of port parameters: ``named_modules`` lists it once.  The 1×1 convs of
+``SpatialTransformer`` (flax ``nn.Conv``, HWIO with a bias) are the port's
+``Conv2d`` and its bias-free Dense kernels its ``Linear(bias=False)``.
 """
 
 from __future__ import annotations
@@ -104,7 +109,7 @@ def flax_leaves(skeleton: nn.Module):
                 key = base + ("kernel" if pname == "weight" else pname)
             elif pname == "relative_attention_bias":
                 key = base + pname + "/embedding"
-            elif isinstance(module, nn.LayerNorm):
+            elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
                 key = base + ("scale" if pname == "weight" else pname)
             else:
                 key = base + pname

@@ -3,8 +3,10 @@ card: B1 (rANS drain; every lane count and both table routes), B2 (GDN), B3 (5×
 attention, head widths 8, 24 and 48) and B6 (stride-1 conv), and the
 gradients of B2-B6 through their autograd.Functions; then the paths
 around them: tuning, C5, mixed rates, the EB table, a ``.ltcp`` stream
-written on the card and decoded on the CPU, and the HAN tail on the card
-against its CPU run.  Every test here is
+written on the card and decoded on the CPU, the HAN tail on the card
+against its CPU run, and the U-Net-hyper and latent-U-Net presets'
+stages against their CPU run and one training step each on the card.
+Every test here is
 marked ``cuda`` and skips without CUDA.  fp32 tolerance: atol/rtol 1e-5
 (sums in another order than cuDNN's / cuBLAS's); a repeat call of B2-B6 is
 bit-identical; B1 is bit-exact.  Gradients: within 1e-5 of float64 as a
@@ -989,3 +991,76 @@ def test_han_head_on_the_card_equals_its_cpu_run(cuda_device):
         m(xi).backward(_cl(ct.double(), dev))
         grads.append(xi.grad.cpu())
     assert float((grads[1] - grads[0]).abs().max()) <= 1e-4 * float(grads[0].abs().max())
+
+
+
+def _woken_pair(name, dev, seed=0):
+    """Preset ``name`` at full width on the CPU, every all-zero weight woken
+    with seeded values of gain 0.5 (as ``chip_smoke.py`` wakes them), and
+    the same weights on the card."""
+    cpu = build_model(name, device="cpu", seed=seed)
+    g = torch.Generator().manual_seed(seed + 5)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("weight") and not p.any():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5 * p[0].numel() ** -0.5)
+    card = build_model(name, device=dev, seed=seed + 1)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("name", ["net_unet", "net_unet_ha_hs"])
+def test_unet_presets_on_the_card_equal_their_cpu_run(cuda_device, name):
+    """The latent-U-Net and U-Net-hyper presets at full width, 128×128,
+    eval: z3, the hyper's (scales, means) and the synthesis of the CPU's
+    ŷ on the card within 1e-4 of each one's largest magnitude on the CPU,
+    the latent U-Net's and the U-Net decoder's inputs taken from the
+    CPU's z3 (no rounding between)."""
+    cpu, card = _woken_pair(name, cuda_device)
+    x = _randn(torch.Generator().manual_seed(3), 1, 3, 128, 128).clamp(-1, 1)
+    with torch.no_grad():
+        out = cpu(x)
+        z3 = cpu.analyze(x)
+        want = {"z3": z3, **dict(zip(("scales", "means"), cpu.hyper_forward(z3)[:2])),
+                "rec": cpu.synthesize(out.extras["y_hat"], cpu.syntax_from_latent(z3))}
+        got = {"z3": card.analyze(_cl(x, cuda_device)),
+               **dict(zip(("scales", "means"), card.hyper_forward(_cl(z3, cuda_device))[:2])),
+               "rec": card.synthesize(_cl(out.extras["y_hat"], cuda_device),
+                                      _cl(cpu.syntax_from_latent(z3), cuda_device))}
+    errs = {k: (float((got[k].cpu() - v).abs().max()), float(v.abs().max()))
+            for k, v in want.items()}
+    assert all(e <= 1e-4 * m for e, m in errs.values()), errs
+
+
+@pytest.mark.parametrize("name", ["net_unet", "net_unet_ha_hs", "net_unet_ha_hs_1"])
+def test_unet_training_step_on_the_card(cuda_device, name):
+    """One training step on the card (B = 2, 128×128): a finite loss,
+    every B2 and B6 launch with its backward, every leaf that took a
+    gradient moved, and the leaves no forward reads (``net_unet_ha_hs_1``'s
+    syntax model) bit-identical without a gradient."""
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.layers import conv_direct
+    from lic_tpu_torch.layers import gdn as gdn_mod
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    _, card = _woken_pair(name, cuda_device)
+    card.train()
+    x = _randn(torch.Generator().manual_seed(4), 2, 3, 128, 128).clamp(-1, 1)
+    tc = TrainConfig()
+    opt = make_optimizer(card, tc, steps_per_epoch=10)
+    state = create_state(card, opt, tc.seed)
+    before = {n: p.detach().clone() for n, p in card.named_parameters()}
+    counted = (gdn_mod.gdn_fused, conv_direct.convk_s1)
+    for fn in counted:
+        fn.launches = fn.backwards = 0
+    metrics = make_train_step(card, tc, opt)(state, _cl(x, cuda_device))
+    torch.cuda.synchronize()
+    assert float(metrics["skipped"]) == 0.0 and np.isfinite(float(metrics["loss"]))
+    assert all(fn.launches == fn.backwards > 0 for fn in counted)
+    unread = set(card.unread_parameters())
+    assert bool(unread) == (name == "net_unet_ha_hs_1")
+    for n, p in card.named_parameters():
+        if n in unread:
+            assert p.grad is None and torch.equal(p, before[n]), n
+        elif p.grad is not None and p.grad.any():
+            assert not torch.equal(p, before[n]), n

@@ -29,7 +29,6 @@ from lic_tpu_torch.data import pad as tpad
 from lic_tpu_torch.entropy import EntropyBottleneck, GaussianConditional, GaussianModel
 from lic_tpu_torch.layers import Conv2d, ConvTranspose2d, gelu
 from lic_tpu_torch.models import PRESETS, build_model
-from lic_tpu_torch.models.presets import NOT_YET_PORTED
 from lic_tpu_torch.utils.params import params_from_flax
 
 torch.set_num_threads(2)
@@ -48,16 +47,20 @@ def _nhwc(t):
 # ---------------------------------------------------------------- presets
 
 
-def test_source_net_row_equals_jax_preset():
-    """Field by field: the port's ``CodecConfig`` is its own copy."""
-    assert dataclasses.asdict(PRESETS["source_net"]) == dataclasses.asdict(JPRESETS["source_net"])
+@pytest.mark.parametrize("name", sorted(JPRESETS))
+def test_source_net_row_equals_jax_preset(name):
+    """Field by field, for every preset: the port's ``CodecConfig`` is its
+    own copy."""
+    assert dataclasses.asdict(PRESETS[name]) == dataclasses.asdict(JPRESETS[name])
 
 
-def test_other_presets_raise_naming_roadmap_item():
-    assert set(NOT_YET_PORTED) | set(PRESETS) == set(JPRESETS)
-    for name, item in NOT_YET_PORTED.items():
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            build_model(name, device="cpu")
+@pytest.mark.parametrize("name", sorted(JPRESETS))
+def test_every_jax_preset_builds_on_the_cpu(name):
+    """The port's table is the JAX package's, and each row builds (64
+    channels: the latent U-Net's GroupNorm(32) needs N/2 divisible by 32)."""
+    assert list(PRESETS) == list(JPRESETS)
+    model = build_model(name, device="cpu", n_override=64)
+    assert model.cfg == PRESETS[name].replace(n_override=64)
 
 
 def test_default_build_without_cuda_raises(monkeypatch):
