@@ -223,7 +223,40 @@ Each phase prints one line:
    peak memory, the kernel shapes into [grad]; [unet_cli] the train CLI
    with no ``--preset`` (2 steps on PNGs it writes): it builds
    ``net_unet_ha_hs``, as the JAX trainer does.  ``[wall] unet_s=``
-   times 21.
+   times 21;
+22. [rbs] ``net_ga`` with ``transform="rbs"`` (the rich g_a, the
+   ``synthesisTransformModel_RBS`` g_s: three ``ResidualBlockUpsample``s,
+   whose 3×3 at C 192 runs B6 at 64×96, 128×192 and 256×384, nine
+   ``ResidualBottleneck``s, seven IGDNs) and [nolrp] ``source_net`` with
+   ``lrp=False``, each driven as the paths of 4 are (``_drive``: the
+   stages at 128×128 against the CPU model, the B = 8 512×768 forward and
+   roundtrip with exact launches, the B = 1 roundtrip, the times, [c5];
+   for rbs the ``fuse_proj`` pass).  The rbs g_s output reaches 1e5 on
+   these untrained weights: each of its seven IGDNs squares the map's
+   scale and doubles fp32's relative error, the CPU's as much as the
+   card's (both ≈ 1e-3 of range from float64 at the output).  So its
+   synthesis is compared block by block, each child of g_s and then the
+   generated conv before its tanh on the reference's input to it, as a
+   share of its range, as the other stages are compared on the same
+   upstream values: within 1e-4, or, for a block whose CPU fp32 run is
+   itself farther than 5e-5 from float64 (``wam1``, whose attention
+   logits reach 1e4 on a map of magnitude 200), the card within twice
+   the CPU's distance from float64 ([small_f64] prints both, and the
+   blocks so held); its ``fuse_proj`` pass holds the well-conditioned
+   blocks at 1e-4 and prints the B4-vs-B5 share of the others.  [rbs_train] one
+   training step (B = 8 crops of 256×256) with exact launches and
+   backwards, every leaf with a gradient moved, its shapes into [grad];
+   B6 at the 256×384 shape at B = 1 in [grad] too;
+23. [dormant] each module of ``layers/{misc,vit,haar}.py``, ``GDN1``,
+   ``utils/init.py`` and ``utils/analyze.py``'s ERF on the card against
+   its CPU run on the same weights, within 1e-4 of the CPU output's
+   largest magnitude (Haar and the init draws bit-exact); no module
+   launches a kernel, the ERF's 3×3 at C 192 runs B6 through ``Conv2d``;
+24. [resume] ``source_net`` training on the card (B = 2 crops of
+   256×256): three steps straight, and two steps, ``CheckpointManager``
+   save, a fresh model, optimizer and state restored from the file and a
+   third step: the parameters bit-identical.  ``[wall] rbs_nolrp_s=``
+   and ``dormant_resume_s=`` time 22-24.
 
 Then one JSON line with every kernel's name, route, source, the TPU kernel
 it replaces, launches on the main paths, max error, times and bound (B1 as
@@ -418,6 +451,21 @@ EXPECTED = {
     "eval:net_unet@512x768": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20},
     "tune:net_unet": {"gdn": 9 * UNET_TUNE_ITERS, "conv5s2": 2 * UNET_TUNE_ITERS,
                       "convk_s1": 60 * UNET_TUNE_ITERS, "wba": 20 * UNET_TUNE_ITERS},
+    # [rbs]: net_ga's kernels, and per g_s (the forward's and the decode's)
+    # three more B2 (the ResidualBlockUpsamples' IGDNs) and three more B6
+    # (their 3x3 at C 192); [nolrp]: source_net's (its LRP stacks take no
+    # slot: C_in 240-384, 224, 128)
+    "rbs:net_ga": {"gdn": 24, "drain": 4, "conv5s2": 4, "convk_s1": 136, "wba": 40},
+    "rbs:net_ga+fuse_proj": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 4,
+                             "wba_proj": 16},
+    "nolrp:source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14},
+    "train:rbs": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 20},
+    # [dormant]: no module of layers/{misc,vit,haar}.py reaches a kernel
+    # slot; the ERF's 3x3 at C 192 runs B6 (with its backward)
+    "dormant": {"convk_s1": 1},
+    # [resume]: the forwards of source_net's three training steps, straight
+    # and resumed
+    "resume": {"gdn": 7 * 6, "conv5s2": 3 * 6, "convk_s1": 5 * 6},
 }
 TRAIN_BATCH, TRAIN_CROP, TRAIN_STEPS = 8, 256, 6
 # a gradient through a kernel's autograd.Function against autograd of the
@@ -819,6 +867,18 @@ def main() -> int:
     launches.update(_drive_unet(dev, counted, conv_calls, attn_calls, gdn_calls, train_shapes))
     torch.cuda.empty_cache()
     _say("wall", unet_s=f"{time.perf_counter() - t_unet:.1f}")
+
+    # ---- [rbs], [nolrp], [rbs_train]; [dormant], [resume]
+    t_new = time.perf_counter()
+    launches.update(_drive_rbs_nolrp(dev, counted, conv_calls, attn_calls, gdn_calls,
+                                     train_shapes))
+    torch.cuda.empty_cache()
+    _say("wall", rbs_nolrp_s=f"{time.perf_counter() - t_new:.1f}")
+    t_new = time.perf_counter()
+    launches.update(_dormant(dev, counted))
+    launches.update(_resume(dev, counted))
+    torch.cuda.empty_cache()
+    _say("wall", dormant_resume_s=f"{time.perf_counter() - t_new:.1f}")
 
     # ---- 5. source_net in bf16 and at is_high, one forward each; [c3]
     # source_net_wam at is_high, with and without fuse_proj
@@ -1732,8 +1792,10 @@ def _record_gdn(model, calls, run):
     return [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, GDN)]
 
 
-def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes):
-    """One path: the small-input check against the CPU, the main path with
+def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes,
+           run=None, **overrides):
+    """One path (``preset`` with the config ``overrides``, its runs named
+    ``run``, default the preset): the small-input check against the CPU, the main path with
     its launch counts and its B2, B3/B6 and B4 calls (into ``gdn_calls``,
     ``conv_calls`` and ``attn_calls``, by run), the B=1 roundtrip, the
     times (and for a preset with
@@ -1753,8 +1815,9 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
     from lic_tpu_torch.models.compress import ChannelCoder
     from lic_tpu_torch.tools.kernel_probe import record_drains
 
-    model = build_model(preset, device=dev, seed=SEED)
-    cpu_model = build_model(preset, device="cpu", seed=SEED)
+    run = run or preset
+    model = build_model(preset, device=dev, seed=SEED, **overrides)
+    cpu_model = build_model(preset, device="cpu", seed=SEED, **overrides)
     woken = _wake_zero_leaves(model, cpu_model)
     x_np = smooth_images(np.random.default_rng(SEED), BATCH, H, W)
     x = torch.from_numpy(x_np).to(dev).contiguous(memory_format=torch.channels_last)
@@ -1763,35 +1826,35 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
     def on_gpu(t):
         return t.to(dev).contiguous(memory_format=torch.channels_last)
 
-    ref_err = _small_stages(preset, model, cpu_model, small, on_gpu)
+    ref_err = _small_stages(run, model, cpu_model, small, on_gpu)
     del cpu_model
 
     # the main path: forward + compress_batch → decompress_batch
-    coder = ChannelCoder(model, name=preset)
-    hooks = (_record_conv_slots(model, conv_calls, preset)
-             + _record_gdn(model, gdn_calls, preset))
+    coder = ChannelCoder(model, name=run)
+    hooks = (_record_conv_slots(model, conv_calls, run)
+             + _record_gdn(model, gdn_calls, run))
     _zero(counters)
     with torch.no_grad():
         out = model(x)
     blobs = coder.compress_batch(x)
     rec = coder.decompress_batch(blobs)
-    runs = {preset: _read(counters)}
+    runs = {run: _read(counters)}
     for h in hooks:
         h.remove()
-    _hooks_agree(preset, runs[preset], conv_calls, gdn_calls)
+    _hooks_agree(run, runs[run], conv_calls, gdn_calls)
     for key, n in window_attn.window_attention.calls.items():
-        attn_calls.setdefault(key, {})[preset] = n
+        attn_calls.setdefault(key, {})[run] = n
     if not (torch.isfinite(out.x_tilde).all() and torch.isfinite(out.bpp)):
-        raise AssertionError(f"{preset}: non-finite forward output")
+        raise AssertionError(f"{run}: non-finite forward output")
     if out.x_tilde.shape != (BATCH, 3, H, W) or rec.shape != out.x_tilde.shape:
-        raise AssertionError(f"{preset}: shapes {tuple(out.x_tilde.shape)} / {tuple(rec.shape)}")
+        raise AssertionError(f"{run}: shapes {tuple(out.x_tilde.shape)} / {tuple(rec.shape)}")
     # the coder runs its model passes on pass_batch images (BATCH here, on
     # the card): its reference is the forward in those passes
     ref = _pass_forward(model, x)
     rec_err = float((rec - ref).abs().max())
     if rec_err > RECON_TOL:
-        raise AssertionError(f"{preset}: decoded recon differs from the forward: {rec_err}")
-    _say("forward", preset=preset, shape=tuple(out.x_tilde.shape),
+        raise AssertionError(f"{run}: decoded recon differs from the forward: {rec_err}")
+    _say("forward", preset=run, shape=tuple(out.x_tilde.shape),
          bpp_est=f"{float(out.bpp):.4f}", mse=f"{float(out.mse):.5f}", finite=True,
          weights="UNTRAINED", small_vs_cpu_max_err=f"{max(ref_err.values()):.3g}")
     bpp = sum(len(b) for b in blobs) * 8 / (BATCH * H * W)
@@ -1799,14 +1862,14 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
     blob1 = coder.compress(x1)
     rec1_err = float((coder.decompress(blob1) - _pass_forward(model, x1)).abs().max())
     if rec1_err > RECON_TOL:
-        raise AssertionError(f"{preset}: B=1 roundtrip recon differs from its forward: {rec1_err}")
+        raise AssertionError(f"{run}: B=1 roundtrip recon differs from its forward: {rec1_err}")
     drains = {}
-    if preset in ("source_net", "entroformer_cb") + NS_PATHS:
-        drains[f"{preset} B={BATCH} decode"] = record_drains(coder, blobs)
-    if preset == "source_net":
-        drains[f"{preset} one-stream decode"] = record_drains(coder, [blob1])
-    _say("roundtrip", preset=preset, streams=BATCH, bpp=f"{bpp:.4f}",
-         recon_max_err=f"{rec_err:.3g}", final_state_ok=True, launches=runs[preset],
+    if run in ("source_net", "entroformer_cb") + NS_PATHS:
+        drains[f"{run} B={BATCH} decode"] = record_drains(coder, blobs)
+    if run == "source_net":
+        drains[f"{run} one-stream decode"] = record_drains(coder, [blob1])
+    _say("roundtrip", preset=run, streams=BATCH, bpp=f"{bpp:.4f}",
+         recon_max_err=f"{rec_err:.3g}", final_state_ok=True, launches=runs[run],
          b1_recon_max_err=f"{rec1_err:.3g}", b1_stream_equals_batch=blob1 == blobs[0])
 
     # times (UNTRAINED weights: the codec rows are not rate points)
@@ -1820,7 +1883,7 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
         for _ in range(3)
     )[1]
     times = dict(forward_ms=fwd_ms, roundtrip_s=rt, codec_bpp=bpp)
-    _say("times", preset=preset, forward_ms=f"{fwd_ms:.2f}",
+    _say("times", preset=run, forward_ms=f"{fwd_ms:.2f}",
          forward_mps=f"{mp / fwd_ms * 1e3:.2f}", roundtrip_s=f"{rt:.3f}",
          roundtrip_mps=f"{mp / rt:.3f}", codec_bpp=f"{bpp:.4f}", weights="UNTRAINED")
 
@@ -1836,37 +1899,56 @@ def _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, tune_shapes
             for h in hooks:
                 h.remove()
             if not woken or min(attn_max) == 0.0:
-                raise AssertionError(f"{preset}: an attention branch adds exactly 0 "
+                raise AssertionError(f"{run}: an attention branch adds exactly 0 "
                                      f"({woken} zero-init leaves woken)")
-            rec_b4 = model.synthesize(out.extras["y_hat"], model.syntax_from_latent(z3))
+            syn = model.syntax_from_latent(z3)
+            if _blockwise_synthesis(model):  # block by block, as _small_stages
+                ins, rec_b4 = _gs_blocks(model, out.extras["y_hat"], syn)
+            else:
+                rec_b4 = model.synthesize(out.extras["y_hat"], syn)
             for m in attn:
                 m.fuse_proj = True
             _zero(counters)
             out5 = model(x)
-            runs[f"{preset}+fuse_proj"] = _read(counters)
+            runs[f"{run}+fuse_proj"] = _read(counters)
             z3_5 = model.analyze(x)
-            rec_b5 = model.synthesize(out.extras["y_hat"], model.syntax_from_latent(z3))
+            ill = {}
+            if _blockwise_synthesis(model):
+                # each well-conditioned block (by [small]) within RECON_TOL
+                # of the B4 run's, as a share of its range; an
+                # ill-conditioned one (wam1: logits of 1e4, where B5's
+                # in-kernel fp32 projections and B4's cuBLAS ones round
+                # apart by a share of 1e-2) is printed, not held: B5 at its
+                # shape is held by 3c and by net_ga's g_s
+                names = [n for n, _ in model.g_s.named_children()] + ["generated_conv"]
+                shares = _block_shares(_gs_blocks(model, None, syn, ins)[1], rec_b4)
+                tol = _GS_BLOCK_TOL[run]
+                ill = {n: f"{e:.3g}" for n, e, t in zip(names, shares, tol) if t > RECON_TOL}
+                synthesis_err = max(e for e, t in zip(shares, tol) if t <= RECON_TOL)
+            else:
+                synthesis_err = float((model.synthesize(out.extras["y_hat"], syn)
+                                       - rec_b4).abs().max())
             fwd5_ms = _cuda_ms(lambda: model(x), 3)
             for m in attn:
                 m.fuse_proj = False
-        errs = {"z3": float((z3_5 - z3).abs().max()),
-                "synthesis": float((rec_b5 - rec_b4).abs().max())}
+        errs = {"z3": float((z3_5 - z3).abs().max()), "synthesis": synthesis_err}
         if not torch.isfinite(out5.x_tilde).all() or max(errs.values()) > RECON_TOL:
-            raise AssertionError(f"{preset}: the fuse_proj forward differs: {errs}")
+            raise AssertionError(f"{run}: the fuse_proj forward differs: {errs}")
         times["forward_fuse_proj_ms"] = fwd5_ms
-        _say("fuse_proj", preset=preset, launches=runs[f"{preset}+fuse_proj"],
+        _say("fuse_proj", preset=run, launches=runs[f"{run}+fuse_proj"],
+             **({"ill_conditioned_block_shares": json.dumps(ill)} if ill else {}),
              leaves_woken=woken, attn_out_min_max_abs=f"{min(attn_max):.3g}",
              z3_max_err=f"{errs['z3']:.3g}", synthesis_max_err=f"{errs['synthesis']:.3g}",
              forward_ms=f"{fwd5_ms:.2f}")
 
     # this slice's phases on the same model: [c5], [eval], [tune], [cli]
-    _c5(preset, model, coder, x, ref)
-    if preset in EVAL_PRESETS:
+    _c5(run, model, coder, x, ref)
+    if run in EVAL_PRESETS:
         runs.update(_eval_phase(preset, model, dev, counters, conv_calls, attn_calls,
                                 gdn_calls))
-    if preset in TUNE_PRESETS:
+    if run in TUNE_PRESETS:
         runs.update(_tune_phase(preset, model, coder, x1, dev, counters, tune_shapes))
-    if preset == "source_net":
+    if run == "source_net":
         drains["cli 480x640 chunk of 2"] = _cli_phase(model, coder, dev)
     return runs, times, drains
 
@@ -1899,6 +1981,29 @@ def _small_stages(preset, model, cpu_model, small, on_gpu):
     for k in keys:
         f64[f"{k}_gpu_vs_f64"] = f"{float((sg[k].cpu().double() - s64[k]).abs().max()):.3g}"
         f64[f"{k}_cpu_vs_f64"] = f"{float((sc[k].double() - s64[k]).abs().max()):.3g}"
+    if _blockwise_synthesis(model):
+        # each block of g_s on the CPU's input to it, as a share of range
+        with torch.no_grad():
+            ins, outs = _gs_blocks(cpu_model, sc["y_hat"], sc["syn"])
+            _, outs_g = _gs_blocks(model, None, sc["syn"], ins, on_gpu)
+            _, outs_64 = _gs_blocks(copy.deepcopy(cpu_model).double(), None,
+                                    sc["syn"].double(), [t.double() for t in ins])
+        names = [n for n, _ in model.g_s.named_children()] + ["generated_conv"]
+        g_c, g_64, c_64 = (_block_shares(outs_g, outs), _block_shares(outs_g, outs_64),
+                           _block_shares(outs, outs_64))
+        tol = _GS_BLOCK_TOL[preset] = [RECON_TOL if e <= RECON_TOL / 2 else 2 * e
+                                       for e in c_64]
+        bad = [n for n, a, b, c, t in zip(names, g_c, g_64, c_64, tol)
+               if a > RECON_TOL and not (t > RECON_TOL and b <= t)]
+        worst = max(range(len(names)), key=lambda i: c_64[i])
+        f64.update(gs_blocks_gpu_vs_cpu=f"{max(g_c):.3g}", gs_blocks_gpu_vs_f64=f"{max(g_64):.3g}",
+                   gs_blocks_cpu_vs_f64=f"{max(c_64):.3g}", gs_worst_block=names[worst],
+                   gs_ill_conditioned=[n for n, t in zip(names, tol) if t > RECON_TOL])
+        if bad:
+            raise AssertionError(f"{preset}: g_s blocks {bad} off the CPU run by "
+                                 f"{[round(a, 7) for a in g_c]} (share of range), off float64 "
+                                 f"by {[round(b, 7) for b in g_64]}, the CPU by "
+                                 f"{[round(c, 7) for c in c_64]}")
         if k.startswith("log_sigma"):
             d = (sg[k].cpu().exp() - sc[k].exp()).abs().flatten()
             i = int(d.argmax())
@@ -1908,6 +2013,47 @@ def _small_stages(preset, model, cpu_model, small, on_gpu):
     if max(ref_err.values()) > RECON_TOL:
         raise AssertionError(f"{preset}: GPU stages disagree with the CPU run: {ref_err}")
     return ref_err
+
+
+def _blockwise_synthesis(model) -> bool:
+    """Whether the model's synthesis is compared block by block: the rbs
+    g_s, whose seven IGDNs each square the map's scale (1e5 at its output
+    on untrained weights) and so double fp32's relative error, card's and
+    CPU's alike, from one block to the next."""
+    return model.cfg.transform == "rbs"
+
+
+def _gs_blocks(model, y_hat, syn, inputs=None, move=lambda t: t):
+    """Each child of ``model.g_s`` on ``inputs[i]`` where given (moved by
+    ``move``), else on the previous child's output from ``y_hat``; then
+    the generated conv before its tanh on the last input.  → (inputs,
+    outputs), one per block."""
+    from lic_tpu_torch.models.syntax import batch_conv
+
+    ins, outs, h = [], [], y_hat
+    for i, layer in enumerate(model.g_s.children()):
+        xin = h if inputs is None else move(inputs[i])
+        ins.append(xin)
+        h = layer(xin)
+        outs.append(h)
+    last = h if inputs is None else move(inputs[-1])
+    ins.append(last)
+    outs.append(batch_conv(model.conv_weights_gen(move(syn)), last))
+    return ins, outs
+
+
+def _block_shares(got, want):
+    """max |got − want| over max |want|, block by block."""
+    return [float((g.cpu().double() - w.cpu().double()).abs().max())
+            / max(float(w.abs().max()), 1e-30) for g, w in zip(got, want)]
+
+
+# run → each g_s block's tolerance from [small]: RECON_TOL where the CPU's
+# fp32 run of the block lies within RECON_TOL / 2 of float64, else twice
+# that distance (an ill-conditioned block; the rbs g_s's wam1 takes a map
+# of magnitude ≈ 200 after two IGDNs, so its attention logits reach 1e4
+# and fp32 keeps ≈ 1e-2 of its output's range, on the CPU as on the card)
+_GS_BLOCK_TOL = {}
 
 
 def _stages(m, xin, z_hat=None, z2_int=None, y_hat=None, syn=None):
@@ -1927,7 +2073,9 @@ def _stages(m, xin, z_hat=None, z2_int=None, y_hat=None, syn=None):
     if y_hat is None:
         out = m(xin)
         y_hat, syn = out.extras["y_hat"], m.syntax_from_latent(z3)
-    st = dict(z3=z3, y_hat=y_hat, syn=syn, rec=m.synthesize(y_hat, syn))
+    st = dict(z3=z3, y_hat=y_hat, syn=syn)
+    if not _blockwise_synthesis(m):  # the rbs g_s: block by block, _small_stages
+        st["rec"] = m.synthesize(y_hat, syn)
     if m.is_ns:
         z2 = m.ns_hyper_encode(z3)
         z2_int = torch.round(z2) if z2_int is None else z2_int
@@ -3202,6 +3350,233 @@ def _drive_unet(dev, counters, conv_calls, attn_calls, gdn_calls, shapes):
         del model, opt, state, step_fn
         torch.cuda.empty_cache()
     _train_cli_default(dev)
+    return runs
+
+
+def _drive_rbs_nolrp(dev, counters, conv_calls, attn_calls, gdn_calls, shapes):
+    """[rbs] and [nolrp]: ``_drive`` on ``net_ga`` with ``transform="rbs"``
+    and on ``source_net`` with ``lrp=False``; [rbs_train] one training step
+    of the rbs config (B = 8 crops of 256×256, ``TrainConfig``'s
+    defaults): exact launches and backwards, every leaf with a gradient
+    moved, ms by phase, its kernel shapes into [grad], and B6 at the
+    ResidualBlockUpsample's 256×384 shape at B = 1 into [grad] as well.
+    → {run: launches}."""
+    import torch
+
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    runs = {}
+    for preset, run, over in (("net_ga", "rbs:net_ga", dict(transform="rbs")),
+                              ("source_net", "nolrp:source_net", dict(lrp=False))):
+        t0 = time.perf_counter()
+        r, t, _ = _drive(preset, dev, counters, conv_calls, attn_calls, gdn_calls, shapes,
+                         run=run, **over)
+        runs.update(r)
+        _say(run.split(":")[0], preset=preset, **over, launches=r[run],
+             seconds=f"{time.perf_counter() - t0:.1f}",
+             **{k: f"{v:.4f}" for k, v in t.items()})
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run = "train:rbs"
+    model = build_model("net_ga", device=dev, seed=SEED, transform="rbs").train()
+    _wake_zero_leaves(model)
+    tc = TrainConfig()
+    opt = make_optimizer(model, tc, steps_per_epoch=1000)
+    state = create_state(model, opt, tc.seed)
+    step_fn = make_train_step(model, tc, opt)
+    batch = _train_batch(dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    hooks = _record_conv_slots(model, shapes["conv"], run) + _record_train_shapes(model, shapes)
+    ev = {}
+
+    def mark(name):
+        ev[name] = torch.cuda.Event(enable_timing=True)
+        ev[name].record()
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    metrics = step_fn(state, batch, on_phase=mark)
+    runs[run] = _read(counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for h in hooks:
+        h.remove()
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    back = {k: counters[k].backwards for k in kernels}
+    if back != {k: runs[run][k] for k in kernels}:
+        raise AssertionError(f"{run}: backwards {back} != launches {runs[run]}")
+    if not torch.isfinite(metrics["loss"]) or float(metrics["skipped"]):
+        raise AssertionError(f"{run}: loss {float(metrics['loss'])}, "
+                             f"skipped {float(metrics['skipped'])}")
+    moved = 0
+    for name, p in model.named_parameters():
+        if p.grad is not None and p.grad.any():
+            if torch.equal(p, before[name]):
+                raise AssertionError(f"{run}: {name} took a gradient and did not move")
+            moved += 1
+    phases = ("start", "forward", "backward", "optimizer")
+    first_ms = sum(ev[a].elapsed_time(ev[b]) for a, b in zip(phases, phases[1:]))
+    # a second step, timed by phase: the first includes cuDNN's choices
+    step_fn(state, batch, on_phase=mark)
+    torch.cuda.synchronize()
+    ms = [ev[a].elapsed_time(ev[b]) for a, b in zip(phases, phases[1:])]
+    # the ResidualBlockUpsample's 3x3 at its 256x384 eval shape, under autograd
+    shapes["conv"].setdefault(("convk_s1", (1, 192, H // 2, W // 2), (192, 192, 3, 3), True,
+                               None, False), {})["rbs:net_ga@B=1"] = 1
+    _say("rbs_train", batch=TRAIN_BATCH, crop=TRAIN_CROP, loss=f"{float(metrics['loss']):.4f}",
+         launches=runs[run], backwards=back, leaves_moved=moved,
+         step_ms=f"{sum(ms):.2f}", forward_ms=f"{ms[0]:.2f}", backward_ms=f"{ms[1]:.2f}",
+         optimizer_ms=f"{ms[2]:.2f}", first_step_ms=f"{first_ms:.2f}",
+         peak_mem_gib=f"{peak:.2f}", images_per_s=f"{TRAIN_BATCH / sum(ms) * 1e3:.1f}",
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    return runs
+
+
+def _dormant(dev, counters):
+    """[dormant] each module of ``layers/{misc,vit,haar}.py``, ``GDN1``,
+    ``apply_init_scheme`` and the ERF of ``utils/analyze.py``: the card's
+    output against the CPU module's on the same weights and input, within
+    1e-4 of the CPU output's largest magnitude (Haar bit-exact), with every
+    kernel's launches counted over the card's calls.  → {"dormant":
+    launches}."""
+    import copy
+
+    import torch
+
+    from lic_tpu_torch.layers import GDN1, haar, misc, vit
+    from lic_tpu_torch.layers.conv import Conv2d
+    from lic_tpu_torch.utils import analyze
+    from lic_tpu_torch.utils.init import apply_init_scheme
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 21)
+
+    def gen(i):
+        return torch.Generator().manual_seed(SEED + i)
+
+    def img(*shape):
+        return torch.randn(*shape, generator=g).clamp(-2, 2)
+
+    x192 = img(2, 192, 16, 24)
+    cases = [
+        ("GDN1", GDN1(192), x192),
+        ("GDN1_inverse", GDN1(192, inverse=True), x192),
+        ("vit_latent_syntax", vit.vit_latent_syntax(16, generator=gen(1)), img(2, 3, 16, 16)),
+        ("vit_base_patch16_224", vit.vit_base_patch16_224(generator=gen(2)), img(1, 3, 224, 224)),
+        ("MaskedConv2d_A", misc.MaskedConv2d(192, 192, 5, "A", generator=gen(3)), x192),
+        ("MaskedConv2d_B", misc.MaskedConv2d(192, 192, 5, "B", generator=gen(4)), x192),
+        ("GSDN", misc.GSDN(192), x192),
+        ("GSDN_inverse", misc.GSDN(192, inverse=True), x192),
+        ("LinearAttention", misc.LinearAttention(192, generator=gen(5)), x192),
+        ("SpatialSelfAttention", misc.SpatialSelfAttention(192, generator=gen(6)), x192),
+        ("BlockTrain", misc.BlockTrain(192, 192, 16 * 24, embed_dim=192, num_heads=12,
+                                       generator=gen(7)), x192),
+        ("UnetHaHs", misc.UnetHaHs(generator=gen(8)), x192),
+    ]
+    ha, hs = misc.UnetHa(generator=gen(9)), misc.UnetHs(generator=gen(10))
+    _wake_zero_leaves(ha, hs, *[m for _, m, _ in cases])
+    errs = {}
+    _zero(counters)
+
+    def close(name, got, want):
+        if got.dtype == torch.bool:
+            return
+        err = float((got.cpu() - want).abs().max())
+        errs[name] = err / max(float(want.abs().max()), 1e-30)
+        if errs[name] > RECON_TOL:
+            raise AssertionError(f"dormant {name}: card off its CPU run by {errs[name]:.3g}")
+
+    with torch.no_grad():
+        for name, m, x in cases:
+            card = copy.deepcopy(m).to(dev)
+            close(name, card(x.to(dev)), m.eval()(x))
+        z_cpu = ha(x192)
+        z_card = copy.deepcopy(ha).to(dev)(x192.to(dev))
+        for t, c, name in zip(z_card, z_cpu, ("UnetHa_z", "UnetHa_middle", "UnetHa_skip1",
+                                               "UnetHa_inp")):
+            close(name, t, c)
+        close("UnetHs", copy.deepcopy(hs).to(dev)(*[c.to(dev) for c in z_cpu]), hs(*z_cpu))
+        xi = img(2, 3, 64, 96)
+        y = haar.haar_dwt2(xi.to(dev))
+        if not torch.equal(y.cpu(), haar.haar_dwt2(xi)) or not torch.equal(
+                haar.haar_idwt2(y).cpu(), haar.haar_idwt2(haar.haar_dwt2(xi))):
+            raise AssertionError("dormant haar: the card's transform is not the CPU's")
+        for a, b in zip(haar.haar_pyramid(xi.to(dev), 3), haar.haar_pyramid(xi, 3)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError("dormant haar_pyramid: the card's is not the CPU's")
+    net = torch.nn.Module()
+    net.c0 = Conv2d(3, 192, 5, 2, (1, 2, 1, 2), generator=gen(11))
+    net.c1 = Conv2d(192, 192, 3, 1, 1, generator=gen(12))
+    for scheme in ("xavier_uniform", "lecun", "vit2"):
+        a = apply_init_scheme(copy.deepcopy(net).to(dev), scheme, gen(13))
+        b = apply_init_scheme(copy.deepcopy(net), scheme, gen(13))
+        if not all(torch.equal(p.cpu(), q) for p, q in zip(a.parameters(), b.parameters())):
+            raise AssertionError(f"dormant apply_init_scheme {scheme}: card's draw differs")
+    fn = lambda v: net.c1(torch.nn.functional.gelu(net.c0(v)))
+    erf_cpu = analyze.effective_receptive_field(fn, xi)
+    net.to(dev, memory_format=torch.channels_last)
+    erf_card = analyze.effective_receptive_field(
+        fn, xi.to(dev).contiguous(memory_format=torch.channels_last))
+    close("effective_receptive_field", torch.from_numpy(erf_card), torch.from_numpy(erf_cpu))
+    runs = {"dormant": _read(counters)}
+    _say("dormant", modules=len(errs) + 1, launches=runs["dormant"],
+         worst=max(errs, key=errs.get), worst_share_of_range=f"{max(errs.values()):.3g}",
+         haar_bitexact=True, init_draws_equal=True, seconds=f"{time.perf_counter() - t0:.1f}")
+    return runs
+
+
+def _resume(dev, counters):
+    """[resume] ``source_net`` at full width, B = 2 crops of 256×256:
+    three training steps straight; then a fresh model, two steps,
+    ``CheckpointManager.save``, another fresh model, optimizer and state
+    restored from the file, and a third step: every parameter, both Adam
+    moments and the counts bit-identical to the straight run's.  → {"resume":
+    launches} over the six steps."""
+    import shutil
+
+    import torch
+
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.models import build_model
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from lic_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    tc = TrainConfig()
+    batches = [_train_batch(dev)[2 * i : 2 * i + 2] for i in range(3)]
+    root = os.path.join(ROOT, "build", "smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def fresh():
+        model = build_model("source_net", device=dev, seed=SEED).train()
+        opt = make_optimizer(model, tc, steps_per_epoch=1000)
+        return model, opt, create_state(model, opt, tc.seed), make_train_step(model, tc, opt)
+
+    _zero(counters)
+    model_a, opt_a, state_a, step_a = fresh()
+    for b in batches:
+        step_a(state_a, b)
+    model_b, _, state_b, step_b = fresh()
+    for b in batches[:2]:
+        step_b(state_b, b)
+    CheckpointManager(root).save(state_b, 2)
+    model_c, opt_c, state_c, step_c = fresh()
+    CheckpointManager(root).restore(state_c, 2)
+    step_c(state_c, batches[2])
+    runs = {"resume": _read(counters)}
+    shutil.rmtree(root, ignore_errors=True)
+    pa, pc = dict(model_a.named_parameters()), dict(model_c.named_parameters())
+    same = [n for n in pa if torch.equal(pa[n], pc[n])]
+    moments = all(torch.equal(opt_a.main.state[p][m], opt_c.main.state[q][m])
+                  for p, q in zip(opt_a.main_params, opt_c.main_params) for m in ("mu", "nu"))
+    if len(same) != len(pa) or not moments or (opt_a.count, opt_c.count, state_c.step) != (3, 3, 3):
+        raise AssertionError(f"resume: {len(pa) - len(same)} parameters differ from the straight "
+                             f"run (moments equal: {moments}, counts {opt_c.count}/{opt_a.count})")
+    _say("resume", steps=3, resumed_at=2, parameters_bitidentical=len(same),
+         moments_bitidentical=moments, launches=runs["resume"],
+         seconds=f"{time.perf_counter() - t0:.1f}")
     return runs
 
 

@@ -8,6 +8,7 @@ from .blocks import (
     ResidualBlock3_5,
     ResidualBlock3x3,
     ResidualBlock5x5,
+    ResidualBlockUpsample,
     ResidualBlockWithStride,
     ResidualBottleneck,
     ResidualUnit,
@@ -22,7 +23,7 @@ from .conv import (
     variance_scaling_,
 )
 from .conv_direct import conv5s2, conv5s2_plain, convk_s1, convk_s1_plain
-from .gdn import GDN, IGDN, gdn_fused, gdn_plain
+from .gdn import GDN, GDN1, IGDN, gdn_fused, gdn_plain
 from .spatial_transformer import (
     GEGLU,
     BasicTransformerBlock,
@@ -58,6 +59,7 @@ __all__ = [
     "convk_s1",
     "convk_s1_plain",
     "GDN",
+    "GDN1",
     "IGDN",
     "gdn_fused",
     "gdn_plain",
@@ -65,6 +67,7 @@ __all__ = [
     "ResidualBlock3_5",
     "ResidualBlock3x3",
     "ResidualBlock5x5",
+    "ResidualBlockUpsample",
     "ResidualBlockWithStride",
     "ResidualBottleneck",
     "ResidualUnit",

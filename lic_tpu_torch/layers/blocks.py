@@ -13,6 +13,10 @@
   input (exact erf GELU).
 * ``ResidualBlockWithStride`` — conv3×3 stride s → LeakyReLU → conv3×3 →
   GDN, + a strided 1×1 of the input.
+* ``ResidualBlockUpsample`` (``lic_tpu/layers/blocks.py:112-132``) —
+  subpel 3×3 (×r) → LeakyReLU → conv3×3 → IGDN, + a second subpel 3×3 of
+  the input.  Its conv3×3 at 128 < C <= 192 takes kernel B6, its IGDN B2;
+  the subpel convs are ``F.conv2d`` as the JAX module's ``lax.conv``.
 * ``AttentionBlock`` — ``a · σ(b) + x`` with ``a`` = 3 ``ResidualUnit``s
   and ``b`` = 3 ``ResidualUnit``s + 1×1 over ``b_input`` (default x).
 
@@ -29,8 +33,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .conv import Conv2d, gelu
-from .gdn import GDN
+from .conv import Conv2d, SubpelConv2d, gelu
+from .conv_direct import leaky_relu
+from .gdn import GDN, IGDN
 
 
 def _zero(conv: Conv2d) -> Conv2d:
@@ -137,6 +142,23 @@ class ResidualBlockWithStride(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.skip is None else self.skip(x)
         return self.gdn(self.conv2(self.conv1(x))) + identity
+
+
+class ResidualBlockUpsample(nn.Module):
+    FLAX_NAMES = {"subpel": "SubpelConv2d_0", "conv": "Conv2d_0", "igdn": "GDN_0",
+                  "skip": "SubpelConv2d_1"}
+
+    def __init__(self, in_channels: int, features: int, upsample: int = 2, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.subpel = SubpelConv2d(in_channels, features, upsample, generator=g)
+        self.conv = _zero(Conv2d(features, features, 3, 1, 1, generator=g))
+        self.igdn = IGDN(features)
+        self.skip = SubpelConv2d(in_channels, features, upsample, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.igdn(self.conv(leaky_relu(self.subpel(x)))) + self.skip(x)
 
 
 class AttentionBlock(nn.Module):

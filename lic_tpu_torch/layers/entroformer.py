@@ -38,6 +38,7 @@ from torch import nn
 
 from .conv import Linear
 from .conv_direct import leaky_relu
+from .misc import depth_to_space, space_to_depth
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
 LEAKY_SLOPE = 0.2
@@ -156,19 +157,6 @@ class EntroformerBlock(nn.Module):
         return x + self.fc2(h)
 
 
-def _space_to_depth(x: torch.Tensor, r: int = 2) -> torch.Tensor:
-    """NHWC (B, H, W, C) → (B, H/r, W/r, r·r·C), the JAX package's order."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // r, r, w // r, r, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // r, w // r, r * r * c)
-
-
-def _depth_to_space(x: torch.Tensor, r: int = 2) -> torch.Tensor:
-    b, h, w, c = x.shape
-    x = x.reshape(b, h, w, r, r, c // (r * r))
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * r, w * r, c // (r * r))
-
-
 class TransHyperScale(nn.Module):
     """Transformer hyper transform over latent tokens, shifting resolution
     by ``2**scale`` (``down``: encoder, space-to-depth merges; else
@@ -207,9 +195,9 @@ class TransHyperScale(nn.Module):
             x = tokens.reshape(b, h, w, d)
             if s < self.scale:
                 if self.down:
-                    x = getattr(self, f"merge{s}")(_space_to_depth(x))
+                    x = getattr(self, f"merge{s}")(space_to_depth(x))
                 else:
-                    x = _depth_to_space(getattr(self, f"expand{s}")(x))
+                    x = depth_to_space(getattr(self, f"expand{s}")(x))
         return self.proj_out(x).permute(0, 3, 1, 2)
 
 

@@ -19,7 +19,8 @@ launch the kernel, anything else raises.  The ``GDN`` module sends a
 tensor whose width B2 does not take (``b2_takes``: C > 192, or 16 < C with
 C % 4 ≠ 0) to ``gdn_plain_route``, the plain version, counted like a
 kernel: the JAX package's default GDN is its XLA path at every
-width (``lic_tpu/layers/gdn.py:34,85``).
+width (``lic_tpu/layers/gdn.py:34,85``).  ``GDN1`` (``gdn.py:110-131``),
+y = x / (β + Γ|x|), is plain torch: no TPU kernel computes it.
 
 The gradient of ``gdn_fused`` is ``_GdnFn``, a ``torch.autograd.Function``
 whose forward is the kernel (the plain version on the CPU) and whose
@@ -56,9 +57,11 @@ library = CudaLibrary("gdn.cu", _bind)
 def gdn_plain(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, inverse: bool
 ) -> torch.Tensor:
-    """Plain PyTorch GDN on (rows, C); the norm in fp32, y in x's dtype."""
-    xf = x.float()
-    norm = (xf * xf) @ gamma.float().t() + beta.float()
+    """Plain PyTorch GDN on (rows, C); the norm in fp32 (in float64 for a
+    float64 x), y in x's dtype."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct)
+    norm = (xf * xf) @ gamma.to(ct).t() + beta.to(ct)
     y = xf * torch.sqrt(norm) if inverse else xf / torch.sqrt(norm)
     return y.to(x.dtype)
 
@@ -206,5 +209,26 @@ def IGDN(num_features: int) -> GDN:
     return GDN(num_features, inverse=True)
 
 
-__all__ = ["GDN", "IGDN", "b2_takes", "gdn_fused", "gdn_plain", "gdn_plain_backward",
+class GDN1(nn.Module):
+    """The simplified GDN of ``lic_tpu/layers/gdn.py:110-131``: ``y = x /
+    (β + Γ|x|)``, or ``x · (β + Γ|x|)`` when ``inverse``; β/Γ stored and
+    initialised as ``GDN``'s.  Plain torch: kernel B2 computes
+    x·(x²Γᵀ + β)^∓½, and no TPU kernel computes this one.  NCHW."""
+
+    def __init__(self, num_features: int, inverse: bool = False):
+        super().__init__()
+        self.inverse = inverse
+        self._beta_rp = NonNegativeParametrizer(minimum=_BETA_MIN)
+        self._gamma_rp = NonNegativeParametrizer()
+        c = num_features
+        self.beta = nn.Parameter(self._beta_rp.init(torch.ones(c)))
+        self.gamma = nn.Parameter(self._gamma_rp.init(_GAMMA_INIT * torch.eye(c)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gamma, beta = self._gamma_rp(self.gamma), self._beta_rp(self.beta)
+        norm = torch.einsum("bihw,oi->bohw", x.abs(), gamma) + beta[:, None, None]
+        return x * norm if self.inverse else x / norm
+
+
+__all__ = ["GDN", "GDN1", "IGDN", "b2_takes", "gdn_fused", "gdn_plain", "gdn_plain_backward",
            "gdn_plain_route"]

@@ -63,8 +63,13 @@ XLA drops it under ``jit``), its leaves take no gradient, and
 The charm configs also build a ``PredictionModelSyntax`` that no charm
 forward calls (``config.py:88``, ``codec.py:115-119``); it is not part of
 a charm model, ``utils.params`` skips its subtree there, and
-``utils.checkpoint`` carries it in the ``.npz`` files.  What is not
-ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+``utils.checkpoint`` carries it in the ``.npz`` files.
+
+The transforms (``models.transforms``) are ``plain``, ``plain_wam``,
+``rich`` or ``rbs`` (the rich g_a with the ``synthesisTransformModel_RBS``
+g_s).  A charm config with ``lrp=False`` builds no ``lrp_transforms``, and
+every forward and coder pass takes ŷ as it is (``charm_apply_lrp``,
+``codec.py:636-640``).
 """
 
 from __future__ import annotations
@@ -119,8 +124,7 @@ DECODABLE_HYPERS = ("classic_dual", "elic", "unet_dec")
 
 
 def check_supported(cfg: CodecConfig) -> None:
-    """Raise ``ValueError`` for a config the JAX package rejects too, and
-    ``NotImplementedError`` for what this port does not carry yet."""
+    """Raise ``ValueError`` for a config the JAX package rejects too."""
     charm = cfg.family == "charm"
     if cfg.family not in ("charm", "neural_syntax"):
         raise ValueError(f"unknown codec family {cfg.family!r}")
@@ -133,15 +137,6 @@ def check_supported(cfg: CodecConfig) -> None:
     if not charm and (cfg.syntax == "none" or not cfg.code_syntax):
         raise ValueError("the neural-syntax family codes its syntax stream: it needs a "
                          "syntax model and code_syntax")
-    gaps = [
-        (cfg.transform not in ("plain", "plain_wam", "rich"),
-         f"transform {cfg.transform!r} (ROADMAP A16 (f))"),
-        (charm and cfg.context == "charm" and not cfg.lrp,
-         "charm without LRP (ROADMAP A16 (f))"),
-    ]
-    for missing, what in gaps:
-        if missing:
-            raise NotImplementedError(f"lic_tpu_torch does not port {what} yet")
 
 
 class _CharmSliceStack(nn.Module):
@@ -178,7 +173,9 @@ class CodecModel(nn.Module):
         has_syntax = cfg.syntax != "none"
         # g_s gives M channels for the generated conv, or RGB without it
         gen_conv = has_syntax and cfg.syntax_decoder
-        self.g_a = AnalysisTransform(N, cfg.transform, generator=g)
+        # rbs is a g_s family: its g_a is the rich one (codec.py:95-97)
+        self.g_a = AnalysisTransform(N, "rich" if cfg.transform == "rbs" else cfg.transform,
+                                     generator=g)
         self.g_s = SynthesisTransform(N, M if gen_conv else 3, cfg.transform,
                                       in_channels=cfg.content_channels, generator=g)
         self.syntax_model = SyntaxModel(M, M, cfg.syntax, generator=g) if has_syntax else None
@@ -260,9 +257,10 @@ class CodecModel(nn.Module):
         self.cc_scale_transforms = nn.ModuleList(
             _CharmSliceStack(N + sc * n_sup[i], sc, g) for i in range(ns)
         )
-        self.lrp_transforms = nn.ModuleList(
-            _CharmSliceStack(N + sc * (n_sup[i] + 1), sc, g) for i in range(ns)
-        )
+        if cfg.lrp:
+            self.lrp_transforms = nn.ModuleList(
+                _CharmSliceStack(N + sc * (n_sup[i] + 1), sc, g) for i in range(ns)
+            )
         if cfg.gain_units:
             # a log-spaced amplitude ramp: unit K−1 starts at gain_span × unit
             # 0, so bpp rises with the rate from step 0; K = 1 is neutral
@@ -567,6 +565,10 @@ class CodecModel(nn.Module):
         return mu, sigma, mean_support
 
     def charm_apply_lrp(self, mean_support, y_hat_slice, i: int):
+        """ŷ + ½·tanh(LRP(mean support, ŷ)) for slice ``i``; ŷ itself
+        where the config has no LRP (``codec.py:636-640``)."""
+        if not self.cfg.lrp:
+            return y_hat_slice
         lrp_in = torch.cat([mean_support, y_hat_slice], dim=1)
         return y_hat_slice + 0.5 * torch.tanh(self.lrp_transforms[i](lrp_in))
 

@@ -1,5 +1,5 @@
-"""Analysis / synthesis transforms (g_a / g_s), ``plain``, ``plain_wam``
-and ``rich`` variants, NCHW.
+"""Analysis / synthesis transforms (g_a / g_s), ``plain``, ``plain_wam``,
+``rich`` and ``rbs`` variants, NCHW.
 
 Counterpart of ``lic_tpu/models/transforms.py:42-158,161-182``:
 4× (ZeroPad2d(1,2,1,2) + conv5 s2) with GDN after the first three, and
@@ -12,8 +12,15 @@ shift 2) and after the 2nd IGDN (ws 8, shift 4).  ``rich``
 ``ResidualBottleneck``s on the image and a ``ResidualBlockWithStride``, and
 ``down2`` with three ``ResidualBottleneck``s and a second
 ``ResidualBlockWithStride``; g_s is ``plain_wam``'s but its ``wam1``
-shifts by 2 at ws 8.  The layers are children in the order they run.  g_a
-maps (H, W) → (H/16, W/16) and g_s inverts it exactly.
+shifts by 2 at ws 8.  ``rbs`` (``lic_tpu/models/transforms.py:197-232``,
+the working assembly of the reference's ``synthesisTransformModel_RBS``) is
+a g_s only; its g_a is ``rich``'s (``lic_tpu/models/codec.py:95-97``).  Its
+g_s: ``rbs_wam0`` (ws 4, shift 2), then at each of three scales a
+``ResidualBlockUpsample`` (×2) with three ``ResidualBottleneck``s and an
+IGDN (a stride-1 3×3 ``ConvTranspose2d`` after the first IGDN,
+``rbs_wam1`` (ws 8, shift 2) after the second), then ``_Up5`` + IGDN.  The
+layers are children in the order they run.  g_a maps (H, W) → (H/16,
+W/16) and g_s inverts it exactly.
 """
 
 from __future__ import annotations
@@ -29,12 +36,13 @@ from ..layers import (
     IGDN,
     Conv2d,
     ConvTranspose2d,
+    ResidualBlockUpsample,
     ResidualBlockWithStride,
     ResidualBottleneck,
     WinNoShiftAttention,
 )
 
-VARIANTS = ("plain", "plain_wam", "rich")
+VARIANTS = ("plain", "plain_wam", "rich", "rbs")
 
 # torch ZeroPad2d((1, 2, 1, 2)) + Conv2d(5, 2, 0): (left, right, top, bottom)
 _DOWN_PAD = (1, 2, 1, 2)
@@ -67,7 +75,7 @@ class AnalysisTransform(nn.Module):
         if variant not in VARIANTS:
             raise ValueError(f"unknown transform variant {variant!r}")
         g = generator
-        wam, rich = variant != "plain", variant == "rich"
+        wam, rich = variant != "plain", variant in ("rich", "rbs")
         if rich:
             for i in range(3):
                 self.add_module(f"rb0_{i}", ResidualBottleneck(3, generator=g))
@@ -110,11 +118,14 @@ class SynthesisTransform(nn.Module):
         if variant not in VARIANTS:
             raise ValueError(f"unknown transform variant {variant!r}")
         g = generator
+        cin = in_channels or N
+        if variant == "rbs":
+            self._rbs(N, out_channels, cin, g)
+            return
         wam = variant != "plain"
         if wam:
             self.wam0 = WinNoShiftAttention(N, 8, 4, 2, generator=g)
         filters = [N, N, N, out_channels]
-        cin = in_channels or N
         for i, f in enumerate(filters):
             self.add_module(f"up{i}", _Up5(cin, f, g))
             self.add_module(f"igdn{i}", IGDN(f))
@@ -122,6 +133,27 @@ class SynthesisTransform(nn.Module):
                 shift = 2 if variant == "rich" else 4
                 self.wam1 = WinNoShiftAttention(f, 8, 8, shift, generator=g)
             cin = f
+
+    def _rbs(self, N: int, out_channels: int, cin: int, g) -> None:
+        f0, f1, f2, f3 = N, N, N, out_channels
+        add = self.add_module
+        self.rbs_wam0 = WinNoShiftAttention(cin, 8, 4, 2, generator=g)
+        self.rbs_up0 = ResidualBlockUpsample(cin, f0, 2, generator=g)
+        for i in range(3):
+            add(f"rbs_rb0_{i}", ResidualBottleneck(f0, generator=g))
+        self.rbs_igdn0 = IGDN(f0)
+        self.rbs_deconv3 = ConvTranspose2d(f0, f0, 3, 1, 1, 0, generator=g)
+        self.rbs_up1 = ResidualBlockUpsample(f0, f1, 2, generator=g)
+        self.rbs_igdn1 = IGDN(f1)
+        self.rbs_wam1 = WinNoShiftAttention(f1, 8, 8, 2, generator=g)
+        for i in range(3):
+            add(f"rbs_rb1_{i}", ResidualBottleneck(f1, generator=g))
+        self.rbs_up2 = ResidualBlockUpsample(f1, f2, 2, generator=g)
+        self.rbs_igdn2 = IGDN(f2)
+        for i in range(3):
+            add(f"rbs_rb2_{i}", ResidualBottleneck(f2, generator=g))
+        self.rbs_up3 = _Up5(f2, f3, g)
+        self.rbs_igdn3 = IGDN(f3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.children():

@@ -2,8 +2,9 @@
 
     python -m lic_tpu_torch.tools.profile_path [--preset net_unet_ha_hs_dec] [--out build/profile]
 
-``--preset`` (any preset of the port) at full width, random weights
-from ``--seed``, a batch of ``--batch`` smooth synthetic images of
+``--preset`` (any preset of the port; ``--transform rbs`` and
+``--no_lrp`` build it with that transform or without LRP) at full width,
+random weights from ``--seed``, a batch of ``--batch`` smooth synthetic images of
 ``--height`` × ``--width``, fp32 with the coder's numerics flags.  It
 prints:
 
@@ -173,8 +174,9 @@ def _hooked_ms(model, x, spans: Dict[str, Tuple[torch.nn.Module, torch.nn.Module
 def _slice_spans(model) -> Dict[str, Tuple[torch.nn.Module, torch.nn.Module]]:
     """The ChARM chain and each slice's stacks, as (first, last) modules."""
     names = (["atten_mean", "atten_scale"] if model.cfg.swatten else []) + [
-        "cc_mean_transforms", "cc_scale_transforms", "lrp_transforms"]
-    spans = {"chain": (getattr(model, names[0])[0], model.lrp_transforms[-1])}
+        "cc_mean_transforms", "cc_scale_transforms"] + (
+        ["lrp_transforms"] if model.cfg.lrp else [])
+    spans = {"chain": (getattr(model, names[0])[0], getattr(model, names[-1])[-1])}
     for i in range(model.cfg.num_slices):
         for name in names:
             mod = getattr(model, name)[i]
@@ -427,6 +429,11 @@ def main() -> None:
                     help="build the preset with the HAN tail and time its pieces")
     ap.add_argument("--tune", type=int, default=0, metavar="STEPS",
                     help="profile STEPS content-adaptive tune steps (B = 1) instead")
+    ap.add_argument("--transform", default=None, choices=("plain", "plain_wam", "rich", "rbs"),
+                    help="build the preset with this transform (rbs: the rich g_a with "
+                         "the rbs g_s)")
+    ap.add_argument("--no_lrp", action="store_true",
+                    help="build the preset without latent residual prediction")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
@@ -443,8 +450,12 @@ def main() -> None:
     ).stdout.strip())
     set_numerics_flags()
     dev = torch.device("cuda")
-    model = build_model(args.preset, device=dev, seed=args.seed,
-                        post_processing=args.post_processing)
+    over = dict(post_processing=args.post_processing)
+    if args.transform:
+        over["transform"] = args.transform
+    if args.no_lrp:
+        over["lrp"] = False
+    model = build_model(args.preset, device=dev, seed=args.seed, **over)
     x = torch.from_numpy(smooth_images(
         np.random.default_rng(args.seed), args.batch, args.height, args.width,
     )).to(dev).contiguous(memory_format=torch.channels_last)

@@ -14,7 +14,14 @@ torch state.
   model owns the module, and its leaves are the model's own.
 * ``CheckpointManager`` keeps the trainer's state per epoch with
   ``torch.save``: the model's state dict, both optimizers' state, the
-  schedule's count, the step and the noise and rate generators' states.
+  schedule's count, the step, the noise and rate generators' states (and
+  the device type of the noise generator's), the ``PredictionModelSyntax``
+  subtree a charm model carries (``flax_extra``) and an optional ``extra``
+  dict that the trainer does not read (``tools/orbax_state.py`` keeps the
+  JAX leaves that have no port counterpart there).  A generator state
+  saved on another device type than the one it is restored into (a file
+  written on the CPU, resumed on the card) cannot be set: the generator is
+  seeded with that state's seed instead.
 """
 
 from __future__ import annotations
@@ -89,6 +96,17 @@ def load_params(path: str, model: nn.Module, strict: bool = True) -> nn.Module:
     return model
 
 
+def generator_seed(state: torch.Tensor, device_type: str) -> int:
+    """The seed of a saved generator state: a CPU generator's as the CPU
+    generator reads it back, a CUDA generator's from the first 8 bytes of
+    its (seed, offset) state."""
+    if device_type == "cpu":
+        g = torch.Generator()
+        g.set_state(state)
+        return g.initial_seed()
+    return int.from_bytes(bytes(state[:8].tolist()), "little")
+
+
 class CheckpointManager:
     """Per-epoch trainer state under ``directory/<epoch:06d>.pt``."""
 
@@ -99,14 +117,24 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step:06d}.pt")
 
-    def save(self, state, step: int) -> None:
+    def save(self, state, step: int, extra: Optional[dict] = None) -> None:
         model = getattr(state.model, "module", state.model)
         payload = {"model": model.state_dict(), "optimizer": state.optimizer.state_dict(),
                    "step": state.step, "generator": state.generator.get_state(),
+                   "generator_device": state.generator.device.type,
                    "rate_generator": state.rate_generator.get_state()}
+        kept = getattr(model, "flax_extra", None)
+        if kept:
+            payload["flax_extra"] = {k: torch.from_numpy(np.array(v)) for k, v in kept.items()}
+        if extra is not None:
+            payload["extra"] = extra
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))
+
+    def load(self, step: int) -> dict:
+        """The saved payload of ``step``, on the CPU."""
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
 
     def latest_step(self) -> Optional[int]:
         steps = [int(f[:-3]) for f in os.listdir(self.directory)
@@ -120,11 +148,18 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        getattr(state.model, "module", state.model).load_state_dict(payload["model"])
+        payload = self.load(step)
+        model = getattr(state.model, "module", state.model)
+        model.load_state_dict(payload["model"])
+        if "flax_extra" in payload:
+            model.flax_extra = {k: v.numpy() for k, v in payload["flax_extra"].items()}
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
-        state.generator.set_state(payload["generator"])
+        saved_on = payload.get("generator_device", state.generator.device.type)
+        if saved_on == state.generator.device.type:
+            state.generator.set_state(payload["generator"])
+        else:
+            state.generator.manual_seed(generator_seed(payload["generator"], saved_on))
         if "rate_generator" in payload:  # files written before multi-rate training
             state.rate_generator.set_state(payload["rate_generator"])
         return state

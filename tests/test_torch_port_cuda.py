@@ -4,8 +4,11 @@ attention, head widths 8, 24 and 48) and B6 (stride-1 conv), and the
 gradients of B2-B6 through their autograd.Functions; then the paths
 around them: tuning, C5, mixed rates, the EB table, a ``.ltcp`` stream
 written on the card and decoded on the CPU, the HAN tail on the card
-against its CPU run, and the U-Net-hyper and latent-U-Net presets'
-stages against their CPU run and one training step each on the card.
+against its CPU run, the U-Net-hyper and latent-U-Net presets'
+stages against their CPU run and one training step each on the card;
+the rbs g_s and ChARM without LRP against their CPU run (B6 at the
+``ResidualBlockUpsample`` shapes, an rbs training step), the dormant
+layers against their CPU run, and a ``CheckpointManager`` resume.
 Every test here is
 marked ``cuda`` and skips without CUDA.  fp32 tolerance: atol/rtol 1e-5
 (sums in another order than cuDNN's / cuBLAS's); a repeat call of B2-B6 is
@@ -1064,3 +1067,263 @@ def test_unet_training_step_on_the_card(cuda_device, name):
             assert p.grad is None and torch.equal(p, before[n]), n
         elif p.grad is not None and p.grad.any():
             assert not torch.equal(p, before[n]), n
+
+
+# ------------------------------------------ the rbs g_s and ChARM without LRP
+
+_NEW_CONFIGS = {"rbs": ("net_ga", dict(transform="rbs")),
+                "nolrp": ("source_net", dict(lrp=False))}
+# one B = 1 eval forward: net_ga's kernels, and the rbs g_s's three
+# ResidualBlockUpsamples (a B6 3x3 and a B2 IGDN each); source_net's
+_NEW_LAUNCHES = {"rbs": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 20},
+                 "nolrp": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "wba": 0}}
+
+
+def _woken_config(name, dev, seed=0):
+    preset, over = _NEW_CONFIGS[name]
+    cpu = build_model(preset, device="cpu", seed=seed, **over)
+    g = torch.Generator().manual_seed(seed + 5)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("weight") and not p.any():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5 * p[0].numel() ** -0.5)
+    card = build_model(preset, device=dev, seed=seed + 1, **over)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("name", list(_NEW_CONFIGS))
+def test_rbs_and_nolrp_on_the_card_equal_their_cpu_run(cuda_device, name):
+    """Full width, 128×128, eval: z3, the hyper's (scales, means), slice
+    0's (μ, σ) and the synthesis of the CPU's ŷ on the card within 1e-4 of
+    each one's largest magnitude on the CPU; the forward's exact launches.
+    The rbs synthesis block by block (each child of g_s, then the
+    generated conv before its tanh, on the CPU's input to it): its IGDNs
+    square the map's scale, and ``wam1``'s attention logits reach 1e4 on
+    a map of magnitude ≈ 200, where fp32 keeps ≈ 1e-2 of the output's
+    range on the CPU as on the card; a block whose CPU run lies farther
+    than 5e-5 from float64 is held as within twice that distance of
+    float64 on the card."""
+    from lic_tpu_torch.layers import conv_direct
+    from lic_tpu_torch.layers import gdn as gdn_mod
+    from lic_tpu_torch.layers import window_attn
+    from lic_tpu_torch.models.syntax import batch_conv
+
+    cpu, card = _woken_config(name, cuda_device)
+    x = _randn(torch.Generator().manual_seed(3), 1, 3, 128, 128).clamp(-1, 1)
+
+    def blocks(m, y, syn, ins=None):
+        """g_s's children (each on ``ins[i]`` where given), then the
+        generated conv before its tanh → (inputs, outputs)."""
+        dev = syn.device
+        inputs, outputs, h = [], [], y
+        for i, layer in enumerate(m.g_s.children()):
+            xin = h if ins is None else _cl(ins[i], dev)
+            inputs.append(xin)
+            h = layer(xin)
+            outputs.append(h)
+        last = h if ins is None else _cl(ins[-1], dev)
+        inputs.append(last)
+        outputs.append(batch_conv(m.conv_weights_gen(syn), last))
+        return inputs, outputs
+
+    def stages(m, xin, z3, y, syn, ins=None):
+        med = m.eb_medians()[None, :, None, None]
+        scales, means = m.hyper_decode(torch.round(m.hyper_encode(z3) - med) + med)
+        mu, sigma, _ = m.charm_entropy_params(means, scales, [], 0)
+        st = {"z3": m.analyze(xin), "scales": scales, "means": means, "mu0": mu,
+              "sigma0": sigma}
+        if name == "rbs":
+            st.update({f"g_s block {i}": o for i, o in enumerate(blocks(m, y, syn, ins)[1])})
+        else:
+            st["synthesis"] = m.synthesize(y, syn)
+        return st
+
+    counted = {"gdn": gdn_mod.gdn_fused, "conv5s2": conv_direct.conv5s2,
+               "convk_s1": conv_direct.convk_s1, "wba": window_attn.window_attention}
+    with torch.no_grad():
+        out = cpu(x)
+        z3 = cpu.analyze(x)
+        syn = cpu.syntax_from_latent(z3)
+        want = stages(cpu, x, z3, out.extras["y_hat"], syn)
+        ins = blocks(cpu, out.extras["y_hat"], syn)[0] if name == "rbs" else None
+        got = stages(card, _cl(x, cuda_device), _cl(z3, cuda_device),
+                     _cl(out.extras["y_hat"], cuda_device), _cl(syn, cuda_device), ins)
+        for fn in counted.values():
+            fn.launches = 0
+        y = card(_cl(x, cuda_device))
+        torch.cuda.synchronize()
+    assert {k: fn.launches for k, fn in counted.items()} == _NEW_LAUNCHES[name]
+    assert torch.isfinite(y.x_tilde).all() and y.x_tilde.shape == (1, 3, 128, 128)
+    ref = {}
+    if name == "rbs":
+        import copy
+
+        with torch.no_grad():
+            c64 = copy.deepcopy(cpu).double()
+            outs = blocks(c64, None, syn.double(), [t.double() for t in ins])[1]
+        ref = {f"g_s block {i}": o for i, o in enumerate(outs)}
+    errs = {k: (float((got[k].cpu() - v).abs().max()), float(v.abs().max()))
+            for k, v in want.items()}
+    for k, (e, m) in errs.items():
+        if k in ref and float((want[k].double() - ref[k]).abs().max()) > 5e-5 * m:
+            cpu_f64 = float((want[k].double() - ref[k]).abs().max())
+            assert float((got[k].cpu().double() - ref[k]).abs().max()) <= 2 * cpu_f64, k
+        else:
+            assert e <= 1e-4 * m, (k, e, m)
+
+
+@pytest.mark.parametrize("h,w", [(64, 96), (128, 192), (256, 384)])
+def test_convk_s1_at_the_residual_block_upsample_shapes(cuda_device, h, w):
+    """B6 at the rbs g_s's ResidualBlockUpsample 3×3 (C 192 → 192, bias,
+    no activation) at 512×768's three scales, against the plain version in
+    float64."""
+    g = torch.Generator().manual_seed(h)
+    x = _cl(_randn(g, 1, 192, h, w), cuda_device)
+    wt = _randn(g, 192, 192, 3, 3, scale=(192 * 9) ** -0.5).to(cuda_device)
+    b = _randn(g, 192).to(cuda_device)
+    _check_kernel(convk_s1, convk_s1_plain, (x, wt, b), f64=True)
+
+
+def test_rbs_training_step_on_the_card(cuda_device):
+    """One training step of the rbs config on the card (B = 2, 128×128):
+    a finite loss, every B2 and B6 launch with its backward, every leaf
+    whose gradient after the global-norm clip exceeds 1e-6 somewhere
+    moved.  (Adam's first step moves a leaf by ≈ lr·g / (|g| + 1e-8):
+    below ε a leaf of magnitude 1 does not move in fp32, and the rbs
+    loss's gradient norm, which the clip divides by, is large on these
+    weights.)"""
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.layers import conv_direct
+    from lic_tpu_torch.layers import gdn as gdn_mod
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    _, card = _woken_config("rbs", cuda_device)
+    card.train()
+    x = _randn(torch.Generator().manual_seed(4), 2, 3, 128, 128).clamp(-1, 1)
+    tc = TrainConfig()
+    opt = make_optimizer(card, tc, steps_per_epoch=10)
+    state = create_state(card, opt, tc.seed)
+    before = {n: p.detach().clone() for n, p in card.named_parameters()}
+    counted = (gdn_mod.gdn_fused, conv_direct.convk_s1)
+    for fn in counted:
+        fn.launches = fn.backwards = 0
+    metrics = make_train_step(card, tc, opt)(state, _cl(x, cuda_device))
+    torch.cuda.synchronize()
+    assert float(metrics["skipped"]) == 0.0 and np.isfinite(float(metrics["loss"]))
+    assert gdn_mod.gdn_fused.launches == gdn_mod.gdn_fused.backwards == 12
+    assert conv_direct.convk_s1.launches == conv_direct.convk_s1.backwards == 66
+    moved = 0
+    for n, p in card.named_parameters():
+        if p.grad is not None and float(p.grad.abs().max()) > 1e-6:
+            assert not torch.equal(p, before[n]), n
+            moved += 1
+    assert moved > 100
+
+
+# ------------------------------------------------------- the dormant layers
+
+
+def _dormant_cases():
+    from lic_tpu_torch.layers import GDN1, misc, vit
+
+    g = lambda i: torch.Generator().manual_seed(i)
+    return {
+        "GDN1": lambda: GDN1(192),
+        "GDN1_inverse": lambda: GDN1(192, inverse=True),
+        "vit_latent_syntax": lambda: vit.vit_latent_syntax(16, generator=g(1)),
+        "MaskedConv2d": lambda: misc.MaskedConv2d(192, 192, 5, "A", generator=g(2)),
+        "GSDN": lambda: misc.GSDN(192),
+        "LinearAttention": lambda: misc.LinearAttention(192, generator=g(3)),
+        "SpatialSelfAttention": lambda: misc.SpatialSelfAttention(192, generator=g(4)),
+        "BlockTrain": lambda: misc.BlockTrain(192, 96, 16 * 24, embed_dim=192, num_heads=12,
+                                              generator=g(5)),
+        "UnetHaHs": lambda: misc.UnetHaHs(generator=g(6)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_dormant_cases()))
+def test_dormant_module_on_the_card_equals_its_cpu_run(cuda_device, name):
+    """Each module on the card within 1e-4 of its CPU run's largest
+    magnitude, the same weights and input."""
+    import copy
+
+    m = _dormant_cases()[name]().eval()
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for p in m.parameters():
+            if not p.any():
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    shape = (2, 3, 16, 16) if name == "vit_latent_syntax" else (2, 192, 16, 24)
+    x = _randn(gen, *shape).clamp(-2, 2)
+    with torch.no_grad():
+        want = m(x)
+        got = copy.deepcopy(m).to(cuda_device)(_cl(x, cuda_device))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_haar_and_erf_on_the_card_equal_the_cpu(cuda_device):
+    from lic_tpu_torch.layers import haar
+    from lic_tpu_torch.layers.conv import Conv2d
+    from lic_tpu_torch.utils.analyze import effective_receptive_field
+
+    x = _randn(torch.Generator().manual_seed(8), 2, 3, 64, 96)
+    assert torch.equal(haar.haar_dwt2(x.to(cuda_device)).cpu(), haar.haar_dwt2(x))
+    net = Conv2d(3, 192, 3, 1, 1, generator=torch.Generator().manual_seed(9))
+    want = effective_receptive_field(net, x)
+    got = effective_receptive_field(net.to(cuda_device), x.to(cuda_device))
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# --------------------------------------------------------- resuming training
+
+
+def test_checkpoint_resume_on_the_card_is_bit_identical(cuda_device, tmp_path):
+    """source_net at full width, B = 2 crops of 128×128: three steps
+    straight, against two steps, a save, a fresh model, optimizer and state
+    restored from the file and a third step: the parameters bit-identical."""
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from lic_tpu_torch.utils.checkpoint import CheckpointManager
+
+    tc = TrainConfig()
+    g = torch.Generator().manual_seed(10)
+    batches = [_cl(_randn(g, 2, 3, 128, 128).clamp(-1, 1), cuda_device) for _ in range(3)]
+
+    def fresh():
+        model = build_model("source_net", device=cuda_device).train()
+        opt = make_optimizer(model, tc, steps_per_epoch=10)
+        return model, create_state(model, opt, tc.seed), make_train_step(model, tc, opt)
+
+    straight, state_a, step_a = fresh()
+    for b in batches:
+        step_a(state_a, b)
+    _, state_b, step_b = fresh()
+    for b in batches[:2]:
+        step_b(state_b, b)
+    CheckpointManager(str(tmp_path)).save(state_b, 2)
+    resumed, state_c, step_c = fresh()
+    CheckpointManager(str(tmp_path)).restore(state_c, 2)
+    step_c(state_c, batches[2])
+    assert state_c.step == 3
+    for (n, p), (_, q) in zip(straight.named_parameters(), resumed.named_parameters()):
+        assert torch.equal(p, q), n
+
+
+def test_cpu_written_state_resumes_on_the_card_with_its_seed(cuda_device, tmp_path):
+    """A file whose noise generator was a CPU one (as the Orbax tool writes
+    it) seeds the card's generator with that generator's seed."""
+    from lic_tpu_torch.config import TrainConfig
+    from lic_tpu_torch.training import create_state, make_optimizer
+    from lic_tpu_torch.utils.checkpoint import CheckpointManager
+
+    tc = TrainConfig()
+    cpu = build_model("source_net", device="cpu", n_override=32)
+    state = create_state(cpu, make_optimizer(cpu, tc, 10), tc.seed)
+    state.generator.manual_seed(123456789012345)
+    CheckpointManager(str(tmp_path)).save(state, 0)
+    card = build_model("source_net", device=cuda_device, n_override=32)
+    target = create_state(card, make_optimizer(card, tc, 10), tc.seed)
+    CheckpointManager(str(tmp_path)).restore(target, 0)
+    assert target.generator.device.type == "cuda"
+    assert target.generator.initial_seed() == 123456789012345
