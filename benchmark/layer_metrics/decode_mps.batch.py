@@ -1,0 +1,8 @@
+"""Megapixels per second of ``ChannelCoder.decompress_batch``: host clock
+around each call, the device synchronised before and after."""
+
+from benchmark.layer_metrics._common import rate
+
+
+def read(rec):
+    return rate(rec, "decompress_batch", "mp_per_batch")

@@ -1,0 +1,8 @@
+"""The share of the traced stretch in which no kernel, copy or memset ran
+on the card, %."""
+
+from benchmark.layer_metrics._common import idle_pct
+
+
+def read(rec):
+    return idle_pct(rec)

@@ -1,0 +1,9 @@
+"""g_s's share of its roofline, %: ``model.synthesize`` (g_s and the
+generated conv) timed by CUDA events per pass, against its operations and
+bytes on the reference."""
+
+from benchmark.layer_metrics._common import roofline_pct
+
+
+def read(rec):
+    return roofline_pct(rec, "synthesize", "synthesize")
