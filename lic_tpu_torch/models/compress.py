@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import os
 import struct
+import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
@@ -93,6 +94,7 @@ from ..coding import (
 )
 from ..data.pad import pad_to_multiple, padded_size
 from ..layers.entroformer import checkerboard_masks
+from ..utils.profiling import sample, span
 from .codec import DECODABLE_HYPERS, CodecModel
 
 MAGIC = b"LTC2"
@@ -222,47 +224,56 @@ class ChannelCoder:
     """Real-bitstream coder for one ``CodecModel`` (a charm model with a
     decodable hyper, or a neural-syntax model), on the model's device.
     ``rate``: the default gain-unit rate index of a variable-rate model
-    (None: 0); a rate given to a model without gain units raises."""
+    (None: 0); a rate given to a model without gain units raises.
+
+    Its construction is the span ``coder.init`` (``utils.profiling``),
+    with ``.host_library`` (loading the host rANS), ``.z_table`` (the host
+    pmf table of the hyper stream's coder) and ``.device_tables`` under
+    it; ``compress_batch`` and ``decompress_batch`` record their phases."""
 
     def __init__(self, model: CodecModel, name: str = "", rate: Optional[float] = None):
-        cfg = model.cfg
-        self.has_gain = cfg.gain_units > 0
-        if rate is not None and not self.has_gain:
-            raise ValueError(
-                "rate= was given but this model has no gain units "
-                "(cfg.gain_units == 0) — it would be silently ignored; "
-                "use a variable-rate preset (e.g. source_net_vr) or drop "
-                "the rate"
-            )
-        self.rate = 0.0 if rate is None else float(rate)
-        self.is_ns = cfg.family == "neural_syntax"
-        self.is_entro = not self.is_ns and cfg.context == "entroformer"
-        if not self.is_ns and cfg.hyper not in DECODABLE_HYPERS:
-            raise ValueError(
-                f"hyper path '{cfg.hyper}' is not decodable: the "
-                "reference feeds encoder-side activations into its hyper "
-                "decoder (see lic_tpu.models.compress docstring); use a "
-                "'classic_dual', 'elic' or 'unet_dec' preset for real bitstreams (or "
-                "the neural_syntax family's wavefront coder)"
-            )
-        set_numerics_flags()
-        self.model = model.eval()
-        self.device = next(model.parameters()).device
-        self.name = name or f"{cfg.family}.{cfg.transform}.{cfg.hyper}.{cfg.context}"
-        self.host_library = load_host_rans()
-        if self.is_ns:
-            self._init_neural_syntax()
-            return
-        self.z_coder, self.med, self.digest = factorized_z_coder(model)
-        self.y_coder = GaussianCoder()
-        self.tab = torch.as_tensor(
-            self.y_coder.scale_table, dtype=torch.float32, device=self.device
-        )
-        cdfs, offsets = self.y_coder.codec.cdfs, self.y_coder.codec.offsets
-        self.lane_codec = Rans16InterleavedCodec(cdfs, offsets)
-        self.dev_rans = DeviceRans16Interleaved(
-            cdfs, offsets, CHARM_LANES, device=self.device
-        )
+        with span("coder.init"):
+            cfg = model.cfg
+            self.has_gain = cfg.gain_units > 0
+            if rate is not None and not self.has_gain:
+                raise ValueError(
+                    "rate= was given but this model has no gain units "
+                    "(cfg.gain_units == 0) — it would be silently ignored; "
+                    "use a variable-rate preset (e.g. source_net_vr) or drop "
+                    "the rate"
+                )
+            self.rate = 0.0 if rate is None else float(rate)
+            self.is_ns = cfg.family == "neural_syntax"
+            self.is_entro = not self.is_ns and cfg.context == "entroformer"
+            if not self.is_ns and cfg.hyper not in DECODABLE_HYPERS:
+                raise ValueError(
+                    f"hyper path '{cfg.hyper}' is not decodable: the "
+                    "reference feeds encoder-side activations into its hyper "
+                    "decoder (see lic_tpu.models.compress docstring); use a "
+                    "'classic_dual', 'elic' or 'unet_dec' preset for real bitstreams (or "
+                    "the neural_syntax family's wavefront coder)"
+                )
+            set_numerics_flags()
+            self.model = model.eval()
+            self.device = next(model.parameters()).device
+            self.name = name or f"{cfg.family}.{cfg.transform}.{cfg.hyper}.{cfg.context}"
+            with span("coder.init.host_library"):
+                self.host_library = load_host_rans()
+            if self.is_ns:
+                self._init_neural_syntax()
+                return
+            with span("coder.init.z_table"):
+                self.z_coder, self.med, self.digest = factorized_z_coder(model)
+            self.y_coder = GaussianCoder()
+            cdfs, offsets = self.y_coder.codec.cdfs, self.y_coder.codec.offsets
+            self.lane_codec = Rans16InterleavedCodec(cdfs, offsets)
+            with span("coder.init.device_tables"):
+                self.tab = torch.as_tensor(
+                    self.y_coder.scale_table, dtype=torch.float32, device=self.device
+                )
+                self.dev_rans = DeviceRans16Interleaved(
+                    cdfs, offsets, CHARM_LANES, device=self.device
+                )
 
     def _init_neural_syntax(self):
         with torch.no_grad():
@@ -272,9 +283,10 @@ class ChannelCoder:
         self.mu_coder = GaussianMuCoder()
         cdfs, offsets = self.mu_coder.codec.cdfs, self.mu_coder.codec.offsets
         self.lane_codec = Rans16InterleavedCodec(cdfs, offsets)
-        self.tab = torch.as_tensor(
-            self.mu_coder.scale_table, dtype=torch.float32, device=self.device
-        )
+        with span("coder.init.device_tables"):  # the lanes' decoders come per lane count
+            self.tab = torch.as_tensor(
+                self.mu_coder.scale_table, dtype=torch.float32, device=self.device
+            )
         self._dev_rans = {}  # lane count → DeviceRans16Interleaved
         self._ns_schedules = {}  # (h, w) of the latent → wavefront steps
         self.digest = zlib.crc32(self.z2_sigma.tobytes()) & 0xFFFFFFFF
@@ -405,40 +417,72 @@ class ChannelCoder:
         of ``pass_batch`` images, the host rANS encodes in a thread pool
         (the C coder releases the interpreter lock).  ``rates``: one
         gain-unit rate index per image (gain-unit models; default the
-        coder's rate); a batch may mix them."""
-        b, _, h, w = xs.shape
-        rate_t = self._rates(rates, b)
+        coder's rate); a batch may mix them.
+
+        Spans: ``coder.compress`` around the call; under it ``.launch``
+        (the device passes enqueued), ``.fetch`` (the copies to the host;
+        the first waits for the passes) and ``.entropy`` (the pool's
+        encodes, ``_pool_map``)."""
+        with span("coder.compress"):
+            if self.is_ns:
+                return self._compress_ns(xs, rates)
+            b, _, h, w = xs.shape
+            with span("coder.compress.launch"):
+                z3, p, rate_t = self._analyze(xs, rates)
+                z_sym16, z_hat = self._z_enc(z3, p)
+                syntax = _passes(self.model.syntax_from_latent, p, z3)
+                sym, rows, _, _ = self._slices_pass(z_hat, p, y=z3)
+            with span("coder.compress.fetch"):
+                syntax_np = syntax.flatten(1).cpu().numpy().astype(np.int16)
+                z_np = z_sym16.permute(0, 2, 3, 1).cpu().numpy()  # NHWC for the host
+                sym_np, rows_np = sym.cpu().numpy(), rows.cpu().numpy()
+                rates_host = [None] * b if rate_t is None else rate_t.tolist()
+            counts = self._step_counts(z3.shape[2], z3.shape[3])
+
+            def encode(i):
+                z_blob = self.z_coder.encode_symbols(z_np[i : i + 1])
+                y_blob = self.lane_codec.encode(
+                    sym_np[i], rows_np[i], counts, CHARM_LANES
+                )
+                return self._pack(h, w, syntax_np[i], z_blob, [y_blob], rates_host[i])
+
+            with span("coder.compress.entropy") as entropy:
+                return self._pool_map(encode, b, entropy)
+
+    def _analyze(self, xs: torch.Tensor, rates: Optional[Sequence[float]]):
+        """The batch padded to /64 on the device and through g_a in passes
+        → (latent, images per pass, the (B,) rates on the device or
+        None)."""
+        rate_t = self._rates(rates, xs.shape[0])
         xs, _ = pad_to_multiple(self._to_device(xs), 64)
         p = pass_batch(*xs.shape[2:], self.device)
         if rate_t is None:
-            z3 = _passes(self.model.analyze, p, xs)
-        else:
-            z3 = _passes(self.model.analyze, p, xs, rate_t)
-        if self.is_ns:
-            return self._compress_ns(z3, p, h, w)
-        z_sym16, z_hat = self._z_enc(z3, p)
-        syntax = _passes(self.model.syntax_from_latent, p, z3)
-        sym, rows, _, _ = self._slices_pass(z_hat, p, y=z3)
-
-        syntax_np = syntax.flatten(1).cpu().numpy().astype(np.int16)
-        z_np = z_sym16.permute(0, 2, 3, 1).cpu().numpy()  # NHWC for the host
-        sym_np, rows_np = sym.cpu().numpy(), rows.cpu().numpy()
-        rates_host = [None] * b if rate_t is None else rate_t.tolist()
-        counts = self._step_counts(z3.shape[2], z3.shape[3])
-
-        def encode(i):
-            z_blob = self.z_coder.encode_symbols(z_np[i : i + 1])
-            y_blob = self.lane_codec.encode(
-                sym_np[i], rows_np[i], counts, CHARM_LANES
-            )
-            return self._pack(h, w, syntax_np[i], z_blob, [y_blob], rates_host[i])
-
-        return self._pool_map(encode, b)
+            return _passes(self.model.analyze, p, xs), p, None
+        return _passes(self.model.analyze, p, xs, rate_t), p, rate_t
 
     @staticmethod
-    def _pool_map(fn, n: int) -> list:
-        with ThreadPoolExecutor(max_workers=min(n, os.cpu_count() or 1)) as pool:
-            return list(pool.map(fn, range(n)))
+    def _pool_map(fn, n: int, parent) -> list:
+        """``fn(i)`` for i < n on a pool of threads, each call a
+        ``coder.compress.image`` span under ``parent``; samples the pool's
+        size (``coder.pool.workers``), the CPUs this process may run on
+        (``host.cpus``) and the calls' CPU time over their wall time
+        (``coder.compress.entropy.on_cpu``: below 1 where a thread was
+        descheduled or waited for the interpreter lock)."""
+        def task(i):
+            with span("coder.compress.image", parent=parent):
+                wall, cpu = time.perf_counter(), time.thread_time()
+                out = fn(i)
+                return out, time.thread_time() - cpu, time.perf_counter() - wall
+
+        workers = min(n, os.cpu_count() or 1)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            done = list(pool.map(task, range(n)))
+        sample("coder.pool.workers", workers)
+        sample("host.cpus", len(os.sched_getaffinity(0)))
+        wall = sum(d[2] for d in done)
+        if wall > 0:
+            sample("coder.compress.entropy.on_cpu", sum(d[1] for d in done) / wall)
+        return [d[0] for d in done]
 
     def _pack(self, h, w, syntax, z_blob, blobs, rate: Optional[float] = None) -> bytes:
         out = bytearray(MAGIC)
@@ -500,20 +544,35 @@ class ChannelCoder:
 
     @torch.no_grad()
     def decompress_batch(self, blobs: List[bytes]) -> torch.Tensor:
-        """Decode B same-sized bitstreams → (B, 3, H, W) reconstruction."""
-        b = len(blobs)
-        heads = [self._parse_header(d) for d in blobs]
-        orig_h, orig_w = heads[0][1], heads[0][2]
-        if any((hd[1], hd[2]) != (orig_h, orig_w) for hd in heads):
-            raise ValueError("decompress_batch needs same-sized bitstreams")
-        h, w = padded_size(orig_h, orig_w, 64)
-        if self.is_ns:
-            return self._decompress_ns(blobs, [hd[0] for hd in heads], h, w)[
-                :, :, :orig_h, :orig_w]
-        z_shape = (1, h // 64, w // 64, self.z_coder.medians.shape[0])
+        """Decode B same-sized bitstreams → (B, 3, H, W) reconstruction.
 
+        Spans: ``coder.decompress`` around the call; under it
+        ``.entropy`` (the headers, the z decodes and the payloads: all the
+        host work before the first device pass), ``.launch`` (the uploads
+        and the passes up to the last drain), ``.check`` (the final-state
+        check, whose host reads wait for the chain) and ``.synthesize``
+        (g_s enqueued)."""
+        with span("coder.decompress"):
+            with span("coder.decompress.entropy"):
+                heads = [self._parse_header(d) for d in blobs]
+                orig_h, orig_w = heads[0][1], heads[0][2]
+                if any((hd[1], hd[2]) != (orig_h, orig_w) for hd in heads):
+                    raise ValueError("decompress_batch needs same-sized bitstreams")
+                h, w = padded_size(orig_h, orig_w, 64)
+                read = self._read_ns if self.is_ns else self._read_charm
+                streams = read(blobs, [hd[0] for hd in heads], h, w)
+            if self.is_ns:
+                rec = self._decompress_ns(*streams, h, w)
+            else:
+                rec = self._decompress_charm(*streams, [hd[3] for hd in heads], h, w)
+            return rec[:, :, :orig_h, :orig_w]
+
+    def _read_charm(self, blobs, offs, h, w):
+        """Host: each stream's rate, z and y payload → (z symbols (B, C,
+        h/64, w/64) int16, rates, the stacked payloads, their ends)."""
+        z_shape = (1, h // 64, w // 64, self.z_coder.medians.shape[0])
         z_syms, payloads, rates = [], [], []
-        for data, (off, _, _, _) in zip(blobs, heads):
+        for data, off in zip(blobs, offs):
             if self.has_gain:
                 rates.append(struct.unpack_from("<f", data, off)[0])
                 off += 4
@@ -527,24 +586,27 @@ class ChannelCoder:
                 )
             payloads.append(pay)
         z_sym = torch.from_numpy(np.concatenate(z_syms, axis=0)).permute(0, 3, 1, 2)
-        z_hat = self._to_device(z_sym) + self.med
-
         pay_np, ends = stack_payloads(payloads, CHARM_LANES)
-        payload = torch.from_numpy(pay_np).to(self.device)
+        return z_sym, rates, pay_np, ends
 
-        p = pass_batch(h, w, self.device)
-        _, _, y_hat, lanes = self._slices_pass(z_hat, p, payload=payload)
-        self._check_final(lanes, ends)
-        # (B, M, 1, 1); M is 0 for a model without a syntax model
-        syn = torch.from_numpy(
-            np.stack([hd[3] for hd in heads]).astype(np.float32)
-        )[:, :, None, None].to(self.device)
-        if self.has_gain:  # each image's header rate
-            rate_t = torch.tensor(rates, dtype=torch.float32, device=self.device)
-            rec = _passes(self.model.synthesize, p, y_hat, syn, rate_t)
-        else:
-            rec = _passes(self.model.synthesize, p, y_hat, syn)
-        return rec[:, :, :orig_h, :orig_w]
+    def _decompress_charm(self, z_sym, rates, pay_np, ends, syntaxes, h, w) -> torch.Tensor:
+        """The device side of a charm decode → (B, 3, h, w), padded size."""
+        with span("coder.decompress.launch"):
+            z_hat = self._to_device(z_sym) + self.med
+            payload = torch.from_numpy(pay_np).to(self.device)
+            p = pass_batch(h, w, self.device)
+            _, _, y_hat, lanes = self._slices_pass(z_hat, p, payload=payload)
+        with span("coder.decompress.check"):
+            self._check_final(lanes, ends)
+        with span("coder.decompress.synthesize"):
+            # (B, M, 1, 1); M is 0 for a model without a syntax model
+            syn = torch.from_numpy(
+                np.stack(syntaxes).astype(np.float32)
+            )[:, :, None, None].to(self.device)
+            if self.has_gain:  # each image's header rate
+                rate_t = torch.tensor(rates, dtype=torch.float32, device=self.device)
+                return _passes(self.model.synthesize, p, y_hat, syn, rate_t)
+            return _passes(self.model.synthesize, p, y_hat, syn)
 
     def _check_final(self, lanes, ends) -> None:
         """Every lane ended at ``1 << 16`` and every pointer at its
@@ -661,29 +723,34 @@ class ChannelCoder:
         return (h2, mu_s.reshape(b, -1).cpu().numpy().astype(np.float32),
                 sg_s.reshape(b, -1).cpu().numpy().astype(np.float32))
 
-    def _compress_ns(self, z3, p, h, w) -> List[bytes]:
+    def _compress_ns(self, xs, rates) -> List[bytes]:
         """B same-sized images → B streams (``_compress_ns_batch``): z2
         and the syntax vector on the host, the content through the
-        wavefront loop in encode mode."""
+        wavefront loop in encode mode.  ``coder.compress.launch`` holds
+        the host copies of z2 and the syntax vector, which the passes
+        after them need."""
         cfg = self.model.cfg
-        b = z3.shape[0]
-        z2 = _passes(self.model.ns_hyper_encode, p, z3)
-        z2_int = torch.round(z2).permute(0, 2, 3, 1).cpu().numpy().astype(np.int32)
-        scales_z2 = np.broadcast_to(self.z2_sigma, z2_int.shape[1:])
-        # h2 from the integers the decoder will decode
-        h2, mu_s, sg_s = self._ns_hyper(z2_int, p)
-        syn_int = _passes(self.model.syntax_from_latent, p, z3).reshape(b, -1)
-        syn_int = syn_int.cpu().numpy().astype(np.int32)
-        y_int = torch.round(z3[:, cfg.M :]).to(torch.int32)
-        hy, wy = y_int.shape[2:]
-        res, rows, _, _ = self._wavefronts(h2, p, y_known=y_int)
+        b, _, h, w = xs.shape
+        with span("coder.compress.launch"):
+            z3, p, _ = self._analyze(xs, rates)
+            z2 = _passes(self.model.ns_hyper_encode, p, z3)
+            z2_int = torch.round(z2).permute(0, 2, 3, 1).cpu().numpy().astype(np.int32)
+            scales_z2 = np.broadcast_to(self.z2_sigma, z2_int.shape[1:])
+            # h2 from the integers the decoder will decode
+            h2, mu_s, sg_s = self._ns_hyper(z2_int, p)
+            syn_int = _passes(self.model.syntax_from_latent, p, z3).reshape(b, -1)
+            syn_int = syn_int.cpu().numpy().astype(np.int32)
+            y_int = torch.round(z3[:, cfg.M :]).to(torch.int32)
+            hy, wy = y_int.shape[2:]
+            res, rows, _, _ = self._wavefronts(h2, p, y_known=y_int)
         groups = wavefront_groups(hy, wy)
         c = cfg.N - cfg.M
         n_lanes = ns_lane_count(hy * wy * c)
         # the valid (t, p) slots in wavefront order
         vt = np.concatenate([np.full(len(ps), t) for t, (ps, _) in enumerate(groups)])
         vp = np.concatenate([np.arange(len(ps)) for ps, _ in groups])
-        res_np, rows_np = res.cpu().numpy()[vt, :, vp], rows.cpu().numpy()[vt, :, vp]
+        with span("coder.compress.fetch"):
+            res_np, rows_np = res.cpu().numpy()[vt, :, vp], rows.cpu().numpy()[vt, :, vp]
         counts = [len(ps) * c for ps, _ in groups]
 
         def encode(i):
@@ -694,11 +761,13 @@ class ChannelCoder:
                                             n_lanes)
             return self._pack(h, w, np.zeros((0,), np.int16), z_blob, [s_blob, y_blob])
 
-        return self._pool_map(encode, b)
+        with span("coder.compress.entropy") as entropy:
+            return self._pool_map(encode, b, entropy)
 
-    def _decompress_ns(self, blobs, offs, h, w) -> torch.Tensor:
-        """B same-sized neural-syntax streams → (B, 3, h, w), padded size
-        (``_decompress_ns_batch``), with the final-state check."""
+    def _read_ns(self, blobs, offs, h, w):
+        """Host: each neural-syntax stream's z2, syntax blob and content
+        payload → (z2 (B, h/64, w/64, N) int32, the syntax blobs, the
+        stacked payloads, their ends, the lane count)."""
         cfg = self.model.cfg
         b = len(blobs)
         z_shape = (h // 64, w // 64, cfg.N)
@@ -714,17 +783,31 @@ class ChannelCoder:
             payloads.append(pay)
         if len(lane_counts) > 1:
             raise ValueError("mixed rans16i lane counts in one decode batch")
-        p = pass_batch(h, w, self.device)
-        h2, mu_s, sg_s = self._ns_hyper(z2_int, p)
-        syn_int = np.stack([self.mu_coder.decode_ints(s_blobs[i], mu_s[i], sg_s[i])
-                            for i in range(b)])
-        hy, wy = h2.shape[2:]
-        want = ns_lane_count(hy * wy * (cfg.N - cfg.M))
-        if n_lanes != want:
-            raise ValueError(f"rans16i lane count mismatch: stream {n_lanes}, decoder {want}")
         pay_np, ends = stack_payloads(payloads, n_lanes)
-        payload = torch.from_numpy(pay_np).to(self.device)
-        _, _, plane, lanes = self._wavefronts(h2, p, payload=payload, n_lanes=n_lanes)
-        self._check_final(lanes, ends)
-        syn = torch.from_numpy(syn_int.astype(np.float32)).reshape(b, -1, 1, 1).to(self.device)
-        return _passes(self.model.synthesize, p, plane, syn)
+        return z2_int, s_blobs, pay_np, ends, n_lanes
+
+    def _decompress_ns(self, z2_int, s_blobs, pay_np, ends, n_lanes, h, w) -> torch.Tensor:
+        """The rest of a neural-syntax decode (``_decompress_ns_batch``) →
+        (B, 3, h, w), padded size, with the final-state check.
+        ``coder.decompress.launch`` holds the syntax vectors' host decode,
+        which needs the hyper pass's parameters."""
+        cfg = self.model.cfg
+        b = len(s_blobs)
+        with span("coder.decompress.launch"):
+            p = pass_batch(h, w, self.device)
+            h2, mu_s, sg_s = self._ns_hyper(z2_int, p)
+            syn_int = np.stack([self.mu_coder.decode_ints(s_blobs[i], mu_s[i], sg_s[i])
+                                for i in range(b)])
+            hy, wy = h2.shape[2:]
+            want = ns_lane_count(hy * wy * (cfg.N - cfg.M))
+            if n_lanes != want:
+                raise ValueError(
+                    f"rans16i lane count mismatch: stream {n_lanes}, decoder {want}")
+            payload = torch.from_numpy(pay_np).to(self.device)
+            _, _, plane, lanes = self._wavefronts(h2, p, payload=payload, n_lanes=n_lanes)
+        with span("coder.decompress.check"):
+            self._check_final(lanes, ends)
+        with span("coder.decompress.synthesize"):
+            syn = torch.from_numpy(syn_int.astype(np.float32)).reshape(b, -1, 1, 1).to(
+                self.device)
+            return _passes(self.model.synthesize, p, plane, syn)

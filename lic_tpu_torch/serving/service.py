@@ -35,6 +35,12 @@ Guarantees:
 
 torch's grad mode belongs to each thread, so the scheduler thread runs
 its passes under ``torch.no_grad()`` itself.
+
+Each batch runs inside the span ``service.dispatch``
+(``utils.profiling``), so the coder's spans nest under it.
+``ServiceStats`` keeps each request's latency from ``submit`` to its
+answer and its wait in the queue from ``submit`` to its batch's dispatch,
+the last 4,096 of each.
 """
 
 from __future__ import annotations
@@ -44,10 +50,12 @@ import time
 from collections import defaultdict, deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 
 @dataclass
@@ -56,14 +64,17 @@ class ServiceStats:
     batches: int = 0
     errors: int = 0
     latencies_ms: Deque[float] = field(default_factory=lambda: deque(maxlen=4096))
+    # each request's wait from ``submit`` to its batch's dispatch
+    queue_waits_ms: Deque[float] = field(default_factory=lambda: deque(maxlen=4096))
     # the scheduler appends while a monitoring thread may snapshot
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
-    def record(self, n: int, latencies: List[float]) -> None:
+    def record(self, n: int, latencies: List[float], waits: Sequence[float]) -> None:
         with self._lock:
             self.requests += n
             self.batches += 1
             self.latencies_ms.extend(latencies)
+            self.queue_waits_ms.extend(waits)
 
     def record_error(self, n: int) -> None:
         with self._lock:
@@ -71,16 +82,17 @@ class ServiceStats:
 
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
-            lat = sorted(self.latencies_ms)
+            lat, waits = sorted(self.latencies_ms), sorted(self.queue_waits_ms)
             requests, batches, errors = self.requests, self.batches, self.errors
-        pct = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))] if lat else 0.0
+        pct = lambda v, q: v[min(len(v) - 1, int(q * len(v)))] if v else 0.0
         return {
             "requests": requests,
             "batches": batches,
             "errors": errors,
             "mean_batch": requests / batches if batches else 0.0,
-            "p50_ms": pct(0.50),
-            "p95_ms": pct(0.95),
+            "p50_ms": pct(lat, 0.50),
+            "p95_ms": pct(lat, 0.95),
+            "queue_wait_p95_ms": pct(waits, 0.95),
         }
 
 
@@ -250,19 +262,21 @@ class CodecService:
         n = len(batch)
         if not n:
             return
+        t_dispatch = time.perf_counter()
         try:
-            if batch[0].kind == "c":
-                xs = self._images(np.stack([r.payload[0] for r in batch]))
-                rates = [r.payload[1] for r in batch]
-                if any(rr is not None for rr in rates):
-                    # None is the coder's default operating point
-                    rates = [self.coder.rate if rr is None else rr for rr in rates]
-                    results = self.coder.compress_batch(xs, rates=rates)
+            with span("service.dispatch"):  # the coder's spans nest under it
+                if batch[0].kind == "c":
+                    xs = self._images(np.stack([r.payload[0] for r in batch]))
+                    rates = [r.payload[1] for r in batch]
+                    if any(rr is not None for rr in rates):
+                        # None is the coder's default operating point
+                        rates = [self.coder.rate if rr is None else rr for rr in rates]
+                        results = self.coder.compress_batch(xs, rates=rates)
+                    else:
+                        results = self.coder.compress_batch(xs)
                 else:
-                    results = self.coder.compress_batch(xs)
-            else:
-                rec = self.coder.decompress_batch([r.payload for r in batch])
-                results = list(rec.permute(0, 2, 3, 1).float().cpu().numpy())
+                    rec = self.coder.decompress_batch([r.payload for r in batch])
+                    results = list(rec.permute(0, 2, 3, 1).float().cpu().numpy())
         except Exception as e:  # the scheduler keeps serving; the callers get it
             self.stats.record_error(n)
             for r in batch:
@@ -271,4 +285,5 @@ class CodecService:
         for r, value in zip(batch, results):
             r.future.set_result(value)
         t1 = time.perf_counter()
-        self.stats.record(n, [(t1 - r.t0) * 1000.0 for r in batch])
+        self.stats.record(n, [(t1 - r.t0) * 1000.0 for r in batch],
+                          [(t_dispatch - r.t0) * 1000.0 for r in batch])

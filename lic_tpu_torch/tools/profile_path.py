@@ -40,8 +40,12 @@ prints:
   in which a kernel, copy or memset ran on the card, over the host wall
   time of the profiled region (and over the span from the first device
   activity to the last);
-* ``PHASES``: host-clock seconds of the roundtrip's phases, unprofiled,
-  and the forward's and the roundtrip's megapixels per second.
+* ``PHASES``: the coder's own spans (``utils.profiling.span_stats``) over
+  the second of two unprofiled roundtrips, each phase's total and self
+  milliseconds on the host clock (``coder.init`` and its children from
+  the coder's construction), the rANS pool's on-CPU share, its size and
+  the CPUs the process may run on beside ``os.cpu_count()``, and the
+  roundtrip's megapixels per second.
 
 A preset no coder takes (the ``unet`` and ``latent_unet`` hypers) has no
 roundtrip: only its forward is timed and profiled.
@@ -440,7 +444,8 @@ def main() -> None:
 
     from ..data import smooth_images
     from ..models import build_model
-    from ..models.compress import ChannelCoder, pass_batch, set_numerics_flags
+    from ..models.compress import ChannelCoder, set_numerics_flags
+    from ..utils.profiling import reset_spans, samples, span_stats
 
     os.makedirs(args.out, exist_ok=True)
     print(args.preset, subprocess.run(
@@ -464,6 +469,7 @@ def main() -> None:
         return
     decodable = model.is_ns or model.cfg.hyper in DECODABLE_HYPERS
     coder = ChannelCoder(model, name=args.preset) if decodable else None
+    init = {k: v for k, v in span_stats().items() if k.startswith("coder.init")}
 
     with torch.no_grad():
         for _ in range(2):
@@ -513,47 +519,24 @@ def main() -> None:
     _profiled("roundtrip", lambda: coder.decompress_batch(coder.compress_batch(x)),
               1, args.out, top=15)
 
-    phases, p = {}, pass_batch(*x.shape[2:], x.device)
-    for _ in range(2):  # the second pass is reported
-        with torch.no_grad():
-            t = time.perf_counter()
-            z3 = model.analyze(x)
-            _sync()
-            phases["encode g_a"] = time.perf_counter() - t
-            t = time.perf_counter()
-            if model.is_ns:
-                z2 = torch.round(model.ns_hyper_encode(z3))
-                h2, _, _ = coder._ns_hyper(z2.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32), p)
-                model.syntax_from_latent(z3)
-                _sync()
-                phases["encode hyper+syntax"] = time.perf_counter() - t
-                t = time.perf_counter()
-                coder._wavefronts(h2, p, y_known=torch.round(z3[:, model.cfg.M :]).int())
-                _sync()
-                phases["encode wavefronts"] = time.perf_counter() - t
-            else:
-                _, z_hat = coder._z_enc(z3, p)
-                model.syntax_from_latent(z3)
-                _sync()
-                phases["encode hyper+syntax"] = time.perf_counter() - t
-                t = time.perf_counter()
-                coder._slices_pass(z_hat, p, y=z3)
-                _sync()
-                phases["encode checkerboard" if model.is_entro else "encode slice chain"] = (
-                    time.perf_counter() - t)
+    for _ in range(2):  # the second roundtrip is reported
+        reset_spans()
         t = time.perf_counter()
         blobs = coder.compress_batch(x)
-        _sync()
-        phases["compress_batch"] = time.perf_counter() - t
-        t = time.perf_counter()
         coder.decompress_batch(blobs)
         _sync()
-        phases["decompress_batch"] = time.perf_counter() - t
-    mp = x.shape[0] * x.shape[2] * x.shape[3] / 1e6
-    phases["roundtrip_mps"] = mp / (phases["compress_batch"] + phases["decompress_batch"])
+        seconds = time.perf_counter() - t
+    stats = dict(span_stats(), **init)
+    for name in sorted(n for n in stats if n.startswith("coder.")):
+        s = stats[name]
+        print(f"PHASES {name:28s} x{s['count']:<2d} total {1e3 * s['total_s']:9.3f} ms"
+              f"  self {1e3 * s['self_s']:9.3f} ms")
+    print("PHASES on_cpu {:.3f}, coder.pool.workers {:g}, host.cpus {:g} of os.cpu_count() {}, "
+          "roundtrip {:.2f} MP/s".format(
+              samples("coder.compress.entropy.on_cpu")[-1], samples("coder.pool.workers")[-1],
+              samples("host.cpus")[-1], os.cpu_count(), mp / seconds))
     if model.is_ns:
         _wavefront_split(coder, x, blobs)
-    print("PHASES (s)", json.dumps(phases))
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 

@@ -19,7 +19,9 @@ the JAX package's init, 64×64 and 128×64 images.
 * the scheduler thread builds no autograd graph, though the caller's
   thread has grad mode on;
 * a failed batch gives its exception to every one of its futures and
-  counts its requests in ``errors``, and the service goes on serving.
+  counts its requests in ``errors``, and the service goes on serving;
+* each request's queue wait is kept, and the coder's call nests under
+  the batch's ``service.dispatch`` span.
 """
 
 import threading
@@ -37,6 +39,7 @@ from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.serving import CodecService, ServiceStats
 from lic_tpu_torch.utils.params import params_from_flax
+from lic_tpu_torch.utils.profiling import records, reset_spans
 
 torch.set_num_threads(2)
 
@@ -216,9 +219,31 @@ def test_failed_batch_fails_every_future_and_counts(plain, monkeypatch):
 
 def test_stats_snapshot_percentiles():
     st = ServiceStats()
-    st.record(4, [10.0, 20.0, 30.0, 40.0])
-    st.record(2, [50.0, 60.0])
+    st.record(4, [10.0, 20.0, 30.0, 40.0], [1.0, 2.0, 3.0, 4.0])
+    st.record(2, [50.0, 60.0], [5.0, 6.0])
     st.record_error(1)
     s = st.snapshot()
     assert s == {"requests": 6, "batches": 2, "errors": 1, "mean_batch": 3.0,
-                 "p50_ms": 40.0, "p95_ms": 60.0}
+                 "p50_ms": 40.0, "p95_ms": 60.0, "queue_wait_p95_ms": 6.0}
+
+
+def test_queue_waits_and_the_dispatch_span(plain):
+    """Each request's wait from ``submit`` to dispatch is kept beside its
+    latency, and the coder's call nests under the batch's
+    ``service.dispatch`` span."""
+    reset_spans()
+    svc = CodecService(plain[2], max_batch=2, max_wait_ms=50).start()
+    try:
+        futs = [svc.submit_compress(im) for im in _imgs(2, 64, 64, seed=8)]
+        for f in futs:
+            f.result(timeout=TIMEOUT)
+    finally:
+        svc.stop()
+    s = svc.stats.snapshot()
+    assert len(svc.stats.queue_waits_ms) == 2
+    assert 0.0 < s["queue_wait_p95_ms"] < s["p95_ms"]
+    recs = records()
+    (dispatch,) = [r for r in recs if r.name == "service.dispatch"]
+    (root,) = [r for r in recs if r.name == "coder.compress"]
+    assert root.parent == dispatch.id and root.call == dispatch.call
+    assert dispatch.start_ns <= root.start_ns <= root.end_ns <= dispatch.end_ns
