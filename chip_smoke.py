@@ -56,7 +56,11 @@ Each phase prints one line:
    register and spill lines; B1 on escape-heavy stress streams (about 1
    symbol in 17 escapes), with each set's escape share and its bound (the
    bytes of ``_drain_bytes``: rows, values, the payload words consumed,
-   lane states and the table entries the symbols need);
+   lane states and the table entries the symbols need); [up5] the Up5
+   deconv (g_s's ``_Up5``) against its plain version in float64 at g_s's
+   four deconvs and neural syntax's first, with cuDNN's deconv as the
+   yardstick, its bound (3xTF32 operations or bytes) and share, and each
+   tile width's occupancy;
 4. per path: the zero-init weights (each attention's output projection,
    each residual branch's last conv, WMSA's output and the Swin MLP's
    second layer) get small seeded values, so that every check below sees
@@ -355,74 +359,77 @@ B1_WAVEFRONT = 24 * 176
 # attentions take the plain route (3 in h_a, 2 in h_s)
 EXPECTED = {
     "source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14,
-                   "wba": 0, "wba_proj": 0},
+                   "wba": 0, "wba_proj": 0, "up5": 8},
     "source_net_wam": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 126,
-                       "wba": 32, "wba_proj": 0},
+                       "wba": 32, "wba_proj": 0, "up5": 8},
     "source_net_wam+fuse_proj": {"gdn": 7, "drain": 0, "conv5s2": 3, "convk_s1": 61,
-                                 "wba": 0, "wba_proj": 16},
+                                 "wba": 0, "wba_proj": 16, "up5": 4},
     "net_ga": {"gdn": 18, "drain": 4, "conv5s2": 4, "convk_s1": 130,
-               "wba": 40, "wba_proj": 0},
+               "wba": 40, "wba_proj": 0, "up5": 8},
     "net_ga+fuse_proj": {"gdn": 9, "drain": 0, "conv5s2": 2, "convk_s1": 63,
-                         "wba": 4, "wba_proj": 16},
+                         "wba": 4, "wba_proj": 16, "up5": 4},
     "net_unet_ha_hs_dec": {"gdn": 18, "drain": 4, "conv5s2": 4, "convk_s1": 122,
-                           "wba": 40, "wba_proj": 0, "wba_plain_route": 12},
+                           "wba": 40, "wba_proj": 0, "wba_plain_route": 12, "up5": 8},
     "net_unet_ha_hs_dec+fuse_proj": {"gdn": 9, "drain": 0, "conv5s2": 2, "convk_s1": 60,
-                                     "wba": 4, "wba_proj": 16, "wba_plain_route": 5},
+                                     "wba": 4, "wba_proj": 16, "wba_plain_route": 5,
+                                     "up5": 4},
     # [entro]: B1 drains the anchors, then the non-anchors (L 128, the
     # 64-row table in shared memory); B6 takes the ELIC hyper's h_a.c0 and
     # both h_s.c0
-    **{p: {"gdn": 14, "drain": 2, "conv5s2": 6, "convk_s1": 8} for p in ENTRO_PATHS},
+    **{p: {"gdn": 14, "drain": 2, "conv5s2": 6, "convk_s1": 8, "up5": 8} for p in ENTRO_PATHS},
     # [ns]: one B1 drain per wavefront, T = 2·31 + 48 = 110 at 512×768 (L
     # 256, the 1,024-row table in device memory); B6 takes ha_model.c0,
     # hs_model.c2 and the context head's c2 (2×2 maps): once in the
     # forward, once per wavefront in the encode and in the decode
     "neural_syntax": {"gdn": 14, "drain_global": 110, "conv5s2": 6,
-                      "convk_s1": 3 + 2 * 110 + 3},
+                      "convk_s1": 3 + 2 * 110 + 3, "up5": 8},
     # [vr]: source_net_vr's forward + roundtrip at 8 rates: source_net's
     # kernels, as many times (the gains are plain elementwise products)
-    "source_net_vr": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14},
-    "train:source_net_vr": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
+    "source_net_vr": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14, "up5": 8},
+    "train:source_net_vr": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "up5": 4},
     # one eval forward each
     "source_net+bf16": {"gdn": 7, "drain": 0, "conv5s2": 3, "convk_s1": 5,
-                        "wba": 0, "wba_proj": 0},
+                        "wba": 0, "wba_proj": 0, "up5": 4},
     "source_net+is_high": {"gdn": 1, "gdn_plain_route": 6, "drain": 0, "conv5s2": 3,
-                           "convk_s1": 0, "wba": 0, "wba_proj": 0},
+                           "convk_s1": 0, "wba": 0, "wba_proj": 0, "up5": 4},
     # [c3]: one eval forward each of source_net_wam at is_high (N = 384, 8
     # heads: head width 48 in all 16 attentions, B4 or B5)
-    "source_net_wam+is_high": {"gdn": 1, "gdn_plain_route": 6, "conv5s2": 3, "wba": 16},
+    "source_net_wam+is_high": {"gdn": 1, "gdn_plain_route": 6, "conv5s2": 3, "wba": 16,
+                               "up5": 4},
     "source_net_wam+is_high+fuse_proj": {"gdn": 1, "gdn_plain_route": 6, "conv5s2": 3,
-                                         "wba_proj": 16},
+                                         "wba_proj": 16, "up5": 4},
     # [train], [train_wam]: the forward of one training step, B = 8 at
     # 256×256; each launch also has its backward through the kernel's
     # autograd.Function (counted in ``backwards``, held equal to these)
-    "train:source_net": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
-    "train:source_net_wam": {"gdn": 7, "conv5s2": 3, "convk_s1": 61, "wba": 16},
+    "train:source_net": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "up5": 4},
+    "train:source_net_wam": {"gdn": 7, "conv5s2": 3, "convk_s1": 61, "wba": 16, "up5": 4},
     "train:source_net_wam+fuse_proj": {"gdn": 7, "conv5s2": 3, "convk_s1": 61,
-                                       "wba_proj": 16},
-    "train:entroformer_cb": {"gdn": 7, "conv5s2": 3, "convk_s1": 3},
-    "train:neural_syntax": {"gdn": 7, "conv5s2": 3, "convk_s1": 3},
+                                       "wba_proj": 16, "up5": 4},
+    "train:entroformer_cb": {"gdn": 7, "conv5s2": 3, "convk_s1": 3, "up5": 4},
+    "train:neural_syntax": {"gdn": 7, "conv5s2": 3, "convk_s1": 3, "up5": 4},
     # [eval]: one B = 1 eval forward per image, the same at every size;
     # [tune]: TUNE_ITERS training steps at B = 1, each launch with its backward
-    **{f"eval:source_net@{h}x{w}": {"gdn": 7, "conv5s2": 3, "convk_s1": 5}
+    **{f"eval:source_net@{h}x{w}": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "up5": 4}
        for h, w in EVAL_SIZES},
     **{f"eval:net_unet_ha_hs_dec@{h}x{w}": {"gdn": 9, "conv5s2": 2, "convk_s1": 60,
-                                           "wba": 20, "wba_plain_route": 5}
+                                           "wba": 20, "wba_plain_route": 5, "up5": 4}
        for h, w in EVAL_SIZES},
     # [prog]: compress (g_a; h_a.c0, both h_s.c2 and slice 0's two c0 in B6)
     # then the full decompress (both h_s.c2, slice 0's c0s, g_s), one pass
     # of 8 each; the planes are coded on the host
-    **{f"prog:{dm}@{h}x{w}": {"gdn": 7, "conv5s2": 3, "convk_s1": 9}
+    **{f"prog:{dm}@{h}x{w}": {"gdn": 7, "conv5s2": 3, "convk_s1": 9, "up5": 4}
        for dm in PROG_DIGITS for h, w in PROG_SIZES},
     # [han]: the tail's 64-channel convs take no kernel slot (C_in 3, 64,
     # 128, 320), so source_net's launches; its phase-2 training step runs
     # the base's kernels forward only
-    "han:source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14},
-    "eval:han@512x768": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
-    "train:han_phase2": {"gdn": 7, "conv5s2": 3, "convk_s1": 5},
+    "han:source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14, "up5": 8},
+    "eval:han@512x768": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "up5": 4},
+    "train:han_phase2": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "up5": 4},
     "tune:source_net": {"gdn": 7 * TUNE_ITERS, "conv5s2": 3 * TUNE_ITERS,
-                        "convk_s1": 5 * TUNE_ITERS},
+                        "convk_s1": 5 * TUNE_ITERS, "up5": 4 * TUNE_ITERS},
     "tune:source_net_wam": {"gdn": 7 * TUNE_ITERS, "conv5s2": 3 * TUNE_ITERS,
-                            "convk_s1": 61 * TUNE_ITERS, "wba": 16 * TUNE_ITERS},
+                            "convk_s1": 61 * TUNE_ITERS, "wba": 16 * TUNE_ITERS,
+                            "up5": 4 * TUNE_ITERS},
     # [unet]: one B = 8 eval forward each.  The rich transforms, SWAtten and
     # the WAM syntax model launch what net_unet_ha_hs_dec's forward does;
     # the U-Net hyper's convs take no slot (C_in 96, 128, 256, 512 or
@@ -431,41 +438,43 @@ EXPECTED = {
     # plain attention).  net_unet_ha_hs_1 runs no syntax model (nothing
     # reads it: g_s gives RGB), so 16 B4 calls; net_ha has the plain
     # transforms: source_net's g_a / g_s, and slice 0's two c0s in B6
-    "unet:net_ha": {"gdn": 7, "conv5s2": 3, "convk_s1": 2, "wba": 4, "wba_plain_route": 5},
+    "unet:net_ha": {"gdn": 7, "conv5s2": 3, "convk_s1": 2, "wba": 4, "wba_plain_route": 5,
+                    "up5": 4},
     "unet:net_unet_ha_hs": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20,
-                            "wba_plain_route": 5},
+                            "wba_plain_route": 5, "up5": 4},
     "unet:net_unet_ha_hs_1": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 16,
-                              "wba_plain_route": 7},
-    **{f"unet:{p}": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20}
+                              "wba_plain_route": 7, "up5": 4},
+    **{f"unet:{p}": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20, "up5": 4}
        for p in ("net_unet", "net_unet_1", "net_unet_005_5")},
     # [unet_train]: the forward of one step at B = 8, 256×256 (each kernel
     # launch with its backward); [unet_eval]: one B = 1 forward, and the
     # tune's steps
     "train:net_unet_ha_hs": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20,
-                             "wba_plain_route": 5},
-    "train:net_unet": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20},
+                             "wba_plain_route": 5, "up5": 4},
+    "train:net_unet": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20, "up5": 4},
     "train:net_unet_ha_hs_1": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 16,
-                               "wba_plain_route": 7},
+                               "wba_plain_route": 7, "up5": 4},
     "eval:net_unet_ha_hs@512x768": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20,
-                                    "wba_plain_route": 5},
-    "eval:net_unet@512x768": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20},
+                                    "wba_plain_route": 5, "up5": 4},
+    "eval:net_unet@512x768": {"gdn": 9, "conv5s2": 2, "convk_s1": 60, "wba": 20, "up5": 4},
     "tune:net_unet": {"gdn": 9 * UNET_TUNE_ITERS, "conv5s2": 2 * UNET_TUNE_ITERS,
-                      "convk_s1": 60 * UNET_TUNE_ITERS, "wba": 20 * UNET_TUNE_ITERS},
+                      "convk_s1": 60 * UNET_TUNE_ITERS, "wba": 20 * UNET_TUNE_ITERS,
+                      "up5": 4 * UNET_TUNE_ITERS},
     # [rbs]: net_ga's kernels, and per g_s (the forward's and the decode's)
     # three more B2 (the ResidualBlockUpsamples' IGDNs) and three more B6
     # (their 3x3 at C 192); [nolrp]: source_net's (its LRP stacks take no
     # slot: C_in 240-384, 224, 128)
-    "rbs:net_ga": {"gdn": 24, "drain": 4, "conv5s2": 4, "convk_s1": 136, "wba": 40},
+    "rbs:net_ga": {"gdn": 24, "drain": 4, "conv5s2": 4, "convk_s1": 136, "wba": 40, "up5": 2},
     "rbs:net_ga+fuse_proj": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 4,
-                             "wba_proj": 16},
-    "nolrp:source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14},
-    "train:rbs": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 20},
+                             "wba_proj": 16, "up5": 1},
+    "nolrp:source_net": {"gdn": 14, "drain": 4, "conv5s2": 6, "convk_s1": 14, "up5": 8},
+    "train:rbs": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 20, "up5": 1},
     # [dormant]: no module of layers/{misc,vit,haar}.py reaches a kernel
     # slot; the ERF's 3x3 at C 192 runs B6 (with its backward)
     "dormant": {"convk_s1": 1},
     # [resume]: the forwards of source_net's three training steps, straight
     # and resumed
-    "resume": {"gdn": 7 * 6, "conv5s2": 3 * 6, "convk_s1": 5 * 6},
+    "resume": {"gdn": 7 * 6, "conv5s2": 3 * 6, "convk_s1": 5 * 6, "up5": 4 * 6},
 }
 TRAIN_BATCH, TRAIN_CROP, TRAIN_STEPS = 8, 256, 6
 # a gradient through a kernel's autograd.Function against autograd of the
@@ -699,6 +708,7 @@ def main() -> int:
         "drain_global": drain_mod.table_routes["global"],
         "conv5s2": conv_direct.conv5s2, "convk_s1": conv_direct.convk_s1,
         "wba": window_attn.window_attention, "wba_proj": window_attn.window_attention_proj,
+        "up5": conv_direct.up5,
     }
     # the plain routes on the card, counted as the kernels are
     routes = {"gdn_plain_route": gdn_mod.gdn_plain_route,
@@ -720,7 +730,7 @@ def main() -> int:
 
     # B2 runs 3xTF32 on the tensor cores for C > 16, fp32 on the CUDA cores
     # below; B3/B6 run 3xTF32
-    tally = {k: Tally(PEAK_TF32X3 if k in ("conv5s2", "convk_s1") else PEAK_FP32)
+    tally = {k: Tally(PEAK_TF32X3 if k in ("conv5s2", "convk_s1", "up5") else PEAK_FP32)
              for k in counters}
     g = torch.Generator().manual_seed(SEED)
 
@@ -806,6 +816,11 @@ def main() -> int:
     for line in window_attn.library.ptxas():
         if "wba" in line:
             _say("b4_b5_ptxas", kernel=repr(line))
+    torch.cuda.empty_cache()
+
+    # ---- 3d. Up5 vs plain (float64) at g_s's deconvs and neural syntax's
+    # first; library: cuDNN's deconv on the padded input
+    _up5_rows(dev, conv_direct, g, tally)
     torch.cuda.empty_cache()
 
     # ---- 4. the paths, with [c5], [eval], [tune] and [cli]; [entro], [ns]
@@ -1033,6 +1048,9 @@ def main() -> int:
                      "lic_tpu/layers/pallas_attn.py:150"),
         "convk_s1": ("convk_s1", "cuda", "lic_tpu_torch/csrc/conv_direct.cu",
                      "lic_tpu/layers/pallas_conv_s1.py:66"),
+        "up5": ("up5", "cuda", "lic_tpu_torch/csrc/conv_direct.cu",
+                "none: the JAX package leaves g_s's deconv to XLA "
+                "(lic_tpu/layers/conv.py:545-570)"),
     }
     rows = []
     for key, (name, route, source, replaces) in meta.items():
@@ -1051,6 +1069,51 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def _up5_rows(dev, conv_direct, g, tally):
+    """[up5] the Up5 deconv against its plain version in float64 at g_s's
+    four deconvs (B = 8, 512×768; the last to the generated conv's M = 16
+    channels, and to RGB where g_s gives it) and neural syntax's first
+    (C_in 176), as
+    in 3: the kernel's, the plain version's and cuDNN's ``F.pad`` +
+    ``F.conv_transpose2d`` times, the bound (the operations of the 25 taps
+    at the 3xTF32 rate, or the input, weight and output bytes at the HBM
+    rate) and the share of it; then each tile width's shared memory and
+    CTAs per SM."""
+    import torch
+    import torch.nn.functional as F
+
+    shapes = [("g_s.up0", 192, 192, H // 16, W // 16), ("g_s.up1", 192, 192, H // 8, W // 8),
+              ("g_s.up2", 192, 192, H // 4, W // 4), ("g_s.up3", 192, 16, H // 2, W // 2),
+              ("g_s.up3 (RGB)", 192, 3, H // 2, W // 2),
+              ("neural_syntax g_s.up0", 176, 192, H // 16, W // 16)]
+    for stage, cin, cout, h, w in shapes:
+        x = torch.randn(BATCH, cin, h, w, generator=g).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        wt = (torch.randn(cin, cout, 5, 5, generator=g) * (cin * 25 / 4) ** -0.5).to(dev)
+        b = torch.randn(cout, generator=g).to(dev)
+        xp = F.pad(x, (1, 0, 1, 0))
+        err, ms, pms, lms, err32 = _vs_plain(
+            stage, conv_direct.up5, conv_direct.up5_plain, (x, wt, b),
+            library=lambda: F.conv_transpose2d(xp, wt, b, 2, 3, 1))
+        with torch.no_grad():
+            alone = conv_direct.up5(x[1:2], wt, b)
+            if not torch.equal(alone, conv_direct.up5(x, wt, b)[1:2]):
+                raise AssertionError(f"{stage}: Up5 output depends on the batch")
+        nbytes = _nbytes(x, wt, b) + BATCH * cout * 4 * h * w * 4
+        flops = 2 * BATCH * h * w * cin * cout * 25
+        tally["up5"].add(err, ms, pms, lms, nbytes, flops)
+        _say("up5", stage=stage, shape=(BATCH, cin, h, w), c_out=cout,
+             tile_width=conv_direct.up5_tile_width(cout), max_abs_err=f"{err:.3g}",
+             vs_fp32_plain=f"{err32:.3g}", ms=f"{ms:.4f}", tflops=f"{flops / ms / 1e9:.1f}",
+             plain_ms=f"{pms:.3f}", library_ms=f"{lms:.3f}",
+             **_roofline(ms, lms, nbytes, flops, PEAK_TF32X3), peak="3xTF32 165 TFLOP/s",
+             weight_prepack_ms=f"{_cuda_ms(lambda: conv_direct.pack_up5_weight(wt), 5):.4f}")
+        del x, xp, alone
+    for width in (96, 16, 8):
+        _say("up5_occupancy", tile_width=width,
+             **dict(zip(("smem_per_cta", "ctas_per_sm"), conv_direct.occupancy(width))))
 
 
 def _b1_lanes_and_routes(dev, coding, drain_mod, tally):
@@ -1332,7 +1395,7 @@ def _drive_train(dev, counters, shapes):
     from lic_tpu_torch.training import create_state, make_optimizer, make_train_step
 
     batch = _train_batch(dev)
-    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj", "up5")
     runs = {}
     for preset, routes in (("source_net", [False] * TRAIN_STEPS),
                            ("source_net_wam", [False, True]),
@@ -2307,7 +2370,7 @@ def _tune_phase(preset, model, coder, x1, dev, counters, shapes):
         for k, fn in real.items():
             setattr(conv_mod, k, fn)
     launches = _read(counters)
-    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj", "up5")
     back = {k: counters[k].backwards for k in kernels}
     if back != {k: launches[k] for k in kernels}:
         raise AssertionError(f"{run}: backwards {back} != launches {launches}")
@@ -2640,7 +2703,7 @@ def _drive_vr(dev, counters, conv_calls, gdn_calls, shapes):
     batch = _train_batch(dev)[:4]
     run = f"train:{preset}"
     hooks = _record_conv_slots(model, shapes["conv"], run) + _record_train_shapes(model, shapes)
-    kernels = ("gdn", "conv5s2", "convk_s1")
+    kernels = ("gdn", "conv5s2", "convk_s1", "up5")
     _zero(counters)
     metrics = step_fn(state, batch)
     runs[run] = _read(counters)
@@ -2719,10 +2782,10 @@ def _serve(model, dev, counters):
     # each batch runs ceil(n / pass_batch) model passes; per pass, compress
     # runs g_a (3 B2, 3 B3), h_a.c0, both h_s.c2 and slice 0's two c0 (5
     # B6); decompress runs both h_s.c2 and slice 0's c0s (4 B6), 4 drains
-    # and g_s (4 B2)
+    # and g_s (4 B2, 4 Up5)
     want = {k: 0 for k in counters}
     per_pass = {"c": {"gdn": 3, "conv5s2": 3, "convk_s1": 5},
-                "d": {"gdn": 4, "convk_s1": 4, "drain": 4}}
+                "d": {"gdn": 4, "convk_s1": 4, "drain": 4, "up5": 4}}
     for kind, h, w, n in formed:
         hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
         passes = -(-n // pass_batch(hp, wp, dev))
@@ -3288,7 +3351,7 @@ def _drive_unet(dev, counters, conv_calls, attn_calls, gdn_calls, shapes):
         torch.cuda.empty_cache()
 
     batch = _train_batch(dev)
-    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj", "up5")
     for preset in UNET_TRAIN:
         t_phase = time.perf_counter()
         run = f"train:{preset}"
@@ -3403,7 +3466,7 @@ def _drive_rbs_nolrp(dev, counters, conv_calls, attn_calls, gdn_calls, shapes):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for h in hooks:
         h.remove()
-    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj")
+    kernels = ("gdn", "conv5s2", "convk_s1", "wba", "wba_proj", "up5")
     back = {k: counters[k].backwards for k in kernels}
     if back != {k: runs[run][k] for k in kernels}:
         raise AssertionError(f"{run}: backwards {back} != launches {runs[run]}")

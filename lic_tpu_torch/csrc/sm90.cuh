@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (conv_direct.cu: B3/B6, gdn.cu: B2): mbarriers, TMA loads, the TF32 split,
-// the 128-byte-swizzle wgmma descriptor, wgmma m64n96k8 .tf32 with A from
-// registers, and the tensor-map encoder (cuTensorMapEncodeTiled, looked up
+// (conv_direct.cu: B3/B6 and the Up5 deconv, gdn.cu: B2): mbarriers, TMA
+// loads, the TF32 split, the 128-byte-swizzle wgmma descriptor, wgmma
+// m64n96k8, m64n16k8 and m64n8k8 .tf32 with A from registers, and the
+// tensor-map encoder (cuTensorMapEncodeTiled, looked up
 // at run time through the CUDA runtime, so a library builds with one nvcc
 // line and no -lcuda).  Everything sits in an anonymous namespace: each
 // source that includes it gets its own copy.
@@ -94,9 +95,10 @@ __device__ __forceinline__ void wgmma_wait0() {
 }
 
 // keeps the compiler from moving accumulator accesses across wgmma fences
-__device__ __forceinline__ void fence_acc(float (&d)[48]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 96, fp32) = a (64 x 8, tf32 registers) * b (8 x 96, tf32 shared) + (scale_d ? d : 0)
@@ -118,6 +120,31 @@ __device__ __forceinline__ void wgmma_n96(float (&d)[48], const uint32_t (&a)[4]
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 8, fp32) = a (64 x 8, tf32 registers) * b (8 x 8, tf32 shared) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 16, fp32) = a (64 x 8, tf32 registers) * b (8 x 16, tf32 shared) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

@@ -22,7 +22,7 @@ from .conv import (
     gelu,
     variance_scaling_,
 )
-from .conv_direct import conv5s2, conv5s2_plain, convk_s1, convk_s1_plain
+from .conv_direct import conv5s2, conv5s2_plain, convk_s1, convk_s1_plain, up5, up5_plain
 from .gdn import GDN, GDN1, IGDN, gdn_fused, gdn_plain
 from .spatial_transformer import (
     GEGLU,
@@ -58,6 +58,8 @@ __all__ = [
     "conv5s2_plain",
     "convk_s1",
     "convk_s1_plain",
+    "up5",
+    "up5_plain",
     "GDN",
     "GDN1",
     "IGDN",

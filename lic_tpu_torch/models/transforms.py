@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..layers import conv_direct
 from ..layers import (
     GDN,
     IGDN,
@@ -54,13 +55,24 @@ def _down5(cin: int, cout: int, generator) -> Conv2d:
 
 class _Up5(nn.Module):
     """ZeroPad2d((1,0,1,0)) + ConvTranspose2d(5, 2, 3, output_padding=1):
-    exact H → 2H."""
+    exact H → 2H.  Where ``kernel_slot`` says so, both go to
+    ``conv_direct.up5`` (one kernel on the card, the same function's
+    polyphase plain version on the CPU); else to ``F.pad`` and
+    ``F.conv_transpose2d``."""
 
     def __init__(self, cin: int, cout: int, generator=None):
         super().__init__()
         self.deconv = ConvTranspose2d(cin, cout, 5, 2, 3, 1, generator=generator)
 
+    def kernel_slot(self, x: torch.Tensor) -> Optional[str]:
+        """``'up5'`` where a call on ``x`` takes the deconv kernel: a C_in
+        that is a multiple of 4 (the kernel's TMA loads need rows of whole
+        16 bytes), on any device."""
+        return "up5" if x.shape[1] % 4 == 0 else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel_slot(x) == "up5":
+            return conv_direct.up5(x, self.deconv.weight, self.deconv.bias)
         return self.deconv(F.pad(x, (1, 0, 1, 0)))
 
 

@@ -258,7 +258,7 @@ def _counters() -> dict:
 
     return {"gdn": gdn.gdn_fused, "gdn_plain_route": gdn.gdn_plain_route,
             "conv5s2": conv_direct.conv5s2, "convk_s1": conv_direct.convk_s1,
-            "wba": window_attn.window_attention,
+            "up5": conv_direct.up5, "wba": window_attn.window_attention,
             "wba_proj": window_attn.window_attention_proj,
             "wba_plain_route": win_attention.wba_plain_route,
             "drain": drain.table_routes["smem"], "drain_global": drain.table_routes["global"]}

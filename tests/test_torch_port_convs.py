@@ -19,6 +19,15 @@ The kernels run 3xTF32; what of that runs on the CPU is held here: the
 TF32 split (round to nearest even, reconstruction, special values), the
 weight prepack's OHWI layout and its cache, and a float64 emulation of the
 3xTF32 conv against the float64 conv (the error model the kernel rests on).
+
+g_s's ``_Up5`` deconv (``ZeroPad2d(1, 0, 1, 0)`` + ``ConvTranspose2d(5, 2,
+3, output_padding=1)``, no Pallas kernel in the JAX package): its
+polyphase plain version ``up5_plain`` against ``F.pad`` +
+``F.conv_transpose2d`` in float64, the phase tap lists (each of the 25
+taps once) and the kernel's phase-packed weights, the kernel's walk over
+them emulated in float64, the gate (``_Up5`` takes ``up5``, the other
+deconvs keep ``F.conv_transpose2d``), the gradient of ``up5``'s
+autograd.Function, and the phase prepack's cache.
 """
 
 import jax
@@ -33,9 +42,22 @@ from lic_tpu.layers.pallas_conv import conv5s2_pallas, conv5s2_pallas_v2
 from lic_tpu.layers.pallas_conv_s1 import convk_s1_pallas
 import torch.nn.functional as F
 
-from lic_tpu_torch.layers import Conv2d, conv5s2_plain, convk_s1_plain
+from lic_tpu_torch.layers import Conv2d, ConvTranspose2d, conv5s2_plain, convk_s1_plain
 from lic_tpu_torch.layers import conv as tconv
-from lic_tpu_torch.layers.conv_direct import pack_weight, prepacked, tf32_round, tf32_split
+from lic_tpu_torch.layers import conv_direct
+from lic_tpu_torch.layers.conv_direct import (
+    UP5_PHASES,
+    deconv_phase_taps,
+    pack_up5_weight,
+    pack_weight,
+    prepacked,
+    tf32_round,
+    tf32_split,
+    up5,
+    up5_plain,
+)
+from lic_tpu_torch.models.hyper import ClassicHyperSynthesis
+from lic_tpu_torch.models.transforms import SynthesisTransform, _Up5
 
 torch.set_num_threads(2)
 
@@ -274,3 +296,165 @@ def test_3xtf32_conv_emulation_within_1e6_of_float64():
     emu = conv(xh, wl) + conv(xl, wh) + conv(xh, wh)
     assert float((emu - ref).abs().max()) <= 1e-6
     assert float((conv(xh, wh) - ref).abs().max()) > 1e-4
+
+
+# ------------------------------------------------------- g_s's _Up5 deconv
+
+# (C_in, C_out, H, W): g_s's widths (192 → 192, neural syntax's 176 → 192,
+# the last 192 → 3), odd and even maps; a C_in that is no multiple of 4
+UP5_CASES = [(192, 192, 4, 6), (176, 192, 3, 5), (192, 3, 5, 4), (8, 12, 7, 3),
+             (6, 4, 4, 5)]
+
+
+def _up5_case(cin, cout, h, w, dtype=torch.float64, seed=0):
+    g = torch.Generator().manual_seed(seed + cin * 7 + cout + h * w)
+    x = torch.randn(2, cin, h, w, generator=g, dtype=dtype)
+    wt = torch.randn(cin, cout, 5, 5, generator=g, dtype=dtype) * (cin * 25 / 4) ** -0.5
+    b = torch.randn(cout, generator=g, dtype=dtype)
+    return x.contiguous(memory_format=torch.channels_last), wt, b
+
+
+def _padded_deconv(x, wt, b):
+    return F.conv_transpose2d(F.pad(x, (1, 0, 1, 0)), wt, b, 2, 3, 1)
+
+
+@pytest.mark.parametrize("cin,cout,h,w", UP5_CASES)
+def test_up5_plain_equals_padded_conv_transpose2d(cin, cout, h, w):
+    x, wt, b = _up5_case(cin, cout, h, w)
+    y = up5_plain(x, wt, b)
+    assert y.shape == (2, cout, 2 * h, 2 * w)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y, _padded_deconv(x, wt, b), atol=1e-12, rtol=1e-12)
+    torch.testing.assert_close(up5_plain(x, wt), _padded_deconv(x, wt, None), atol=1e-12,
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("cin,cout,h,w", UP5_CASES)
+def test_up5_phase_taps_cover_each_tap_once(cin, cout, h, w):
+    """The phase lists hold each of the 5×5 taps once, with the input
+    offsets the kernel walks (phase r: 2 + r taps from offset −1 after the
+    pre-pad); the packed weight's 25 rows are those taps of the flipped
+    kernel, phase by phase in ``UP5_PHASES``' order, each row-major."""
+    taps = deconv_phase_taps(5, 2, 3)
+    assert sorted(j for r in taps for j, _ in taps[r]) == list(range(5))
+    for r, lst in taps.items():
+        assert [d - 1 for _, d in lst] == list(range(-1, 1 + r))
+    _, wt, _ = _up5_case(cin, cout, h, w, dtype=torch.float32)
+    hi, lo = pack_up5_weight(wt)
+    assert hi.shape == lo.shape == (cout, 25, cin) and hi.is_contiguous()
+    packed = hi.double() + lo.double()
+    seen = []
+    for ry, rx in UP5_PHASES:
+        for jh, _ in taps[ry]:
+            for jw, _ in taps[rx]:
+                seen.append((4 - jh, 4 - jw))
+    assert sorted(seen) == [(a, c) for a in range(5) for c in range(5)]
+    for row, (a, c) in enumerate(seen):
+        torch.testing.assert_close(packed[:, row], wt[:, :, a, c].T.double(), atol=0,
+                                   rtol=2.0 ** -22)
+
+
+@pytest.mark.parametrize("cin,cout,h,w", UP5_CASES)
+def test_up5_kernel_walk_emulated_equals_deconv(cin, cout, h, w):
+    """What ``up5_tf32x3_kernel`` does, step by step in float64: grid phase
+    ph → (ry, rx) = (1 − ph // 2, 1 − ph % 2), 2 + ry by 2 + rx taps from
+    weight row tap0 = 0, 9, 15, 21, tap (r, q) reading input (m − 1 + r,
+    n − 1 + q) (zero outside), the sum written to output (2m + ry,
+    2n + rx), + bias: the deconv, to the split's rounding."""
+    x, wt, b = _up5_case(cin, cout, h, w, dtype=torch.float32)
+    hi, lo = pack_up5_weight(wt)
+    wp = hi.double() + lo.double()
+    xd = F.pad(x.double(), (1, 1, 1, 1))
+    y = torch.full((2, cout, 2 * h, 2 * w), float("nan"), dtype=torch.float64)
+    for ph in range(4):
+        ry, rx = 1 - ph // 2, 1 - ph % 2
+        tap0, kh, kw = (0, 9, 15, 21)[ph], 2 + ry, 2 + rx
+        acc = torch.zeros(2, cout, h, w, dtype=torch.float64)
+        for tap in range(kh * kw):
+            r, q = divmod(tap, kw)
+            acc += torch.einsum("bchw,oc->bohw", xd[:, :, r : r + h, q : q + w],
+                                wp[:, tap0 + tap])
+        y[:, :, ry::2, rx::2] = acc + b.double()[None, :, None, None]
+    ref = _padded_deconv(x.double(), wt.double(), b.double())
+    torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout,h,w", UP5_CASES)
+def test_up5_slot_gate(monkeypatch, cin, cout, h, w):
+    """``_Up5`` sends its pad and deconv to ``up5`` (on the CPU its plain
+    version) where C_in is a multiple of 4, else to ``F.pad`` +
+    ``F.conv_transpose2d``; the output is the padded deconv's either way."""
+    calls = []
+    real = conv_direct.up5_plain
+    monkeypatch.setattr(conv_direct, "up5_plain", lambda *a: calls.append(1) or real(*a))
+    up = _Up5(cin, cout, torch.Generator().manual_seed(cin))
+    x, _, _ = _up5_case(cin, cout, h, w, dtype=torch.float32)
+    assert up.kernel_slot(x) == ("up5" if cin % 4 == 0 else None)
+    with torch.no_grad():
+        y = up(x)
+    assert len(calls) == (cin % 4 == 0)
+    torch.testing.assert_close(y, _padded_deconv(x, up.deconv.weight, up.deconv.bias),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("module,want", [("g_s plain", 4), ("g_s rbs", 1), ("h_s", 0),
+                                         ("rbs_deconv3", 0)])
+def test_up5_slot_taken_by_each_up5_and_no_other_deconv(monkeypatch, module, want):
+    """Every ``_Up5`` of a g_s takes ``up5`` (4 in the plain g_s, ``rbs_up3``
+    in the rbs g_s); h_s's padding-2 deconvs and ``rbs_deconv3`` (3×3,
+    stride 1) keep ``F.conv_transpose2d``."""
+    calls = []
+    real = conv_direct.up5_plain
+    monkeypatch.setattr(conv_direct, "up5_plain", lambda *a: calls.append(1) or real(*a))
+    g = torch.Generator().manual_seed(3)
+    if module.startswith("g_s"):
+        m = SynthesisTransform(8, 3, module.split()[1], generator=g)
+    elif module == "h_s":
+        m = ClassicHyperSynthesis(8, generator=g)
+    else:
+        m = ConvTranspose2d(8, 8, 3, 1, 1, 0, generator=g)
+    x = torch.randn(1, 8, 4, 4, generator=g).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        m(x)
+    assert len(calls) == want
+
+
+@pytest.mark.parametrize("cin,cout,h,w", UP5_CASES[:3])
+def test_up5_backward_equals_conv_transpose2d_autograd(cin, cout, h, w):
+    """``up5``'s autograd.Function (forward: the plain version on the CPU,
+    backward: the transposed conv's gradient, counted) against autograd of
+    the padded deconv, float64."""
+    x, wt, b = _up5_case(cin, cout, h, w)
+    ins = [t.clone().requires_grad_() for t in (x, wt, b)]
+    before = up5.backwards
+    y = up5(*ins)
+    cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    got = torch.autograd.grad(y, ins, cot)
+    assert up5.backwards == before + 1
+    ref_ins = [t.clone().requires_grad_() for t in (x, wt, b)]
+    ref = torch.autograd.grad(_padded_deconv(*ref_ins), ref_ins, cot)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-10, rtol=1e-10)
+
+
+@pytest.mark.parametrize("cin,cout,h,w", UP5_CASES)
+def test_up5_prepack_follows_weight_updates(cin, cout, h, w):
+    """The phase-packed split is cached on the weight, apart from the OHWI
+    pack of the same tensor, and rebuilt after an in-place update and
+    after an optimizer step."""
+    _, wt, _ = _up5_case(cin, cout, h, w, dtype=torch.float32)
+    wt = torch.nn.Parameter(wt)
+    got = prepacked(wt, pack_up5_weight)
+    assert all(a is c for a, c in zip(prepacked(wt, pack_up5_weight), got))
+    assert all(torch.equal(a, c) for a, c in zip(got, pack_up5_weight(wt)))
+    with torch.no_grad():
+        wt.mul_(-0.5)
+    again = prepacked(wt, pack_up5_weight)
+    assert again[0] is not got[0]
+    assert all(torch.equal(a, c) for a, c in zip(again, pack_up5_weight(wt)))
+    opt = torch.optim.SGD([wt], lr=0.1)
+    wt.grad = torch.ones_like(wt)
+    opt.step()
+    stepped = prepacked(wt, pack_up5_weight)
+    assert stepped[0] is not again[0]
+    assert all(torch.equal(a, c) for a, c in zip(stepped, pack_up5_weight(wt)))

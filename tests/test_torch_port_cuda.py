@@ -1,7 +1,8 @@
 """The port's hand-written kernels against their plain versions, on the
 card: B1 (rANS drain; every lane count and both table routes), B2 (GDN), B3 (5×5 stride-2 conv), B4/B5 (window
-attention, head widths 8, 24 and 48) and B6 (stride-1 conv), and the
-gradients of B2-B6 through their autograd.Functions; then the paths
+attention, head widths 8, 24 and 48), B6 (stride-1 conv) and g_s's Up5
+deconv, and the gradients of B2-B6 and Up5 through their
+autograd.Functions; then the paths
 around them: tuning, C5, mixed rates, the EB table, a ``.ltcp`` stream
 written on the card and decoded on the CPU, the HAN tail on the card
 against its CPU run, the U-Net-hyper and latent-U-Net presets'
@@ -42,6 +43,8 @@ from lic_tpu_torch.layers import (
     convk_s1_plain,
     gdn_fused,
     gdn_plain,
+    up5,
+    up5_plain,
     wba_plain,
     wba_proj_plain,
     window_attention,
@@ -560,6 +563,98 @@ def test_default_build_lands_on_cuda(cuda_device):
     assert {p.device.type for p in model.parameters()} == {"cuda"}
 
 
+# g_s's four _Up5 deconvs at 512×768 (C_in, C_out, input H, W): the last
+# gives M = 16 channels to the generated conv, or RGB; and neural syntax's
+# first (C_in 176)
+UP5_GS = [(192, 192, 32, 48), (192, 192, 64, 96), (192, 192, 128, 192), (192, 16, 256, 384),
+          (192, 3, 256, 384), (176, 192, 32, 48)]
+
+
+def _up5_args(g, dev, b, cin, cout, h, w):
+    return (_cl(_randn(g, b, cin, h, w), dev),
+            _randn(g, cin, cout, 5, 5, scale=(cin * 25 / 4) ** -0.5).to(dev),
+            _randn(g, cout).to(dev))
+
+
+@pytest.mark.parametrize("cin,cout,h,w", UP5_GS)
+def test_up5_kernel_at_gs_shapes_vs_float64(cuda_device, cin, cout, h, w):
+    """Up5 at g_s's shapes (B = 2) against its plain version in float64,
+    one launch, a repeat bit-identical; the output interleaved in place,
+    ``channels_last``."""
+    g = torch.Generator().manual_seed(cin + cout + h)
+    y = _check_kernel(up5, up5_plain, _up5_args(g, cuda_device, 2, cin, cout, h, w), f64=True)
+    assert y.shape == (2, cout, 2 * h, 2 * w)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [(192, 192, 7, 9), (8, 12, 5, 27), (12, 3, 9, 4),
+                                         (16, 20, 3, 30), (8, 9, 4, 5)])
+def test_up5_kernel_ragged_maps_and_narrow_widths(cuda_device, cin, cout, h, w):
+    """Maps that are no multiple of the 8×24 patch, on each tile width
+    (C_out 3 and 8: 8 wide; 9 and 12: 16 wide; 20: 96 wide), C_out that
+    is no multiple of 4 (scalar stores)."""
+    g = torch.Generator().manual_seed(h * w)
+    _check_kernel(up5, up5_plain, _up5_args(g, cuda_device, 3, cin, cout, h, w), f64=True)
+
+
+@pytest.mark.parametrize("cout", [192, 16, 3])
+def test_up5_image_alone_equals_the_image_in_a_batch_of_8(cuda_device, cout):
+    """An image's Up5 output does not depend on the batch it rides in (§C5),
+    on each tile width."""
+    g = torch.Generator().manual_seed(cout)
+    x, wt, b = _up5_args(g, cuda_device, 8, 192, cout, 32, 48)
+    with torch.no_grad():
+        y = up5(x, wt, b)
+        for i in (0, 5):
+            assert torch.equal(up5(x[i : i + 1], wt, b), y[i : i + 1])
+
+
+def test_up5_rejects_cin_not_multiple_of_4_and_up5_module_keeps_cudnn(cuda_device):
+    """The wrapper raises on C_in 6; an ``_Up5`` of C_in 6 takes ``F.pad`` +
+    ``F.conv_transpose2d`` on the card, with no launch."""
+    from lic_tpu_torch.models.transforms import _Up5
+
+    g = torch.Generator().manual_seed(6)
+    x, wt, b = _up5_args(g, cuda_device, 1, 6, 8, 8, 12)
+    with torch.no_grad(), pytest.raises(ValueError, match="C_in 6"):
+        up5(x, wt, b)
+    m = _Up5(6, 8, g).to(cuda_device)
+    with torch.no_grad():
+        before = up5.launches
+        y = m(x)
+        torch.cuda.synchronize()
+        assert up5.launches == before
+        ref = torch.nn.functional.conv_transpose2d(torch.nn.functional.pad(x, (1, 0, 1, 0)),
+                                                   m.deconv.weight, m.deconv.bias, 2, 3, 1)
+        torch.testing.assert_close(y, ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("opt", ["in_place", "torch_fused"])
+def test_up5_reads_the_weight_after_an_update(cuda_device, opt):
+    """Up5 caches its weight's phase-packed split: after an in-place update
+    or a fused Adam step (which leaves the version counter) the kernel
+    equals the plain version with the new weight (float64), not the old."""
+    g = torch.Generator().manual_seed(17)
+    x, wt, b = _up5_args(g, cuda_device, 2, 192, 192, 8, 12)
+    wt = torch.nn.Parameter(wt)
+    with torch.no_grad():
+        up5(x, wt, b)  # packs the weight
+        old = wt.detach().clone()
+    if opt == "in_place":
+        with torch.no_grad():
+            wt.mul_(-0.5)
+    else:
+        optimizer = torch.optim.Adam([wt], lr=1e-2, fused=True)
+        wt.grad = torch.ones_like(wt)
+        optimizer.step()
+    with torch.no_grad():
+        y = up5(x, wt, b)
+        ref = up5_plain(x.double(), wt.double(), b.double())
+        torch.testing.assert_close(y.double(), ref, atol=TOL, rtol=TOL)
+        assert float((y.double() - up5_plain(x.double(), old.double(), b.double()))
+                     .abs().max()) > 10 * TOL
+
+
 # ------------------------------------------------- bf16 and the plain routes
 
 # one bf16 rounding of the output (half an ulp: 2**-9 of the value) over
@@ -710,6 +805,12 @@ def _grad_case(kernel, dev, g):
         ts = [cl(_randn(g, 2, 192, 16, 24)), cl(_randn(g, 160, 192, 5, 5, scale=4800 ** -0.5)),
               _randn(g, 160).to(dev)]
         return conv5s2, conv5s2_plain, ts, 1, None
+    if kernel == "up5":
+        ts = [cl(_randn(g, 2, 192, 16, 24)), _randn(g, 192, 160, 5, 5, scale=1200 ** -0.5).to(dev),
+              _randn(g, 160).to(dev)]
+        deconv = lambda x, w, b: torch.nn.functional.conv_transpose2d(
+            torch.nn.functional.pad(x, (1, 0, 1, 0)), w, b, 2, 3, 1)
+        return up5, deconv, ts, 1, None
     if kernel == "convk_s1":
         ts = [cl(_randn(g, 2, 192, 12, 20)), cl(_randn(g, 192, 192, 3, 3, scale=1728 ** -0.5)),
               _randn(g, 192).to(dev), cl(_randn(g, 2, 192, 12, 20))]
@@ -727,17 +828,18 @@ def _grad_case(kernel, dev, g):
             lambda *t: wba_proj_plain(*t, mask, ws, nh), ts, None, None)
 
 
-@pytest.mark.parametrize("kernel", ["gdn", "conv5s2", "convk_s1", "wba", "wba_proj"])
+@pytest.mark.parametrize("kernel", ["gdn", "conv5s2", "convk_s1", "wba", "wba_proj", "up5"])
 def test_kernel_backward_matches_plain_autograd(cuda_device, kernel):
     """The gradient of a random cotangent through the kernel's
     autograd.Function (forward: the kernel, counted; backward: the plain
     gradient, counted in ``backwards``) against autograd of the plain
-    version in float64 (B2: its closed form in float64) and in fp32."""
+    version in float64 (B2: its closed form in float64; Up5: autograd of
+    ``F.pad`` + ``F.conv_transpose2d``) and in fp32."""
     from lic_tpu_torch.layers import conv_direct, gdn as gdn_mod, window_attn as wa
 
     counter = {"gdn": gdn_mod.gdn_fused, "conv5s2": conv_direct.conv5s2,
                "convk_s1": conv_direct.convk_s1, "wba": wa.window_attention,
-               "wba_proj": wa.window_attention_proj}[kernel]
+               "wba_proj": wa.window_attention_proj, "up5": conv_direct.up5}[kernel]
     g = torch.Generator().manual_seed(len(kernel))
     fn, plain, ts, weight_at, closed = _grad_case(kernel, cuda_device, g)
     ins = [t.detach().requires_grad_() for t in ts]
@@ -887,6 +989,23 @@ def test_decompress_batch_of_single_streams_is_bitidentical(source_net_on_card):
     alone = torch.cat([coder.decompress(s) for s in singles])
     chunks = torch.cat([coder.decompress_batch(singles[:4]), coder.decompress_batch(singles[4:])])
     assert torch.equal(together, alone) and torch.equal(together, chunks)
+
+
+def test_decompress_batch_launches_up5_once_per_up5(source_net_on_card):
+    """``source_net``'s ``decompress_batch`` runs g_s once per pass: its
+    four ``_Up5`` deconvs launch Up5 exactly 4 times, and its compress
+    none."""
+    from lic_tpu_torch.models.compress import ChannelCoder
+
+    model, x = source_net_on_card
+    coder = ChannelCoder(model, name="source_net")
+    before = up5.launches
+    streams = coder.compress_batch(x)
+    torch.cuda.synchronize()
+    assert up5.launches == before
+    coder.decompress_batch(streams)
+    torch.cuda.synchronize()
+    assert up5.launches == before + 4
 
 
 def test_mixed_rate_batch_on_the_card_equals_per_image(cuda_device):
@@ -1075,8 +1194,8 @@ _NEW_CONFIGS = {"rbs": ("net_ga", dict(transform="rbs")),
                 "nolrp": ("source_net", dict(lrp=False))}
 # one B = 1 eval forward: net_ga's kernels, and the rbs g_s's three
 # ResidualBlockUpsamples (a B6 3x3 and a B2 IGDN each); source_net's
-_NEW_LAUNCHES = {"rbs": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 20},
-                 "nolrp": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "wba": 0}}
+_NEW_LAUNCHES = {"rbs": {"gdn": 12, "conv5s2": 2, "convk_s1": 66, "wba": 20, "up5": 1},
+                 "nolrp": {"gdn": 7, "conv5s2": 3, "convk_s1": 5, "wba": 0, "up5": 4}}
 
 
 def _woken_config(name, dev, seed=0):
@@ -1140,7 +1259,8 @@ def test_rbs_and_nolrp_on_the_card_equal_their_cpu_run(cuda_device, name):
         return st
 
     counted = {"gdn": gdn_mod.gdn_fused, "conv5s2": conv_direct.conv5s2,
-               "convk_s1": conv_direct.convk_s1, "wba": window_attn.window_attention}
+               "convk_s1": conv_direct.convk_s1, "wba": window_attn.window_attention,
+               "up5": conv_direct.up5}
     with torch.no_grad():
         out = cpu(x)
         z3 = cpu.analyze(x)

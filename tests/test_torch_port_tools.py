@@ -1,7 +1,5 @@
-"""The port's measurement scripts, on the CPU: the sub-pixel lowering of
-the deconv probe equals ``F.conv_transpose2d`` (atol 1e-5: another
-summation order), the profile's device busy time is the union of the
-device intervals in a trace, the build's ``ptxas`` summary keeps each
+"""The port's measurement scripts, on the CPU: the profile's device busy
+time is the union of the device intervals in a trace, the build's ``ptxas`` summary keeps each
 kernel's register and spill counts, the kernel probe still finds the
 lines of the B1 and B2 sources it attaches to, and the batch probe's
 card-vs-CPU rows count nothing between two equal models and the rows a
@@ -10,9 +8,7 @@ perturbed σ path moves."""
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
-from lic_tpu_torch.tools.deconv_probe import subpel_conv_transpose2d, subpel_weights
 from lic_tpu_torch.tools.kernel_probe import (
     DRAIN_STEPS,
     gdn_variant_source,
@@ -22,22 +18,6 @@ from lic_tpu_torch.tools.profile_path import device_activity, union_length
 from lic_tpu_torch.utils.build import CudaLibrary
 
 torch.set_num_threads(2)
-
-
-@pytest.mark.parametrize(
-    "cin,cout,h,w,padding",
-    [(8, 8, 17, 25, 3), (6, 4, 9, 13, 3), (8, 8, 8, 12, 2)],
-)
-def test_subpel_lowering_equals_conv_transpose2d(cin, cout, h, w, padding):
-    g = torch.Generator().manual_seed(cin * h + padding)
-    x = torch.randn(2, cin, h, w, generator=g)
-    wt = torch.randn(cin, cout, 5, 5, generator=g) * 0.1
-    b = torch.randn(cout, generator=g)
-    ref = F.conv_transpose2d(x, wt, b, 2, padding, 1)
-    wc, dmin, T = subpel_weights(wt, 2, padding)
-    assert wc.shape == (cout * 4, cin, T, T)
-    y = subpel_conv_transpose2d(x, wc, b, dmin, T, 2, ref.shape[2:])
-    torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-5)
 
 
 def test_union_length_merges_overlaps():
