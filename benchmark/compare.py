@@ -17,6 +17,10 @@ relative RMS error and the share of pixels off by more than one 8-bit
 level are printed beside them as readings: a sound run's flips reach
 them on some seeds, by three decades and more (PERF.md gives the
 readings and the limits).
+
+A reference class may add numbers of its own (its optional method
+``compared``, ``benchmark.system``): the configuration file states their
+limits beside the images', and ``checks`` holds each to its limit.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
+
+from .train_check import NAMES as TRAINING
 
 LEVEL = 2.0 / 255.0
 PERCENTILES = {"decode_p5_err": 0.05, "decode_p50_err": 0.5, "decode_p75_err": 0.75,
@@ -58,6 +64,17 @@ def worst(readings: List[Dict[str, List[float]]]) -> Dict[str, float]:
     return out
 
 
+def names(limits: Dict[str, float]) -> List[str]:
+    """The numbers compared: the images' two, and every other limit the
+    configuration states but the training check's."""
+    return list(NAMES) + [k for k in limits if k not in NAMES and k not in TRAINING]
+
+
 def checks(found: Dict[str, float], limits: Dict[str, float]) -> List[dict]:
-    return [{"name": k, "value": found[k], "limit": float(limits[k]),
-             "ok": found[k] <= float(limits[k])} for k in NAMES]
+    """Each number against its limit; one with a limit and no reading
+    reads infinity and fails."""
+    out = []
+    for k in names(limits):
+        v = found.get(k, float("inf"))
+        out.append({"name": k, "value": v, "limit": float(limits[k]), "ok": v <= float(limits[k])})
+    return out

@@ -6,7 +6,8 @@ The codec CLI's directory mode: ``ChannelCoder.compress_batch`` then
 Parameters (the mix file): ``batch``, ``size`` [H, W], ``pool``,
 ``checked`` (how many of the pool's batches the reference checks: drawn
 from the seed, each judged on its last decode in the window, image by
-image, as ``benchmark.compare`` says).
+image, as ``benchmark.compare`` says, and by the reference class's own
+numbers where it adds some).
 
 End to end: ``codec_mps``, the megapixels of the images whose compress and
 decode both finished, over the seconds from the window's start to the end
@@ -22,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from .. import compare, roofline, system
+from .. import compare, system
 from ..images import smooth_images
 
 
@@ -50,7 +51,9 @@ def run(ctx):
     rec.host(coder, "compress_batch", "compress_batch", sync=True)
     rec.host(coder, "decompress_batch", "decompress_batch", sync=True)
     rec.host(coder, "_pool_map", "host_coding")
-    rec.host(coder.z_coder, "decode_symbols", "z_decode")
+    hyper_coder = getattr(coder, "z_coder", None)  # the z stream's coder, where it has one
+    if hyper_coder is not None:
+        rec.host(hyper_coder, "decode_symbols", "z_decode")
     rec.cuda(model, "analyze", "analyze")
     rec.cuda(model, "synthesize", "synthesize")
     torch.cuda.reset_peak_memory_stats()
@@ -83,16 +86,19 @@ def run(ctx):
     mp = (n - len(failed)) * b * h * w / 1e6
     rec.values.update(window_s=window_s, passes=n, mp_per_batch=b * h * w / 1e6)
     if ctx.trace:
-        _count(ctx, b, h, w)
+        rec.values.update(system.reference_meta(ctx.config).counts(b, h, w))
 
     decoded = {i: last[i].cpu() for i in checked if i in last}
-    del coder, model, last
+    del model, last
     torch.cuda.empty_cache()
-    found = judge(ctx.config, weights, pool, checked, decoded, dev)
+    found = judge(ctx.config, weights, pool, checked, decoded, dev, coder)
+    del coder
     if failed:  # an answer that never came
         found = {k: float("inf") for k in found}
-    ctx.extra.update({k: found[k] for k in compare.READINGS}, bpp=8 * nbytes / max(mp * 1e6, 1))
-    checks = compare.checks(found, ctx.config["limits"])
+    limits = ctx.config["limits"]
+    ctx.extra.update({k: v for k, v in found.items() if k not in compare.names(limits)},
+                     bpp=8 * nbytes / max(mp * 1e6, 1))
+    checks = compare.checks(found, limits)
     return {"attempted": images, "failed": len(failed) * b, "memory_peak_bytes": memory,
             "e2e": {"codec_mps": mp / window_s}, "checks": checks}
 
@@ -107,50 +113,27 @@ def inputs(p: dict, seed: int, device):
     return pool, checked
 
 
-def judge(config, weights, pool, checked, decoded, device) -> dict:
+def judge(config, weights, pool, checked, decoded, device, side=None) -> dict:
     """The worst checked image's numbers against the reference's eval
-    forward in float64 (``compare``); infinity where a checked batch has no
-    decode."""
+    forward in float64 (``compare``), and the worst checked batch's value
+    of each number the reference class's ``compared`` adds, given ``side``
+    (the program's coder, or in the controls the reference put in its
+    place); infinity where a checked batch has no decode."""
     ref = system.build_reference(config, weights, device)
-    readings = []
+    own = getattr(ref, "compared", None) if side is not None else None
+    readings, added = [], []
     with torch.no_grad():
         for i in checked:
             if i not in decoded:
-                readings = []
+                readings = added = []
                 break
             want = ref(pool[i].to(ref.dtype))["x_hat"].cpu()
             readings.append(compare.image_readings(decoded[i], want))
+            if own is not None:
+                added.append(own(side, pool[i], decoded[i]))
     del ref
     torch.cuda.empty_cache()
     system.fp32_numerics()
-    return compare.worst(readings)
-
-
-def _count(ctx, b, h, w) -> None:
-    """Operations and bytes of the coder's passes, on the reference at the
-    window's shapes (``meta`` device)."""
-    ref = system.reference_meta(ctx.config)
-    with torch.device("meta"), torch.no_grad():
-        x = torch.empty(b, 3, h, w)
-        y = ref.analyze(x)
-        z_hat = ref.quantize_z(ref.hyper_encode(y))
-        scales, means = ref.hyper_decode(z_hat)
-        syntax = ref.syntax(y)
-        y_hat, _ = ref.slice_chain(y, means, scales)
-        x_hat = ref.synthesize(y_hat, syntax)
-        f = {
-            "analyze": roofline.count_flops(lambda: ref.analyze(x)),
-            "hyper_encode": roofline.count_flops(lambda: ref.hyper_encode(y)),
-            "hyper_decode": roofline.count_flops(lambda: ref.hyper_decode(z_hat)),
-            "syntax": roofline.count_flops(lambda: ref.syntax(y)),
-            "slice_chain": roofline.count_flops(lambda: ref.slice_chain(y, means, scales)),
-            "synthesize": roofline.count_flops(lambda: ref.synthesize(y_hat, syntax)),
-        }
-    gs_mods = [ref.g_s, ref.conv_weights_gen]
-    ctx.record.values.update(
-        flops=f,
-        roundtrip_flops=(f["analyze"] + f["hyper_encode"] + 2 * f["hyper_decode"]
-                         + f["syntax"] + 2 * f["slice_chain"] + f["synthesize"]),
-        analyze_bytes=roofline.nbytes(x, y) + roofline.param_bytes([ref.g_a]),
-        synthesize_bytes=roofline.nbytes(y_hat, syntax, x_hat) + roofline.param_bytes(gs_mods),
-    )
+    found = compare.worst(readings)
+    found.update({k: max(a[k] for a in added) for k in (added[0] if added else ())})
+    return found

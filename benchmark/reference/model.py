@@ -12,6 +12,13 @@ noise drawn through ``noise_fn`` in the program's order (z, then slices
 0-3).  The stages (``analyze``, ``hyper_encode``, ``hyper_decode``,
 ``syntax``, ``slice_chain``, ``synthesize``) are the passes the program's
 coder runs, so the benchmark counts each one's operations apart.
+
+``ReferenceCodec`` also carries what the harness needs to know of this
+model and no other: the program features it does not model
+(``UNMODELLED``), its weight declarations (``LATENT_LEAF``,
+``SIGMA_BIASES``, ``GENERATOR_HEADS``, ``BOTTLENECKS``, ``leaf_rule``)
+and its counts (``counts``).  A configuration names its class in its file
+(``"reference": "model:ReferenceCodec"``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import roofline
 from .layers import (
     GDN,
     IGDN,
@@ -390,6 +398,19 @@ class ReferenceCodec(nn.Module):
     ('classic_dual' | 'unet_dec'), ``swatten``, ``syntax`` ('basic' |
     'wam'), ``N``, ``M``, ``num_slices``."""
 
+    # the program's features this reference does not model: the program's
+    # configuration field and the truth value at which the feature is on
+    # (LRP off, gain units, the HAN tail); ``system.build_program`` refuses them
+    UNMODELLED = {"lrp": False, "gain_units": True, "post_processing": True}
+    # ``benchmark.weights``: the leaf the configuration's ``latent_gain``
+    # scales, the σ heads' biases (name patterns) that get ``SIGMA_BIAS``,
+    # the generated conv's head (the program's own scale) and the entropy
+    # bottlenecks (a fitted density), each by name
+    LATENT_LEAF = "g_a.down3.weight"
+    SIGMA_BIASES = ("cc_scale_transforms.*.c2.bias",)
+    GENERATOR_HEADS = ("conv_weights_gen.fc2",)
+    BOTTLENECKS = ("entropy_bottleneck",)
+
     def __init__(self, model: Dict):
         super().__init__()
         N, M = int(model["N"]), int(model["M"])
@@ -490,3 +511,42 @@ class ReferenceCodec(nn.Module):
         n = b * h * w
         return {"x_hat": x_hat, "bpp": _bpp(y_lik, n) + _bpp(z_lik, n),
                 "mse": torch.mean((x_hat - x) ** 2)}
+
+    # what the harness reads of this model
+
+    def leaf_rule(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """A weight rule of this model's own for the leaf ``name``, applied
+        after ``benchmark.weights``' rules (none here)."""
+        return value
+
+    def counts(self, b: int, h: int, w: int) -> Dict[str, object]:
+        """Operations of each pass of the program's coder on a batch of
+        ``b`` images of ``h`` × ``w`` (on the ``meta`` device; build the
+        reference there), a roundtrip's operations (compress: g_a, h_a,
+        h_s, syntax, slices; decode: h_s, slices, g_s), and the bytes of
+        g_a's and g_s's passes (inputs, outputs, weights, once each)."""
+        with torch.device("meta"), torch.no_grad():
+            x = torch.empty(b, 3, h, w)
+            y = self.analyze(x)
+            z_hat = self.quantize_z(self.hyper_encode(y))
+            scales, means = self.hyper_decode(z_hat)
+            syntax = self.syntax(y)
+            y_hat, _ = self.slice_chain(y, means, scales)
+            x_hat = self.synthesize(y_hat, syntax)
+            f = {
+                "analyze": roofline.count_flops(lambda: self.analyze(x)),
+                "hyper_encode": roofline.count_flops(lambda: self.hyper_encode(y)),
+                "hyper_decode": roofline.count_flops(lambda: self.hyper_decode(z_hat)),
+                "syntax": roofline.count_flops(lambda: self.syntax(y)),
+                "slice_chain": roofline.count_flops(
+                    lambda: self.slice_chain(y, means, scales)),
+                "synthesize": roofline.count_flops(lambda: self.synthesize(y_hat, syntax)),
+            }
+        return {
+            "flops": f,
+            "roundtrip_flops": (f["analyze"] + f["hyper_encode"] + 2 * f["hyper_decode"]
+                                + f["syntax"] + 2 * f["slice_chain"] + f["synthesize"]),
+            "analyze_bytes": roofline.nbytes(x, y) + roofline.param_bytes([self.g_a]),
+            "synthesize_bytes": (roofline.nbytes(y_hat, syntax, x_hat)
+                                 + roofline.param_bytes([self.g_s, self.conv_weights_gen])),
+        }

@@ -1,5 +1,8 @@
-"""The reference agrees with the program on the CPU, and the operation
-and byte counters agree with hand counts."""
+"""The reference agrees with the program on the CPU, the operation and
+byte counters agree with hand counts, and the weights and counts each
+configuration's reference class gives are pinned."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -67,3 +70,59 @@ def test_flop_and_byte_counts_match_hand_counts():
     assert roofline.param_bytes([conv]) == 4 * (32 * 16 * 9 + 32)
     assert roofline.bound_s(165e12, 0) == pytest.approx(1.0, rel=1e-3)
     assert roofline.bound_s(0, 3.35e12) == pytest.approx(1.0)
+
+
+# Computed with the harness of commit 9124aa6, before the model-specific
+# declarations moved into the reference classes: the weights at seed 12345
+# (sha256 over each leaf's name and bytes, in draw order) and the counts of
+# 8 images of 512 x 768 on the meta device.  Both must stay as they were.
+PINNED = {
+    "source_net": {
+        "weights": "a3fe42273d3fb579f877312ebae0c7050c7953758c670cc8f6e24954383631fd",
+        "roundtrip_flops": 1851895427072, "analyze_bytes": 58750464,
+        "synthesize_bytes": 59191104,
+        "flops": {"analyze": 574384766976, "hyper_encode": 15231614976,
+                  "hyper_decode": 30463229952, "syntax": 56651776,
+                  "slice_chain": 258880831488, "synthesize": 683534270464},
+    },
+    "net_unet_ha_hs_dec": {
+        "weights": "d99b3a35631e43f2459f23a1e7e1f12ccc1b590d4b90721a34b4696099571dc5",
+        "roundtrip_flops": 8601705951232, "analyze_bytes": 114951920,
+        "synthesize_bytes": 113242688,
+        "flops": {"analyze": 4121841106944, "hyper_encode": 23737663488,
+                  "hyper_decode": 34838937600, "syntax": 1273982976,
+                  "slice_chain": 421955371008, "synthesize": 3541264580608},
+    },
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_weights_and_counts_are_the_pinned_ones(name):
+    config = _config(name)
+    digest = hashlib.sha256()
+    for k, v in system.make_weights(config, 12345, "cpu").items():
+        digest.update(k.encode())
+        digest.update(v.contiguous().numpy().tobytes())
+    counts = system.reference_meta(config).counts(8, 512, 768)
+    want = dict(PINNED[name])
+    assert digest.hexdigest() == want.pop("weights")
+    assert counts == want
+
+
+@pytest.mark.parametrize("preset, overrides, model", [
+    ("source_net_vr", {}, {}),  # gain units
+    ("source_net", {"post_processing": True}, {}),  # the HAN tail
+    ("source_net", {"lrp": False}, {"lrp": False}),  # the file says so too
+    ("source_net", {}, {"num_slices": 5}),  # the file and the program differ
+    ("source_net", {}, {"context_rows": 3}),  # a key the program has no field for
+])
+def test_the_program_is_refused_where_the_reference_does_not_model_it(
+        monkeypatch, preset, overrides, model):
+    import lic_tpu_torch.models as models
+
+    build = models.build_model
+    monkeypatch.setattr(models, "build_model", lambda name, **k: build(name, **k, **overrides))
+    config = _config("source_net")
+    config = dict(config, preset=preset, model=dict(config["model"], **model))
+    with pytest.raises(ValueError, match="differs from the file"):
+        system.build_program(config, system.make_weights(_config("source_net"), 1, "cpu"), "cpu")

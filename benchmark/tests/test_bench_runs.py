@@ -64,6 +64,44 @@ def test_a_traced_run_reports_its_layer_metrics(driver):
     assert all(np.isfinite(v["value"]) and v["value"] >= 0 for v in out["metrics"].values())
 
 
+def test_a_coder_without_a_z_coder_is_run(monkeypatch):
+    """The coder of a model whose hyper stream has no ``z_coder`` (the
+    neural-syntax coder has none): a traced run is correct, reads every
+    metric, and records the host coding but no z decodes."""
+    import lic_tpu_torch.models.compress as compress
+    from benchmark.spans import Recorder
+
+    real = compress.ChannelCoder
+
+    class WithoutZ:
+        """The program's coder with its ``z_coder`` hidden; its own calls
+        of ``_pool_map`` go through this object's, as the harness wraps it."""
+
+        _pool_map = staticmethod(real._pool_map)
+
+        def __init__(self, model, name=""):
+            self._inner = real(model, name=name)
+            self._inner._pool_map = lambda fn, n, parent: self._pool_map(fn, n, parent)
+
+        def __getattr__(self, k):
+            if k == "z_coder":
+                raise AttributeError(k)
+            return getattr(self._inner, k)
+
+    recorders = []
+    collect = Recorder.collect
+    monkeypatch.setattr(Recorder, "collect", lambda self: (recorders.append(self),
+                                                             collect(self))[1])
+    monkeypatch.setattr(compress, "ChannelCoder", WithoutZ)
+    cell = _one("code_batch")
+    out = _run(cell, trace=1)
+    assert out["correct"], out["checks"]
+    want = {m["name"] for m in run.metrics_of(SPEC, run.cell_of(SPEC, cell), True)}
+    assert set(out["metrics"]) == {m for m in want if not m.startswith("device_idle")}
+    spans = recorders[0].host_s
+    assert spans["host_coding"] and "z_decode" not in spans
+
+
 def test_an_altered_decode_is_not_correct(monkeypatch):
     from lic_tpu_torch.models.compress import ChannelCoder
 

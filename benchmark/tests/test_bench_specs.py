@@ -88,6 +88,108 @@ def test_a_new_cell_and_metric_are_files_of_their_own(tmp_path):
                    env=dict(os.environ, PYTHONPATH=str(tmp_path)))
 
 
+FIXTURE_MODULE = '''"""A configuration's own reference class: a σ rule of its own and a
+compared number of its own."""
+
+from ..weights import SIGMA_BIAS
+from .model import ReferenceCodec
+
+
+class FixtureCodec(ReferenceCodec):
+    def leaf_rule(self, name, value):
+        if name == "lrp_transforms.0.c2.bias":  # half of a leaf, as a σ half
+            value = value.clone()
+            value[value.shape[0] // 2:] += SIGMA_BIAS
+        return value
+
+    def compared(self, side, x, decoded):
+        """The latent's largest gap from the reference's, over its largest
+        value: the program's coder's model, or the control itself."""
+        got = getattr(side, "model", side).analyze(x).double()
+        want = self.analyze(x.to(self.dtype)).double()
+        return {"latent_gap": float((got - want).abs().max() / want.abs().max())}
+'''
+
+FIXTURE_RUN = """
+import json, os, sys
+import pytest, torch
+from benchmark import run, system, weights
+from benchmark.tests.cpu import patched_cuda
+
+torch.set_num_threads(4)
+spec = run.spec_of()
+cell = run.cell_of(spec, "fixture-code-tiny")
+config = run.config_of(spec, cell)
+assert run.ROOT == sys.argv[1] and config["reference"] == "fixture_model:FixtureCodec"
+base = run.config_of(spec, run.cell_of(spec, "source_net-code-b8"))
+a, b = system.make_weights(base, 7, "cpu"), system.make_weights(config, 7, "cpu")
+leaf = "lrp_transforms.0.c2.bias"
+half = len(a[leaf]) // 2
+assert all(torch.equal(a[k], b[k]) for k in a if k != leaf)
+assert torch.equal(b[leaf][:half], a[leaf][:half])
+assert torch.equal(b[leaf][half:], a[leaf][half:] + weights.SIGMA_BIAS)
+args = lambda trace: run.parse(["--workload", cell["name"], "--seed", "7", "--seconds", "0.5",
+                                "--trace", str(trace)])
+with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(system, "JUDGE_PRECISION", "float32")
+    with patched_cuda(mp):
+        sound = run.execute(args(1), torch.device("cpu"))
+        path = os.path.join(run.ROOT, "benchmark", "configs", "fixture.json")
+        limits = dict(config["limits"], latent_gap=sound["checks"]["latent_gap"]["value"] - 1e-6)
+        with open(path, "w") as f:
+            json.dump(dict(config, limits=limits), f)
+        tight = run.execute(args(0), torch.device("cpu"))
+print(json.dumps({"sound": {k: sound[k] for k in ("correct", "metrics", "checks")},
+                  "tight": {k: tight[k] for k in ("correct", "checks")}}))
+"""
+
+
+def test_a_new_configuration_is_files_of_its_own(tmp_path):
+    """In a copy: a configuration file naming a reference class in a new
+    module (a subclass with a σ rule and a compared number of its own), a
+    mix file and their entries in BENCHMARK.json are all a new
+    configuration needs; no file of the harness changes.  Its cell runs on
+    the CPU: correct with the added number held to its limit and the counts
+    read, and not correct with that limit under its reading."""
+    shutil.copytree(run.BENCH_DIR, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = tmp_path / "benchmark"
+    (bench / "reference" / "fixture_model.py").write_text(FIXTURE_MODULE)
+    with open(os.path.join(ROOT, "benchmark", "configs", "source_net.json")) as f:
+        config = json.load(f)
+    config.update(name="fixture", reference="fixture_model:FixtureCodec",
+                  limits=dict(config["limits"], latent_gap=1e-3))
+    (bench / "configs" / "fixture.json").write_text(json.dumps(config))
+    (bench / "traffic" / "code_tiny.json").write_text(json.dumps(
+        {"driver": "code_batch", "batch": 2, "size": [128, 192], "pool": 2, "checked": 1,
+         "traced": 1}))
+    cell = "fixture-code-tiny"
+    spec = dict(SPEC)
+    spec["configs"] = SPEC["configs"] + [dict(SPEC["configs"][0], name="fixture",
+                                              file="benchmark/configs/fixture.json")]
+    spec["workloads"] = SPEC["workloads"] + [dict(SPEC["workloads"][0], name=cell,
+                                                  config="fixture", traffic="code_tiny")]
+    for kind in ("end_to_end", "per_layer"):
+        spec[kind] = [dict(m, workloads=m["workloads"] + [cell])
+                      if "source_net-code-b8" in m.get("workloads", []) else m
+                      for m in SPEC[kind]]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    out = subprocess.run([sys.executable, "-c", FIXTURE_RUN, str(tmp_path)], cwd=tmp_path,
+                         check=True, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), ROOT])))
+    got = json.loads(out.stdout.splitlines()[-1])
+    sound, tight = got["sound"], got["tight"]
+    assert sound["correct"], sound["checks"]
+    assert list(sound["checks"]) == ["decode_p5_err", "decode_p50_err", "latent_gap"]
+    assert 0 <= sound["checks"]["latent_gap"]["value"] <= 1e-3
+    want = {m["name"] for m in run.metrics_of(spec, run.cell_of(spec, cell), True)}
+    assert {"codec_mfu.batch", "ga_roofline.batch", "gs_roofline.batch"} <= want
+    assert set(sound["metrics"]) == {m for m in want if not m.startswith("device_idle")}
+    assert not tight["correct"]
+    gap, p50 = tight["checks"]["latent_gap"], tight["checks"]["decode_p50_err"]
+    assert gap["value"] > gap["limit"] and p50["value"] <= p50["limit"]
+
+
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):
     monkeypatch.setitem(sys.modules, "lic_tpu_torch_fake", object())
     assert "lic_tpu_torch_fake" not in run.forbidden_modules()

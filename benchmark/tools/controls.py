@@ -6,9 +6,10 @@ For each seed: the numbers the cell compares, read from the program's
 timed path at the cell's own sizes (the program's readings), and from the
 control, the plain reference computed in TF32 put in the program's place
 (the control's readings; the configurations state fp32 with TF32 off),
-each against the reference in float64.  Prints one line per seed and a
-JSON summary (per number, the largest program reading and the smallest
-control reading).  Runs on a card only.
+each against the reference in float64: the images' numbers and those the
+reference class adds (``compared``, with the control as its side).
+Prints one line per seed and a JSON summary (per number, the largest
+program reading and the smallest control reading).  Runs on a card only.
 """
 
 from __future__ import annotations
@@ -49,13 +50,13 @@ def code_batch(cell: str, seeds, traffic=None):
                 blobs = coder.compress_batch(pool[i])
                 bits += 8 * sum(map(len, blobs))
                 decoded[i] = coder.decompress_batch(blobs).cpu()
-        prog = drv.judge(config, weights, pool, checked, decoded, dev)
+        prog = drv.judge(config, weights, pool, checked, decoded, dev, coder)
         prog["bpp"] = bits / sum(pool[i][:, 0].numel() for i in checked)
         ref = system.build_reference(config, weights, dev, "tf32")
         with torch.no_grad():
             ctrl_out = {i: ref(pool[i])["x_hat"].cpu() for i in checked}
+        ctrl = drv.judge(config, weights, pool, checked, ctrl_out, dev, ref)
         del ref
-        ctrl = drv.judge(config, weights, pool, checked, ctrl_out, dev)
         set_numerics_flags()
         ctrl["bpp"] = prog["bpp"]
         row = {"seed": seed, "program": prog, "control": ctrl}

@@ -6,13 +6,14 @@ busy where a kernel, a copy or a memset runs, and its busy time is the
 union of those intervals.  ``summarize`` names the ten device operations
 that took most time and the ten largest sums of idle device time by the
 host span open across each gap: the innermost of the benchmark's own
-``record_function`` labels around the program's calls and the operators
-the profiler records on the host.
+``record_function`` labels around the program's calls, the program's
+spans and the operators the profiler records on the host, found by time
+however many host events lie between the gap and its span's start.
 """
 
 from __future__ import annotations
 
-import bisect
+import heapq
 import json
 import os
 from collections import defaultdict
@@ -20,7 +21,6 @@ from typing import Dict, Iterable, List, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("user_annotation", "cpu_op")
-_SCAN = 2000  # host spans looked at, back from a gap's middle
 
 
 def union_length(intervals: Iterable[Tuple[float, float]]) -> float:
@@ -73,26 +73,30 @@ def _merged(spans: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 def idle_gaps(trace_events: List[dict], t0_us: float, t1_us: float) -> Dict[str, float]:
     """Idle device seconds in [t0, t1] by the innermost host span open at
     each gap's middle: a benchmark span or an operator the host was
-    launching ("outside any span" where none is)."""
+    launching ("outside any span" where none is).  The innermost is the
+    open span that starts last (of two that start together, the later in
+    (start, end, name) order); the gaps' middles only rise, so one sweep
+    over the spans in that order, with a heap of those started, finds
+    each."""
     dev = _merged([(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
                    for e in trace_events if e.get("ph") == "X"
                    and str(e.get("cat", "")).lower() in DEVICE_CATS])
     host = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
                   for e in trace_events if e.get("ph") == "X"
                   and str(e.get("cat", "")).lower() in HOST_CATS)
-    starts = [h[0] for h in host]
+    started: List[int] = []  # a max-heap of the started spans' indices, negated
+    nxt = 0
     gaps, prev = defaultdict(float), t0_us
     for s, e in dev + [(t1_us, t1_us)]:
         s, e = max(s, t0_us), min(e, t1_us)
         if s > prev:
             mid = (prev + s) / 2
-            name = "outside any span"
-            k0 = bisect.bisect_right(starts, mid) - 1
-            for k in range(k0, max(-1, k0 - _SCAN), -1):
-                hs, he, hn = host[k]
-                if hs <= mid <= he:
-                    name = hn
-                    break
+            while nxt < len(host) and host[nxt][0] <= mid:
+                heapq.heappush(started, -nxt)
+                nxt += 1
+            while started and host[-started[0]][1] < mid:  # closed before this middle
+                heapq.heappop(started)
+            name = host[-started[0]][2] if started else "outside any span"
             gaps[name] += (s - prev) * 1e-6
         prev = max(prev, e)
     return gaps

@@ -10,31 +10,38 @@ takes its slice, scaled by a rule of its module's kind:
   computes and the stacks of gates stay well conditioned (at 1 the
   flagship's WAM gates amplify a 1e-6 change to 1e-3);
 * biases N(0, 0.02²); LayerNorm scales 1 + N(0, 0.05²);
-* the generated conv's head (``ConvGenerator.fc2``): the program's own
-  scale, N(0, 0.01/fan_avg) and a bias of N(0, 0.2²), which keeps the
-  reconstruction's tanh out of saturation;
+* a generated conv's head (the reference class's ``GENERATOR_HEADS``):
+  the program's own scale, N(0, 0.01/fan_avg) and a bias of N(0, 0.2²),
+  which keeps the reconstruction's tanh out of saturation;
 * GDN β = 1 + 0.1·|n| and Γ = 0.01·I + 0.0002·|n|, stored in the
   non-negative parametrization (at the program's 0.1·I four IGDNs in a
   row raise a map of spread 5 to 1e6, and the output's tanh saturates);
 * relative-position tables N(0, 0.1²);
-* g_a's last conv ``latent_gain`` times its rule, and the ChARM σ heads'
-  biases ``SIGMA_BIAS`` more: a σ at the 0.11 floor makes every symbol
-  escape its table.  ``latent_gain`` is the configuration file's: it is
-  set so that the seeded images code at the bits per pixel that the
-  configuration's codec, trained at λ 0.0025, reaches on a held-out
-  photograph, so the host coder has a trained codec's load.
-* the entropy bottleneck: its initial matrices for a density of scale
-  ``EB_SCALE`` plus N(0, 0.1²), biases and factors N(0, 0.3²) (a trained
-  model's factors are not zero), quantiles (−``EB_SCALE``, 0,
-  ``EB_SCALE``) shifted per channel by N(0, 0.3²), so z is rounded about
-  medians that are not integers.  ``EB_SCALE`` is about twice z's spread
+* the class's ``LATENT_LEAF`` (g_a's last conv) ``latent_gain`` times its
+  rule, and the biases of its σ heads (``SIGMA_BIASES``) ``SIGMA_BIAS``
+  more: a σ at the 0.11 floor makes every symbol escape its table.
+  ``latent_gain`` is the configuration file's: it is set so that the
+  seeded images code at the bits per pixel that the configuration's codec,
+  trained at λ 0.0025, reaches on a held-out photograph, so the host coder
+  has a trained codec's load.
+* the entropy bottlenecks (``BOTTLENECKS``): their initial matrices for a
+  density of scale ``EB_SCALE`` plus N(0, 0.1²), biases and factors
+  N(0, 0.3²) (a trained model's factors are not zero), quantiles
+  (−``EB_SCALE``, 0, ``EB_SCALE``) shifted per channel by N(0, 0.3²), so
+  z is rounded about medians that are not integers.  ``EB_SCALE`` is
+  about twice z's spread
   (0.08-0.17), as a fitted bottleneck's; at the init's 10, each z element
-  costs 5.5 bits and the flagship's z alone more than its trained total.
+  costs 5.5 bits and the flagship's z alone more than its trained total;
+* last, the class's ``leaf_rule``, a rule of its own for a leaf of its own.
+
+The reference class declares every model-specific leaf by name, so a new
+model is a reference class of its own and no edit here.
 """
 
 from __future__ import annotations
 
 import math
+from fnmatch import fnmatchcase
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -42,7 +49,6 @@ import torch
 from torch import nn
 
 from .reference import layers as L
-from .reference import model as R
 
 _PEDESTAL = (2 ** -18) ** 2
 BRANCH_GAIN = 0.3
@@ -62,9 +68,9 @@ def _leaves(ref: nn.Module) -> Iterator[Tuple[str, nn.Module, str, torch.Tensor]
 
 
 def _rule(mod: nn.Module, p_name: str, shape, n: torch.Tensor,
-          parent_fc2: bool) -> torch.Tensor:
+          head: bool, bottleneck: bool) -> torch.Tensor:
     """The leaf's value from ``n`` (standard normal draws of its shape)."""
-    if isinstance(mod, R.EntropyBottleneck):
+    if bottleneck:
         if p_name.startswith("matrix_"):
             scale = EB_SCALE ** (1.0 / mod.n_layers)
             return math.log(math.expm1(1.0 / scale / shape[1])) + 0.1 * n
@@ -81,7 +87,7 @@ def _rule(mod: nn.Module, p_name: str, shape, n: torch.Tensor,
         return 1.0 + 0.05 * n if p_name == "weight" else 0.02 * n
     if p_name in ("relative_position_bias_table", "relative_position_params"):
         return 0.1 * n
-    if parent_fc2:
+    if head:
         fan_avg = (shape[1] + shape[0]) / 2 if p_name == "weight" else None
         return n * math.sqrt(0.01 / fan_avg) if p_name == "weight" else 0.2 * n
     if p_name == "bias":
@@ -101,13 +107,14 @@ _BRANCH_ENDS = ((L.ResidualBlock, "conv2"), (L.ResidualBlock3_5, "conv3"),
 
 def make_weights(ref: nn.Module, seed: int, device, latent_gain: float
                  ) -> Dict[str, torch.Tensor]:
-    """Every leaf of ``ref`` (by its state-dict name) from ``seed``: one
-    draw on ``device``, fp32."""
+    """Every leaf of ``ref``, a reference class's model (by its state-dict
+    name), from ``seed``: one draw on ``device``, fp32."""
     leaves = list(_leaves(ref))
     total = sum(p.numel() for *_, p in leaves)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     flat = torch.randn(total, generator=gen, device=device, dtype=torch.float32)
-    fc2 = {id(m.fc2) for m in ref.modules() if isinstance(m, R.ConvGenerator)}
+    heads = {id(ref.get_submodule(m)) for m in ref.GENERATOR_HEADS}
+    bottlenecks = {id(ref.get_submodule(m)) for m in ref.BOTTLENECKS}
     ends = {id(getattr(m, child)) for m in ref.modules() for cls, child in _BRANCH_ENDS
             if isinstance(m, cls)}
     out, off = {}, 0
@@ -115,14 +122,15 @@ def make_weights(ref: nn.Module, seed: int, device, latent_gain: float
         for name, mod, p_name, p in leaves:
             n = flat[off: off + p.numel()].view(p.shape)
             off += p.numel()
-            v = _rule(mod, p_name, tuple(p.shape), n, id(mod) in fc2)
+            v = _rule(mod, p_name, tuple(p.shape), n, id(mod) in heads,
+                      id(mod) in bottlenecks)
             if p_name == "weight" and id(mod) in ends:
                 v = v * BRANCH_GAIN
-            if name == "g_a.down3.weight":
+            if name == ref.LATENT_LEAF:
                 v = v * latent_gain
-            elif name.startswith("cc_scale_transforms.") and name.endswith(".c2.bias"):
+            elif any(fnmatchcase(name, pat) for pat in ref.SIGMA_BIASES):
                 v = v + SIGMA_BIAS
-            out[name] = v.contiguous()
+            out[name] = ref.leaf_rule(name, v).contiguous()
     return out
 
 
