@@ -72,6 +72,7 @@ stream on its own.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
 import time
@@ -648,7 +649,14 @@ class ChannelCoder:
         rows, the symbols and the scatter into the padded plane.
         ``stage(name)``, where given, is called after each step's
         "head", "rows" and "drain".  → (residuals (T, B, p_max, c) int,
-        rows (T, B, p_max, c) int32, plane (B, c, h, w), lanes)."""
+        rows (T, B, p_max, c) int32, plane (B, c, h, w), lanes).
+
+        Spans: the loop is ``coder.compress.wavefront`` or
+        ``coder.decompress.wavefront``; under it each step's gather, head
+        and rows are ``coder.wavefront.head`` and each decode step's drain
+        and scatter ``coder.wavefront.drain``.  Samples: the loop's T
+        (``coder.wavefront.steps``) and its real positions over its
+        p_max·T slots per image (``coder.wavefront.slot_use``)."""
         c = self.model.cfg.N - self.model.cfg.M
         b, _, hy, wy = h2.shape
         steps, p_max = self._ns_schedule(hy, wy)
@@ -658,26 +666,33 @@ class ChannelCoder:
         lanes = dev.init_lanes(payload) if payload is not None else None
         mark = stage or (lambda name: None)
         res_out, rows_out = [], []
-        for n, rr, cc, pt, qt in steps:
-            ypat = ypad[:, :, rr, cc]  # (B, c, p_max, 4, 4)
-            ypat[:, :, :, 3, 2:] = 0.0  # the causal mask
-            merged = torch.cat([ypat, hpad[:, :, rr, cc]], dim=1).transpose(1, 2)
-            mu, sg = _passes(self._ns_head, p, merged.contiguous())
-            mark("head")
-            rows, mu_i = self._ns_rows(mu, sg)  # (B, p_max, c)
-            mark("rows")
-            if payload is None:
-                yk = y_known[:, :, pt - 3, qt - 3].transpose(1, 2)  # (B, n, c)
-                vals = yk
-                res = torch.zeros_like(mu_i)
-                res[:, :n] = torch.clamp(yk - mu_i[:, :n], -_SYM_CLIP, _SYM_CLIP)
-                res_out.append(res)
-            else:
-                lanes, dec = rans_drain(dev, lanes, payload, rows.reshape(b, -1), n * c)
-                vals = dec.view(b, p_max, c)[:, :n] + mu_i[:, :n]
-            mark("drain")
-            ypad[:, :, pt, qt] = vals.transpose(1, 2).float()
-            rows_out.append(rows)
+        mode = "compress" if payload is None else "decompress"
+        drain = contextlib.nullcontext if payload is None else lambda: span("coder.wavefront.drain")
+        sample("coder.wavefront.steps", len(steps))
+        sample("coder.wavefront.slot_use", hy * wy / (p_max * len(steps)))
+        with span(f"coder.{mode}.wavefront"):
+            for n, rr, cc, pt, qt in steps:
+                with span("coder.wavefront.head"):
+                    ypat = ypad[:, :, rr, cc]  # (B, c, p_max, 4, 4)
+                    ypat[:, :, :, 3, 2:] = 0.0  # the causal mask
+                    merged = torch.cat([ypat, hpad[:, :, rr, cc]], dim=1).transpose(1, 2)
+                    mu, sg = _passes(self._ns_head, p, merged.contiguous())
+                    mark("head")
+                    rows, mu_i = self._ns_rows(mu, sg)  # (B, p_max, c)
+                    mark("rows")
+                with drain():
+                    if payload is None:
+                        yk = y_known[:, :, pt - 3, qt - 3].transpose(1, 2)  # (B, n, c)
+                        vals = yk
+                        res = torch.zeros_like(mu_i)
+                        res[:, :n] = torch.clamp(yk - mu_i[:, :n], -_SYM_CLIP, _SYM_CLIP)
+                        res_out.append(res)
+                    else:
+                        lanes, dec = rans_drain(dev, lanes, payload, rows.reshape(b, -1), n * c)
+                        vals = dec.view(b, p_max, c)[:, :n] + mu_i[:, :n]
+                    mark("drain")
+                    ypad[:, :, pt, qt] = vals.transpose(1, 2).float()
+                rows_out.append(rows)
         plane = ypad[:, :, 3 : 3 + hy, 3 : 3 + wy].contiguous(memory_format=torch.channels_last)
         res = torch.stack(res_out) if res_out else None
         return res, torch.stack(rows_out), plane, lanes
