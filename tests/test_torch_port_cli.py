@@ -25,8 +25,6 @@ with the JAX package's initial weights in a ``.npz`` that both load.
 import os
 import re
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -39,6 +37,7 @@ from lic_tpu_torch.config import CodecConfig
 from lic_tpu_torch.models.codec import CodecModel
 from lic_tpu_torch.models.compress import ChannelCoder
 from lic_tpu_torch.utils.checkpoint import load_params
+from jax_params import init_params
 
 torch.set_num_threads(2)
 
@@ -51,11 +50,8 @@ def weights(tmp_path_factory):
     from lic_tpu.utils.checkpoint import save_params
 
     model = JCodecModel(JCodecConfig(**TINY_FIELDS))
-    init = jax.jit(lambda k: model.init({"params": k, "noise": jax.random.PRNGKey(1)},
-                                        jnp.zeros((1, 64, 64, 3), jnp.float32), training=True))
-    v = init(jax.random.PRNGKey(0))
     path = tmp_path_factory.mktemp("w") / "tiny.npz"
-    save_params(str(path), v["params"])
+    save_params(str(path), init_params(model))
     return str(path)
 
 

@@ -31,6 +31,7 @@ from lic_tpu.models.presets import get_config as jget_config
 from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.compress import ChannelCoder
 from lic_tpu_torch.utils.params import params_from_flax
+from jax_params import init_params
 
 torch.set_num_threads(2)
 
@@ -49,13 +50,7 @@ def _nhwc(t):
 def pair():
     cfg = jget_config("source_net", n_override=32)
     jm = JCodecModel(cfg)
-    init = jax.jit(
-        lambda k: jm.init(
-            {"params": k, "noise": jax.random.PRNGKey(1)},
-            jnp.zeros((1, 64, 64, 3)), training=True,
-        )
-    )
-    params = jax.tree.map(np.array, init(jax.random.PRNGKey(0))["params"])
+    params = init_params(jm)
     tm = build_model("source_net", device="cpu", n_override=32)
     tm.load_state_dict(params_from_flax(params))
     rng = np.random.default_rng(3)

@@ -45,6 +45,7 @@ from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.compress import Z_RANGE, ChannelCoder
 from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.utils.params import flax_leaves, params_from_flax, state_from_flax, to_flax_layout
+from jax_params import init_params, wake
 
 torch.set_num_threads(2)
 
@@ -65,20 +66,9 @@ def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=ATOL)
 
 
-def _wake(tree, seed):
-    """Small seeded values for every all-zero leaf."""
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda a: np.array(a) if np.any(a)
-        else (rng.standard_normal(a.shape) * 0.05).astype(np.float32), tree)
-
-
 def _pair(name, seed=0):
     jm = JCodecModel(jget_config(name, n_override=N))
-    init = jax.jit(lambda k: jm.init(
-        {"params": k, "noise": jax.random.PRNGKey(1)}, jnp.zeros((1, 64, 64, 3)),
-        training=True))
-    params = _wake(init(jax.random.PRNGKey(seed))["params"], 7)
+    params = wake(init_params(jm, seed), 7)
     tm = build_model(name, device="cpu", n_override=N)
     tm.load_state_dict(params_from_flax(params, PRESETS[name]))
     return jm, params, tm
@@ -92,7 +82,7 @@ def cb():
 def _module(jmod, tmod, *inputs, seed=0, **kw):
     """Init ``jmod`` on ``inputs``, wake its zero leaves, carry them into
     ``tmod``; → (JAX params, the flax apply)."""
-    params = _wake(jmod.init(jax.random.PRNGKey(seed), *inputs, **kw)["params"], seed + 1)
+    params = wake(jmod.init(jax.random.PRNGKey(seed), *inputs, **kw)["params"], seed + 1)
     tmod.load_state_dict(state_from_flax(params, tmod))
     return params
 

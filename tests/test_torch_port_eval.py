@@ -51,6 +51,7 @@ from lic_tpu_torch.evaluation import (
 )
 from lic_tpu_torch.models.codec import CodecModel
 from lic_tpu_torch.utils.params import params_from_flax
+from jax_params import init_params
 
 torch.set_num_threads(2)
 
@@ -80,10 +81,7 @@ def tiny_port_model(params):
 @pytest.fixture(scope="module")
 def pair():
     jm = JCodecModel(JCodecConfig(**TINY_FIELDS))
-    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
-    init = jax.jit(lambda k: jm.init({"params": k, "noise": jax.random.PRNGKey(1)}, x,
-                                     training=True))
-    params = jax.tree.map(np.array, init(jax.random.PRNGKey(0))["params"])
+    params = init_params(jm)
     return jm, params, tiny_port_model(params)
 
 

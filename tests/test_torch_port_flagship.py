@@ -34,6 +34,7 @@ from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.compress import ChannelCoder
 from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.utils.params import params_from_flax, state_from_flax
+from jax_params import init_params, wake
 
 torch.set_num_threads(2)
 
@@ -50,24 +51,13 @@ def _nhwc(t):
     return t.detach().permute(0, 2, 3, 1).numpy()
 
 
-def _wake(tree, seed):
-    """Small seeded values for every all-zero leaf."""
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda a: np.array(a) if np.any(a)
-        else (rng.standard_normal(a.shape) * 0.05).astype(np.float32), tree)
-
-
 def _close(got, want):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=ATOL)
 
 
 def _pair(name):
     jm = JCodecModel(jget_config(name, n_override=N))
-    init = jax.jit(lambda k: jm.init(
-        {"params": k, "noise": jax.random.PRNGKey(1)}, jnp.zeros((1, 64, 64, 3)),
-        training=True))
-    params = _wake(init(jax.random.PRNGKey(0))["params"], 7)
+    params = wake(init_params(jm), 7)
     tm = build_model(name, device="cpu", n_override=N)
     tm.load_state_dict(params_from_flax(params, PRESETS[name]))
     x = np.random.default_rng(5).uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
@@ -116,7 +106,7 @@ def test_residual_blocks_with_1x1_skip_match(jcls, tcls, k):
     """A change of width: the 1×1 skip that no preset's block has."""
     x = np.random.default_rng(k).standard_normal((1, 6, 10, 12)).astype(np.float32)
     jmod = jcls(20)
-    params = _wake(jmod.init(jax.random.PRNGKey(k), jnp.asarray(x))["params"], k)
+    params = wake(jmod.init(jax.random.PRNGKey(k), jnp.asarray(x))["params"], k)
     tmod = tcls(12, 20)
     tmod.load_state_dict(state_from_flax(params, tmod))
     assert tmod.skip is not None

@@ -53,6 +53,7 @@ from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.models.syntax import PredictionModelSyntax
 from lic_tpu_torch.utils.checkpoint import load_params, save_params
 from lic_tpu_torch.utils.params import flax_leaves, params_from_flax, state_from_flax, to_flax_layout
+from jax_params import init_params, wake
 
 torch.set_num_threads(2)
 
@@ -73,20 +74,10 @@ def _close(got, want):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=ATOL)
 
 
-def _wake(tree, seed):
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda a: np.array(a) if np.any(a)
-        else (rng.standard_normal(a.shape) * 0.05).astype(np.float32), tree)
-
-
 @pytest.fixture(scope="module")
 def ns():
     jm = JCodecModel(jget_config("neural_syntax", n_override=N))
-    init = jax.jit(lambda k: jm.init(
-        {"params": k, "noise": jax.random.PRNGKey(1)}, jnp.zeros((1, 64, 64, 3)),
-        training=True))
-    params = _wake(init(jax.random.PRNGKey(0))["params"], 7)
+    params = wake(init_params(jm), 7)
     # a z2 σ per channel, not all ones: the digest and the z2 rows see it
     params["z2_sigma"] = np.random.default_rng(3).uniform(
         0.3, 3.0, params["z2_sigma"].shape).astype(np.float32)
@@ -196,8 +187,8 @@ def test_prediction_model_context_matches(masked):
     y = np.round(rng.standard_normal((2, 4, 6, 12)) * 3).astype(np.float32)
     h = rng.standard_normal((2, 4, 6, 20)).astype(np.float32)
     jmod = jctx.PredictionModelContext(dim=20, outdim=24)
-    params = _wake(jmod.init(jax.random.PRNGKey(1), jnp.asarray(y), jnp.asarray(h),
-                             masked)["params"], 2)
+    params = wake(jmod.init(jax.random.PRNGKey(1), jnp.asarray(y), jnp.asarray(h),
+                            masked)["params"], 2)
     tmod = tctx.PredictionModelContext(32, 20, 24)
     tmod.load_state_dict(state_from_flax(params, tmod))
     mu_j, s_j = jmod.apply({"params": params}, jnp.asarray(y), jnp.asarray(h), masked)
@@ -211,7 +202,7 @@ def test_prediction_model_context_matches(masked):
 def test_prediction_model_syntax_matches(variant):
     h = np.random.default_rng(5).standard_normal((2, 16, 20, 24)).astype(np.float32)
     jmod = JPredictionModelSyntax(dim=16, outdim=32, variant=variant)
-    params = _wake(jmod.init(jax.random.PRNGKey(3), jnp.asarray(h))["params"], 4)
+    params = wake(jmod.init(jax.random.PRNGKey(3), jnp.asarray(h))["params"], 4)
     tmod = PredictionModelSyntax(24, 16, 32, variant)
     tmod.load_state_dict(state_from_flax(params, tmod))
     mu_j, s_j = jmod.apply({"params": params}, jnp.asarray(h))

@@ -23,20 +23,14 @@ from lic_tpu.models.presets import get_config as jget_config
 from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.utils.params import SKIPPED_PREFIX, _flatten, params_from_flax
+from jax_params import init_params
 
 torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
 def tree():
-    jm = JCodecModel(jget_config("source_net", n_override=32))
-    init = jax.jit(
-        lambda k: jm.init(
-            {"params": k, "noise": jax.random.PRNGKey(1)},
-            jnp.zeros((1, 64, 64, 3)), training=True,
-        )
-    )
-    return jax.tree.map(np.array, init(jax.random.PRNGKey(0))["params"])
+    return init_params(JCodecModel(jget_config("source_net", n_override=32)))
 
 
 def test_every_key_filled_and_every_leaf_used(tree):

@@ -45,6 +45,7 @@ from lic_tpu_torch.layers.gdn import b2_takes
 from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.compress import ChannelCoder
 from lic_tpu_torch.utils.params import params_from_flax, state_from_flax
+from jax_params import init_params, wake
 
 torch.set_num_threads(2)
 
@@ -62,19 +63,12 @@ def _nhwc(t):
     return t.detach().float().permute(0, 2, 3, 1).numpy()
 
 
-def _jinit(cfg, hw=64):
+def _jinit(cfg):
     """The JAX model and its init, every all-zero leaf (biases, zero-init
     residual outputs) given small seeded values: at the init's zero biases
     the hyper decoder of an untrained model outputs exactly 0."""
     jm = JCodecModel(cfg)
-    init = jax.jit(lambda k: jm.init(
-        {"params": k, "noise": jax.random.PRNGKey(1)}, jnp.zeros((1, hw, hw, 3)),
-        training=True))
-    rng = np.random.default_rng(7)
-    return jm, jax.tree.map(
-        lambda a: np.array(a) if np.any(a)
-        else (rng.standard_normal(a.shape) * 0.05).astype(np.float32),
-        init(jax.random.PRNGKey(0))["params"])
+    return jm, wake(init_params(jm), 7)
 
 
 def _japply(jm, params, fn, *args):
@@ -93,11 +87,11 @@ def test_net_ga_bf16_forward_matches_jax_bf16_params():
     SWAtten stacks): JAX casts the mask to the logits' dtype
     (``lic_tpu/layers/swin.py:120``, ``win_attention.py:252``), and so does
     the port, so both stay in bf16 there."""
-    _bf16_forward_matches_jax("net_ga", init_hw=128)
+    _bf16_forward_matches_jax("net_ga")
 
 
-def _bf16_forward_matches_jax(preset, init_hw=64):
-    jm, params = _jinit(jget_config(preset, n_override=32), init_hw)
+def _bf16_forward_matches_jax(preset):
+    jm, params = _jinit(jget_config(preset, n_override=32))
     tm = build_model(preset, device="cpu", n_override=32)
     tm.load_state_dict(params_from_flax(params, tm.cfg))
     tm = tm.to(torch.bfloat16)

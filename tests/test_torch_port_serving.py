@@ -26,7 +26,6 @@ the JAX package's init, 64×64 and 128×64 images.
 
 import threading
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +39,7 @@ from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.serving import CodecService, ServiceStats
 from lic_tpu_torch.utils.params import params_from_flax
 from lic_tpu_torch.utils.profiling import records, reset_spans
+from jax_params import init_params
 
 torch.set_num_threads(2)
 
@@ -49,9 +49,7 @@ TIMEOUT = 300
 
 def _pair(name):
     jm = JCodecModel(jget_config(name, n_override=N))
-    init = jax.jit(lambda k: jm.init({"params": k, "noise": jax.random.PRNGKey(1)},
-                                     jnp.zeros((1, 64, 64, 3)), training=True))
-    params = jax.tree.map(np.array, init(jax.random.PRNGKey(0))["params"])
+    params = init_params(jm)
     tm = build_model(name, device="cpu", n_override=N)
     tm.load_state_dict(params_from_flax(params, PRESETS[name]))
     return jm, params, tm

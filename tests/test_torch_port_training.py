@@ -72,6 +72,7 @@ from lic_tpu_torch.utils.params import (
     state_from_flax,
     to_flax_layout,
 )
+from jax_params import init_params
 
 torch.set_num_threads(2)
 
@@ -274,9 +275,7 @@ def jax_training_run():
     cfg = jget_config("source_net", n_override=32)
     jm = JCodecModel(cfg)
     x = np.random.default_rng(12).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
-    init = jax.jit(lambda k: jm.init({"params": k, "noise": jax.random.PRNGKey(1)},
-                                     jnp.asarray(x), training=True))
-    params = jax.tree.map(np.array, init(jax.random.PRNGKey(0))["params"])
+    params = init_params(jm)
     tc = JTrainConfig()
     draws = []
     orig = jax.random.uniform

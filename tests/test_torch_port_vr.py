@@ -67,6 +67,7 @@ from lic_tpu_torch.utils.params import (
     params_from_flax,
     to_flax_layout,
 )
+from jax_params import init_params, wake
 
 torch.set_num_threads(2)
 
@@ -89,25 +90,10 @@ def _image(shape, seed):
     return np.random.default_rng(seed).uniform(-1, 1, shape).astype(np.float32)
 
 
-def _wake(tree, seed):
-    """Small seeded values for every all-zero leaf."""
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda a: np.array(a) if np.any(a)
-        else (rng.standard_normal(a.shape) * 0.05).astype(np.float32), tree)
-
-
-def _jax_init(cfg, seed=0):
-    jm = JCodecModel(cfg)
-    init = jax.jit(lambda k: jm.init({"params": k, "noise": jax.random.PRNGKey(1)},
-                                     jnp.zeros((1, 64, 64, 3)), training=True))
-    return jm, jax.tree.map(np.array, init(jax.random.PRNGKey(seed))["params"])
-
-
 @pytest.fixture(scope="module")
 def vr():
-    jm, params = _jax_init(jget_config(PRESET, n_override=N))
-    params = _wake(params, 3)
+    jm = JCodecModel(jget_config(PRESET, n_override=N))
+    params = wake(init_params(jm), 3)
     tm = build_model(PRESET, device="cpu", n_override=N)
     tm.load_state_dict(params_from_flax(params, PRESETS[PRESET]))
     return jm, params, tm
@@ -250,8 +236,8 @@ def test_ltc_mixed_rate_batch_crosses_both_ways(coders):
 def test_woken_source_net_ltc_crosses_both_ways():
     """``source_net`` with its EB woken: the streams of both packages
     equal, and each decodes with the other (ROADMAP §C7)."""
-    jm, params = _jax_init(jget_config("source_net", n_override=N), seed=2)
-    params = _wake(params, 4)
+    jm = JCodecModel(jget_config("source_net", n_override=N))
+    params = wake(init_params(jm, 2), 4)
     assert np.any(params["entropy_bottleneck"]["factor_0"])
     tm = build_model("source_net", device="cpu", n_override=N)
     tm.load_state_dict(params_from_flax(params))

@@ -39,6 +39,7 @@ from lic_tpu_torch.models import build_model
 from lic_tpu_torch.models.compress import ChannelCoder
 from lic_tpu_torch.models.presets import PRESETS
 from lic_tpu_torch.utils.params import params_from_flax, state_from_flax
+from jax_params import init_params, wake
 
 torch.set_num_threads(2)
 
@@ -56,15 +57,7 @@ def _nhwc(t):
 
 def _wake_zero_leaves(tree, seed):
     """Small random values for the zero-init kernels under the WAM gates."""
-    rng = np.random.default_rng(seed)
-
-    def f(path, leaf):
-        keys = "/".join(str(getattr(p, "key", p)) for p in path)
-        if "wam" in keys and keys.endswith("kernel") and not np.any(leaf):
-            return (rng.standard_normal(leaf.shape) * 0.05).astype(np.float32)
-        return np.array(leaf)
-
-    return jax.tree_util.tree_map_with_path(f, tree)
+    return wake(tree, seed, where=lambda key: "wam" in key and key.endswith("kernel"))
 
 
 def _attn_inputs(seed, b, hp, wp, c, nh, ws, shift, pad):
@@ -148,13 +141,7 @@ def test_win_noshift_attention_matches(ws, shift):
 @pytest.fixture(scope="module")
 def wam_pair():
     jm = JCodecModel(jget_config("source_net_wam", n_override=32))
-    init = jax.jit(
-        lambda k: jm.init(
-            {"params": k, "noise": jax.random.PRNGKey(1)},
-            jnp.zeros((1, 64, 64, 3)), training=True,
-        )
-    )
-    params = _wake_zero_leaves(init(jax.random.PRNGKey(0))["params"], 7)
+    params = _wake_zero_leaves(init_params(jm), 7)
     tm = build_model("source_net_wam", device="cpu", n_override=32)
     tm.load_state_dict(params_from_flax(params, PRESETS["source_net_wam"]))
     x = np.random.default_rng(5).uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
